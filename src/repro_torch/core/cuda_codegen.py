@@ -1,0 +1,831 @@
+"""Kernel K1: one generated CUDA kernel per fused plan group.
+
+Replaces the reference's generic fused-group Pallas kernel
+(``repro/core/codegen.py:96`` ``_group_pallas_fn``).  Like the paper's
+compiler, this is a source-to-source generator: it glues the per-point
+CUDA C expressions of a group's elementaries (``Elementary.cuda``) into
+one ``__global__`` function, emits one ``.cu`` per plan holding all its
+groups, and builds it with ``nvcc`` for ``sm_90a`` (``kernels._build``).
+
+Bound and design.  Every BLAS group moves O(1) bytes per flop, far below
+the H100's ridge point (about 20 f32 flops per byte against 67 TFLOP/s
+and 3.35 TB/s), so the bound is the bytes: each input read once, each
+output written once.  The design keeps each group one pass over its
+operands: map intermediates stay in registers, reductions combine in
+registers and shared memory, and only group outputs (and the consumed
+reductions of multi-phase groups) touch device memory.
+
+The plan's ``order``, ``blocks`` and ``grid`` (``Impl``) are the
+semantics; the TPU ran its grid in order on one core, a CUDA grid runs
+in parallel and in no order, so the generator maps them as follows:
+
+* **Work units.**  Per phase, the axes that the phase's ``acc`` outputs
+  and consumed reductions reduce over (an innermost suffix of the order)
+  are *serial*: one CTA walks their whole range in plan order, which
+  replaces the reference's revisited output block.  Axes that the
+  phase's ``partial`` outputs reduce over are cut at the plan's tiles,
+  one partial per plan tile, combined after the kernel.  All other axes
+  are *free* — nothing reduces over them — and are re-tiled for the card
+  (split or merged), which changes no result.  Each CTA takes work units
+  grid-stride.
+* **Phases.**  A group that consumes a finished reduction
+  (``call_phases`` > 1) is one cooperative launch with a grid barrier
+  between phases; its grid is sized by occupancy so every CTA is
+  co-resident.  Consumed reductions live in a device workspace the
+  wrapper allocates; map values are recomputed per phase.
+* **Reductions.**  With 256 threads as 8 rows x 32 lanes (lanes along
+  the contiguous axis), a reduction over the lane axis is a warp
+  shuffle per sub-tile into a per-row shared accumulator; a reduction
+  over the row axis accumulates per thread in shared memory and the 8
+  rows are combined at the end of the unit; a full reduction
+  accumulates in registers and ends in a block reduction.  The order is
+  fixed, so results do not change from run to run.  No global atomics.
+* **No host synchronisation.**  Scalars — inputs and finished
+  reductions alike — travel as one-element device tensors.
+
+Beside the kernel: ``tiled_reference``, the plain torch version that
+walks the plan's tiles with the reference's schedule, and ``LAUNCHES``,
+the launch counter.  A ``GroupKernel`` takes the plain version only for
+tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import dataclasses
+import itertools
+import math
+
+import numpy as np
+import torch
+
+from .diagnostics import UnsupportedGroupError
+from .fusion import call_phases, consumed_reductions
+from .graph import Graph, Var
+from .predictor import Impl, accumulable, reduce_roots_of
+
+#: threads per CTA: 8 rows x 32 lanes for depth-2 groups, 256 lanes at depth 1
+NT = 256
+ROWS, LANES = 8, 32
+#: work units wanted per phase before free axes stop being merged
+#: (four per SM of an H100)
+TARGET_UNITS = 4 * 132
+#: merged free chunks stay within this many sub-tiles per axis
+MAX_MERGE = 16
+#: shared-memory ceiling for one CTA's accumulators (of 227 KB)
+SMEM_LIMIT = 200 * 1024
+
+_MONOID_CUDA = {"sum": "k1::Sum", "max": "k1::Max", "min": "k1::Min"}
+
+
+class CudaLaunchError(RuntimeError):
+    """A K1 launch was refused or failed (non-zero ``cudaError_t``)."""
+
+
+# ---------------------------------------------------------------------------
+# launch counter
+# ---------------------------------------------------------------------------
+
+class LaunchCounter:
+    """Launches of generated K1 kernels, by kernel name.  Only
+    ``GroupKernel.launch`` adds to it."""
+
+    def __init__(self):
+        self.by_kernel: collections.Counter = collections.Counter()
+
+    @property
+    def total(self) -> int:
+        return sum(self.by_kernel.values())
+
+    def add(self, name: str):
+        self.by_kernel[name] += 1
+
+    def reset(self):
+        self.by_kernel.clear()
+
+
+LAUNCHES = LaunchCounter()
+
+
+# ---------------------------------------------------------------------------
+# group analysis (shared by the generator and the plain version)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _Red:
+    """One reduction with a side effect in its phase."""
+
+    call: object                  # CallNode
+    rr: tuple[int, ...]           # reduce roots, fusion axis order
+    consumed: bool                # carried to later phases in the workspace
+    out_mode: str | None          # "acc" | "partial" | None (not an output)
+
+
+@dataclasses.dataclass
+class _Phase:
+    reds: list[_Red]
+    serial: set
+    tiled: set
+    chunk: dict                   # root -> box extent along it
+    unit_axes: tuple              # non-serial roots, plan order
+    units: int
+
+
+def _group_names(f) -> str:
+    return "+".join(c.elem.name for c in f.calls)
+
+
+class GroupLayout:
+    """What K1 needs to know about one group: phases, output modes,
+    work units.  Raises ``UnsupportedGroupError`` (RPL214) for a group
+    the backend cannot emit."""
+
+    def __init__(self, g: Graph, impl: Impl):
+        f = impl.fusion
+        self.g, self.impl, self.f = g, impl, f
+        names = _group_names(f)
+        self.names = names
+        loc = f"plan.group[{names}]"
+        self.sizes = dict(zip(f.axis_roots, f.axis_sizes))
+        self.order = impl.order
+        self.blk = dict(zip(impl.order, impl.blocks))
+        self.grid = dict(zip(impl.order, impl.grid))
+        self.phase_of, self.n_phases = call_phases(f, g)
+        self.consumed = {c.idx for c in consumed_reductions(f, g)}
+        self.outputs = list(f.outputs)
+
+        if f.depth > 2:
+            raise UnsupportedGroupError.single(
+                "RPL214", loc, f"cuda backend cannot emit group [{names}]: "
+                f"depth {f.depth} > 2")
+        for v in list(f.external_inputs) + list(f.outputs):
+            if np.dtype(v.dtype) != np.float32:
+                raise UnsupportedGroupError.single(
+                    "RPL214", loc, f"cuda backend cannot emit group "
+                    f"[{names}]: {v.name} has dtype {np.dtype(v.dtype)}, "
+                    f"the generated kernels take float32 only")
+        for c in consumed_reductions(f, g):
+            if not accumulable(c.out, f, g, self.order):
+                raise UnsupportedGroupError.single(
+                    "RPL214", loc,
+                    f"cuda backend cannot emit group [{names}]: reduction "
+                    f"'{c.elem.name}' is consumed in-kernel but its reduce "
+                    f"axes are not the innermost suffix of grid order "
+                    f"{self.order}, so no phase can finish it before its "
+                    f"consumers run; use an accumulable order or split "
+                    f"the group")
+        resolvable = set(f.external_inputs)
+        for c in f.calls:
+            bad = sorted({a.producer.elem.name for a in c.args
+                          if a not in resolvable and a.producer is not None})
+            if bad:
+                raise UnsupportedGroupError.single(
+                    "RPL214", loc, f"cuda backend cannot emit group "
+                    f"[{names}]: call '{c.elem.name}' consumes the output "
+                    f"of {bad}, which never becomes visible inside the "
+                    f"kernel")
+            if not c.elem.is_reduction or c.idx in self.consumed:
+                resolvable.add(c.out)
+
+        # thread extent per axis; the lane axis is the contiguous one
+        if f.depth == 2:
+            mats = [v for v in list(f.external_inputs) + list(f.outputs)
+                    + list(f.internal_vars) if len(v.shape) == 2]
+            self.lane = (g.axis_root(mats[0].axis_ids[-1]) if mats
+                         else f.axis_roots[-1])
+            self.row = next(r for r in f.axis_roots if r != self.lane)
+            self.coord = {self.row: "ci", self.lane: "cj"}
+            self.extent = {self.row: ROWS, self.lane: LANES}
+        else:
+            self.lane, self.row = f.axis_roots[0], None
+            self.coord = {self.lane: "ca"}
+            self.extent = {self.lane: NT}
+
+        self.out_mode = {}
+        for v in self.outputs:
+            if v.producer.elem.is_reduction:
+                self.out_mode[v] = ("acc" if accumulable(v, f, g, self.order)
+                                    else "partial")
+            else:
+                self.out_mode[v] = "map"
+        self.phases = [self._phase(p, loc) for p in range(self.n_phases)]
+
+    def roots_of(self, v: Var) -> tuple[int, ...]:
+        return tuple(self.g.axis_root(a) for a in v.axis_ids)
+
+    def lead_shape(self, v: Var) -> tuple[int, ...]:
+        """Leading partial axes of a ``partial`` output: one per plan
+        tile along its reduce axes (the reference's ``lead``)."""
+        return tuple(self.grid[r] for r in reduce_roots_of(v, self.f, self.g))
+
+    def _phase(self, p: int, loc: str) -> _Phase:
+        f, g = self.f, self.g
+        reds = []
+        for c in f.calls:
+            if not c.elem.is_reduction or self.phase_of[c.idx] != p:
+                continue
+            consumed = c.idx in self.consumed
+            mode = self.out_mode.get(c.out)
+            if consumed or mode is not None:
+                reds.append(_Red(c, reduce_roots_of(c.out, f, g), consumed,
+                                 mode))
+        serial, tiled = set(), set()
+        for r in reds:
+            if r.consumed or r.out_mode == "acc":
+                serial |= set(r.rr)
+        for r in reds:
+            if r.out_mode == "partial" and not r.consumed:
+                if set(r.rr) & serial:
+                    raise UnsupportedGroupError.single(
+                        "RPL214", loc, f"cuda backend cannot emit group "
+                        f"[{self.names}]: partial output "
+                        f"{r.call.out.name} reduces over an axis that "
+                        f"another reduction of its phase walks serially")
+                tiled |= set(r.rr)
+        chunk = {}
+        for r in self.order:
+            if r in serial:
+                chunk[r] = self.sizes[r]
+            elif r in tiled:
+                chunk[r] = self.blk[r]
+            else:
+                chunk[r] = min(self.extent[r], self.sizes[r])
+        unit_axes = tuple(r for r in self.order if r not in serial)
+
+        def units_of(ch):
+            return math.prod(-(-self.sizes[r] // ch[r]) for r in unit_axes)
+
+        # merge free tiles while enough units remain to fill the card
+        free = [r for r in (self.lane, self.row) if r is not None
+                and r not in serial and r not in tiled]
+        for r in free:
+            while (chunk[r] < self.sizes[r]
+                   and chunk[r] * 2 <= self.extent[r] * MAX_MERGE
+                   and units_of({**chunk, r: chunk[r] * 2}) >= TARGET_UNITS):
+                chunk[r] *= 2
+        return _Phase(reds=reds, serial=serial, tiled=tiled, chunk=chunk,
+                      unit_axes=unit_axes, units=units_of(chunk))
+
+    @property
+    def units(self) -> int:
+        return max(ph.units for ph in self.phases)
+
+    def red_kind(self, red: _Red) -> str:
+        kept = set(self.f.axis_roots) - set(red.rr)
+        if not kept:
+            return "scalar"
+        return "rowsum" if kept == {self.row} else "colsum"
+
+
+# ---------------------------------------------------------------------------
+# source generation
+# ---------------------------------------------------------------------------
+
+def _offset(lay: GroupLayout, v: Var, coord: dict) -> str:
+    """Row-major element offset of ``v`` at the given coordinates."""
+    terms, stride = [], 1
+    for r, n in zip(reversed(lay.roots_of(v)), reversed(v.shape)):
+        terms.append(coord[r] if stride == 1 else f"{coord[r]} * {stride}LL")
+        stride *= n
+    return " + ".join(reversed(terms)) if terms else "0"
+
+
+class _Emitter:
+    def __init__(self, lay: GroupLayout, name: str):
+        self.lay, self.name = lay, name
+        f = lay.f
+        self.ins = {v: k for k, v in enumerate(f.external_inputs)}
+        self.outs = {v: k for k, v in enumerate(lay.outputs)}
+        self.ws = {c.idx: k for k, c in enumerate(
+            c for c in f.calls if c.idx in lay.consumed)}
+        self.lines: list[str] = []
+        self.smem_floats = 0
+
+    def emit(self, s: str = "", ind: int = 0):
+        self.lines.append("  " * ind + s if s else "")
+
+    # -- per-point value of an argument --------------------------------------
+    def arg(self, a: Var) -> str:
+        if a in self.ins:
+            k = self.ins[a]
+            return f"s{k}" if a.shape == () else f"x{k}"
+        return f"v{a.producer.idx}"
+
+    def needed(self, p: int, ph: _Phase):
+        """Calls evaluated per point in phase ``p``: the phase's side
+        effects and, transitively, the maps they read; finished consumed
+        reductions of earlier phases are read from the workspace."""
+        lay = self.lay
+        need, stack = set(), []
+        for c in lay.f.calls:
+            if lay.phase_of[c.idx] != p:
+                continue
+            if (c.elem.is_reduction and any(r.call is c for r in ph.reds)) or \
+                    (not c.elem.is_reduction and c.out in self.outs):
+                stack.append(c)
+        while stack:
+            c = stack.pop()
+            if c.idx in need:
+                continue
+            need.add(c.idx)
+            if c.elem.is_reduction and lay.phase_of[c.idx] < p:
+                continue                      # workspace read, no args
+            for a in c.args:
+                if a.producer is not None and a not in self.ins:
+                    stack.append(a.producer)
+        return [c for c in lay.f.calls if c.idx in need]
+
+    # -- one phase -------------------------------------------------------------
+    def phase(self, p: int, ph: _Phase):
+        lay, e = self.lay, self.emit
+        depth2 = lay.row is not None
+        calls = self.needed(p, ph)
+        kinds = {id(r): lay.red_kind(r) for r in ph.reds}
+
+        # shared-memory accumulators
+        base, acc_at = 0, {}
+        for r in ph.reds:
+            kind = kinds[id(r)]
+            if kind == "rowsum":
+                acc_at[id(r)] = (base, ph.chunk[lay.row])
+                base += ph.chunk[lay.row]
+            elif kind == "colsum":
+                acc_at[id(r)] = (base, ph.chunk[lay.lane])
+                base += ROWS * ph.chunk[lay.lane]
+        red_at = base
+        if any(kinds[id(r)] == "scalar" for r in ph.reds):
+            base += NT // 32
+        self.smem_floats = max(self.smem_floats, base)
+
+        e(f"// phase {p}: {ph.units} work unit(s); serial axes "
+          f"{sorted(lay.f.axis_roots.index(r) for r in ph.serial)}", 1)
+        e(f"for (long long u = blockIdx.x; u < {ph.units}LL; "
+          f"u += gridDim.x) {{", 1)
+        if ph.unit_axes:
+            e("long long rest = u;", 2)
+        for r in reversed(ph.unit_axes):
+            n = lay.sizes[r]
+            cnt = -(-n // ph.chunk[r])
+            c = lay.coord[r]
+            e(f"const long long t_{c} = rest % {cnt}LL; rest /= {cnt}LL;", 2)
+            e(f"const long long {c}0 = t_{c} * {ph.chunk[r]}LL;", 2)
+            e(f"const long long {c}1 = min({c}0 + {ph.chunk[r]}LL, {n}LL);", 2)
+        for r in sorted(ph.serial, key=lay.order.index):
+            c = lay.coord[r]
+            e(f"const long long {c}0 = 0, {c}1 = {lay.sizes[r]}LL;", 2)
+        for r in ph.reds:
+            kind, mon = kinds[id(r)], _MONOID_CUDA[r.call.elem.monoid.value]
+            k = r.call.idx
+            if kind == "scalar":
+                e(f"float reg{k} = {mon}::id();", 2)
+            else:
+                off, n = acc_at[id(r)]
+                size = n if kind == "rowsum" else ROWS * n
+                e(f"for (int k = tid; k < {size}; k += {NT}) "
+                  f"smem[{off} + k] = {mon}::id();", 2)
+        e("__syncthreads();", 2)
+
+        # the sub-tile loops, in plan order
+        if depth2:
+            step = {lay.row: ("rb", "ci", ROWS, "ti"),
+                    lay.lane: ("cb", "cj", LANES, "tj")}
+            ind = 2
+            for r in lay.order:
+                b, c, s, _ = step[r]
+                e(f"for (long long {b} = {c}0; {b} < {c}1; {b} += {s}) {{", ind)
+                ind += 1
+            e("const long long ci = rb + ti, cj = cb + tj;", ind)
+            e("const bool ok = ci < ci1 && cj < cj1;", ind)
+        else:
+            e("for (long long ab = ca0; ab < ca1; ab += 256) {", 2)
+            ind = 3
+            e("const long long ca = ab + tid;", ind)
+            e("const bool ok = ca < ca1;", ind)
+        self.body(p, ph, calls, kinds, acc_at, ind)
+        n_loops = 2 if depth2 else 1
+        for k in range(n_loops):
+            e("}", ind - 1 - k)
+        e("__syncthreads();", 2)
+        for r in ph.reds:
+            self.finalize(r, kinds[id(r)], acc_at, red_at, ph)
+        e("__syncthreads();", 2)
+        e("}", 1)
+
+    def body(self, p, ph, calls, kinds, acc_at, ind):
+        lay, e = self.lay, self.emit
+        reds = {r.call.idx: r for r in ph.reds}
+        for c in calls:
+            if c.elem.is_reduction and c.idx in reds:
+                mon = _MONOID_CUDA[c.elem.monoid.value]
+                e(f"float p{c.idx} = {mon}::id();", ind)
+            else:
+                e(f"float v{c.idx} = 0.0f;", ind)
+        e("if (ok) {", ind)
+        loaded = set()
+        for c in calls:
+            if c.elem.is_reduction and lay.phase_of[c.idx] < p:
+                w = self.ws[c.idx]
+                e(f"v{c.idx} = ws{w}[{_offset(lay, c.out, lay.coord)}];",
+                  ind + 1)
+                continue
+            for a in c.args:
+                if a in self.ins and a.shape != () and a not in loaded:
+                    loaded.add(a)
+                    k = self.ins[a]
+                    e(f"const float x{k} = in{k}[{_offset(lay, a, lay.coord)}];",
+                      ind + 1)
+            expr = c.elem.cuda_expr(*(self.arg(a) for a in c.args))
+            if c.elem.is_reduction:
+                e(f"p{c.idx} = {expr};", ind + 1)
+            else:
+                e(f"v{c.idx} = {expr};", ind + 1)
+                if c.out in self.outs and lay.phase_of[c.idx] == p:
+                    o = self.outs[c.out]
+                    e(f"out{o}[{_offset(lay, c.out, lay.coord)}] = v{c.idx};",
+                      ind + 1)
+        e("}", ind)
+        for r in ph.reds:
+            kind, k = kinds[id(r)], r.call.idx
+            mon = _MONOID_CUDA[r.call.elem.monoid.value]
+            if kind == "scalar":
+                e(f"reg{k} = {mon}::op(reg{k}, p{k});", ind)
+            elif kind == "rowsum":
+                off, _ = acc_at[id(r)]
+                e(f"{{ const float w = k1::warp_reduce<{mon}>(p{k});", ind)
+                e(f"  if (tj == 0 && ci < ci1) smem[{off} + (ci - ci0)] = "
+                  f"{mon}::op(smem[{off} + (ci - ci0)], w); }}", ind)
+            else:
+                off, n = acc_at[id(r)]
+                at = f"smem[{off} + ti * {n} + (cj - cj0)]"
+                e(f"if (ok) {at} = {mon}::op({at}, p{k});", ind)
+
+    def finalize(self, r: _Red, kind, acc_at, red_at, ph):
+        lay, e = self.lay, self.emit
+        v, mon = r.call.out, _MONOID_CUDA[r.call.elem.monoid.value]
+        k = r.call.idx
+
+        def writes(ind):
+            off = _offset(lay, v, lay.coord)
+            if r.consumed:
+                e(f"ws{self.ws[k]}[{off}] = val;", ind)
+            if r.out_mode == "acc":
+                e(f"out{self.outs[v]}[{off}] = val;", ind)
+            elif r.out_mode == "partial":
+                lead, stride = [], 1
+                rr = reduce_roots_of(v, lay.f, lay.g)
+                for rt in reversed(rr):
+                    lead.append(f"t_{lay.coord[rt]} * {stride}LL")
+                    stride *= lay.grid[rt]
+                numel = math.prod(v.shape)
+                e(f"out{self.outs[v]}[({' + '.join(lead)}) * {numel}LL + "
+                  f"{off}] = val;", ind)
+
+        if kind == "scalar":
+            e(f"{{ const float val = k1::block_reduce<{mon}, {NT}>("
+              f"reg{k}, smem + {red_at});", 2)
+            e("  if (tid == 0) {", 2)
+            writes(4)
+            e("  } }", 2)
+        elif kind == "rowsum":
+            off, _ = acc_at[id(r)]
+            e(f"for (long long k = tid; k < ci1 - ci0; k += {NT}) {{", 2)
+            e(f"const float val = smem[{off} + k]; const long long ci = ci0 + k;",
+              3)
+            writes(3)
+            e("}", 2)
+        else:
+            off, n = acc_at[id(r)]
+            e(f"for (long long k = tid; k < cj1 - cj0; k += {NT}) {{", 2)
+            e(f"float val = {mon}::id();", 3)
+            e(f"for (int t = 0; t < {ROWS}; ++t) "
+              f"val = {mon}::op(val, smem[{off} + t * {n} + k]);", 3)
+            e("const long long cj = cj0 + k;", 3)
+            writes(3)
+            e("}", 2)
+
+    # -- the kernel and its launcher ---------------------------------------------
+    def source(self) -> str:
+        lay, e = self.lay, self.emit
+        f = lay.f
+        params = ([f"const float* __restrict__ in{k}" for k in self.ins.values()]
+                  + [f"float* __restrict__ out{k}" for k in self.outs.values()]
+                  + [f"float* __restrict__ ws{k}" for k in self.ws.values()])
+        body = _Emitter(lay, self.name)
+        for p, ph in enumerate(lay.phases):
+            if p:
+                body.emit("k1::grid_barrier();", 1)
+            body.phase(p, ph)
+        smem = body.smem_floats * 4
+        if smem > SMEM_LIMIT:
+            raise UnsupportedGroupError.single(
+                "RPL214", f"plan.group[{lay.names}]",
+                f"cuda backend cannot emit group [{lay.names}]: its "
+                f"accumulators need {smem} bytes of shared memory, more "
+                f"than {SMEM_LIMIT}")
+        e(f"// group [{lay.names}]: order {self.order_desc()}, blocks "
+          f"{lay.impl.blocks}, grid {lay.impl.grid}, {lay.n_phases} phase(s)")
+        e(f"extern \"C\" __global__ void __launch_bounds__({NT}) {self.name}(")
+        e("    " + ",\n    ".join(params) + ") {")
+        e("extern __shared__ float smem[];", 1)
+        e("const int tid = threadIdx.x;", 1)
+        if lay.row is not None:
+            e("const int ti = tid >> 5, tj = tid & 31;", 1)
+        for v, k in self.ins.items():
+            if v.shape == ():
+                e(f"const float s{k} = in{k}[0];", 1)
+        self.lines += body.lines
+        e("}")
+        e()
+        n = len(params)
+        args = ", ".join(f"void* p{k}" for k in range(n))
+        casts = [f"({p.rsplit(' ', 1)[0].replace(' __restrict__', '')})p{k}"
+                 for k, p in enumerate(params)]
+        e(f"extern \"C\" int {self.name}_launch({args}, void* stream) {{")
+        e("static int grid = 0;", 1)
+        e(f"const int smem = {smem};", 1)
+        e("if (grid == 0) {", 1)
+        e("cudaError_t err;", 2)
+        e("if (smem > 48 * 1024) {", 2)
+        e(f"err = cudaFuncSetAttribute({self.name}, "
+          f"cudaFuncAttributeMaxDynamicSharedMemorySize, smem);", 3)
+        e("if (err != cudaSuccess) return (int)err;", 3)
+        e("}", 2)
+        e("int dev = 0, sms = 0, per_sm = 0;", 2)
+        e("if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;", 2)
+        e("if ((err = cudaDeviceGetAttribute(&sms, "
+          "cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;",
+          2)
+        e(f"if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, "
+          f"{self.name}, {NT}, smem)) != cudaSuccess) return (int)err;", 2)
+        e("if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;", 2)
+        e("const long long cap = (long long)per_sm * sms;", 2)
+        e(f"grid = (int)({lay.units}LL < cap ? {lay.units}LL : cap);", 2)
+        e("}", 1)
+        for k, (p, c) in enumerate(zip(params, casts)):
+            decl = p.replace(" __restrict__", "")
+            e(f"{decl} = {c};", 1)
+        e("cudaStream_t s = (cudaStream_t)stream;", 1)
+        names = [p.rsplit(" ", 1)[1] for p in params]
+        if lay.n_phases > 1:
+            e("void* args[] = {" + ", ".join(f"(void*)&{a}" for a in names)
+              + "};", 1)
+            e(f"cudaError_t err = cudaLaunchCooperativeKernel((const void*)"
+              f"{self.name}, dim3(grid), dim3({NT}), args, (size_t)smem, s);",
+              1)
+            e("if (err != cudaSuccess) return (int)err;", 1)
+        else:
+            e(f"{self.name}<<<grid, {NT}, smem, s>>>({', '.join(names)});", 1)
+        e("return (int)cudaGetLastError();", 1)
+        e("}")
+        return "\n".join(self.lines) + "\n"
+
+    def order_desc(self) -> str:
+        return str(tuple(self.lay.f.axis_roots.index(r) for r in self.lay.order))
+
+
+def group_source(g: Graph, impl: Impl, name: str) -> str:
+    """CUDA source of one group's kernel ``name`` and its C launcher
+    ``name_launch(pointers..., stream) -> cudaError_t``."""
+    return _Emitter(GroupLayout(g, impl), name).source()
+
+
+def kernel_name(gi: int) -> str:
+    return f"k1_g{gi}"
+
+
+def plan_source(g: Graph, impls) -> str:
+    """One translation unit holding every group of a plan."""
+    parts = ["// Generated by repro_torch.core.cuda_codegen (kernel K1).",
+             '#include "fused_group.cuh"', ""]
+    for gi, im in enumerate(impls):
+        parts.append(group_source(g, im, kernel_name(gi)))
+    return "\n".join(parts)
+
+
+# ---------------------------------------------------------------------------
+# the plain tiled version
+# ---------------------------------------------------------------------------
+
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
+                 np.dtype(np.float64): torch.float64,
+                 np.dtype(np.float16): torch.float16,
+                 np.dtype(np.int32): torch.int32}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    return _TORCH_DTYPES[np.dtype(dtype)]
+
+
+def _index(lay_roots, sl: dict):
+    idx = tuple(sl.get(r, slice(None)) for r in lay_roots)
+    return idx if idx else ...
+
+
+def tiled_reference(g: Graph, impl: Impl, *ext_vals: torch.Tensor):
+    """Plain torch version of K1 for one group, on the plan's schedule.
+
+    Walks the tiles of the axes the phase's reductions reduce over in
+    plan order, the other axes whole: ``acc`` outputs start at the first
+    tile along their reduce axes and combine in tile order, ``partial``
+    outputs write one partial per plan tile (combined at the end, as the
+    reference does), consumed reductions accumulate into a full-size
+    scratch read back by later phases, and phases run in turn.  Accepts
+    any dtype (it is the reference the kernel is held against)."""
+    f = impl.fusion
+    phase_of, n_phases = call_phases(f, g)
+    consumed = {c.idx for c in consumed_reductions(f, g)}
+    sizes = dict(zip(f.axis_roots, f.axis_sizes))
+    blk = dict(zip(impl.order, impl.blocks))
+    grid = dict(zip(impl.order, impl.grid))
+    dev = ext_vals[0].device if ext_vals else torch.device("cpu")
+
+    def roots(v):
+        return tuple(g.axis_root(a) for a in v.axis_ids)
+
+    ext = dict(zip(f.external_inputs, ext_vals))
+    mode, out = {}, {}
+    for v in f.outputs:
+        if not v.producer.elem.is_reduction:
+            mode[v] = "map"
+            out[v] = torch.empty(v.shape, dtype=torch_dtype(v.dtype), device=dev)
+        elif accumulable(v, f, g, impl.order):
+            mode[v] = "acc"
+            out[v] = torch.empty(v.shape, dtype=torch_dtype(v.dtype), device=dev)
+        else:
+            mode[v] = "partial"
+            lead = tuple(grid[r] for r in reduce_roots_of(v, f, g))
+            out[v] = torch.empty(lead + v.shape, dtype=torch_dtype(v.dtype),
+                                 device=dev)
+    scratch = {c.idx: torch.empty(c.out.shape, dtype=torch_dtype(c.out.dtype),
+                                  device=dev)
+               for c in f.calls if c.idx in consumed}
+
+    for p in range(n_phases):
+        reds = [c for c in f.calls if c.elem.is_reduction
+                and phase_of[c.idx] == p
+                and (c.idx in consumed or c.out in mode)]
+        loop_set = {r for c in reds for r in reduce_roots_of(c.out, f, g)}
+        loop_axes = [r for r in impl.order if r in loop_set]
+        for tiles in itertools.product(*(range(grid[r]) for r in loop_axes)):
+            tile = dict(zip(loop_axes, tiles))
+            sl = {r: slice(t * blk[r], min((t + 1) * blk[r], sizes[r]))
+                  for r, t in tile.items()}
+            env = {}
+
+            def val(a):
+                if a in ext:
+                    x = ext[a]
+                    return x if a.shape == () else x[_index(roots(a), sl)]
+                return env[a]
+
+            for c in f.calls:
+                if phase_of[c.idx] > p:
+                    continue
+                if c.elem.is_reduction and phase_of[c.idx] < p:
+                    if c.idx in consumed:
+                        env[c.out] = scratch[c.idx][_index(roots(c.out), sl)]
+                    continue
+                v = c.elem.fn(*[val(a) for a in c.args])
+                if not c.elem.is_reduction:
+                    env[c.out] = v
+                    if mode.get(c.out) == "map" and phase_of[c.idx] == p:
+                        out[c.out][_index(roots(c.out), sl)] = v
+                    continue
+                rr = reduce_roots_of(c.out, f, g)
+                first = all(tile[r] == 0 for r in rr)
+                at = _index(roots(c.out), sl)
+                m = c.elem.monoid
+                if c.idx in consumed:
+                    s = scratch[c.idx]
+                    s[at] = v if first else m.combine(s[at], v)
+                if mode.get(c.out) == "acc":
+                    o = out[c.out]
+                    o[at] = v if first else m.combine(o[at], v)
+                elif mode.get(c.out) == "partial":
+                    lead = tuple(tile[r] for r in rr)
+                    out[c.out][lead + (at if at is not ... else ())] = v
+    res = []
+    for v in f.outputs:
+        r = out[v]
+        if mode[v] == "partial":
+            lead = len(reduce_roots_of(v, f, g))
+            r = v.producer.elem.monoid.reduce(r, dims=range(lead))
+        res.append(r)
+    return tuple(res)
+
+
+# ---------------------------------------------------------------------------
+# plan module and group wrappers
+# ---------------------------------------------------------------------------
+
+class PlanModule:
+    """The generated source of one plan (all its groups) and, once
+    built, its loaded library."""
+
+    def __init__(self, g: Graph, impls):
+        self.g = g
+        self.layouts = [GroupLayout(g, im) for im in impls]
+        self.source = plan_source(g, impls)
+        self._lib = None
+
+    def build(self):
+        from ..kernels import _build
+        return _build.build(self.source)
+
+    def function(self, gi: int):
+        """The C launcher of group ``gi`` (builds and loads on first
+        use; a failed build raises ``BuildError``)."""
+        if self._lib is None:
+            from ..kernels import _build
+            self._lib = _build.load(self.source)
+        fn = getattr(self._lib, kernel_name(gi) + "_launch")
+        lay = self.layouts[gi]
+        n = (len(lay.f.external_inputs) + len(lay.outputs)
+             + len(lay.consumed))
+        fn.argtypes = [ctypes.c_void_p] * (n + 1)
+        fn.restype = ctypes.c_int
+        return fn
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+class GroupKernel:
+    """The ``cuda`` backend's function for one plan group.
+
+    Tensors on the CPU run the plain tiled version; tensors on a CUDA
+    device launch the generated kernel, and anything that stops the
+    launch (a build failure, a refused launch, a wrong device, dtype,
+    shape or layout) raises — there is no fallback."""
+
+    def __init__(self, module: PlanModule, gi: int, label: str = ""):
+        self.module, self.gi = module, gi
+        self.layout = module.layouts[gi]
+        self._fn = None                  # the C launcher, once loaded
+        self.name = f"{label or 'plan'}/g{gi}[{self.layout.names}]"
+
+    def __call__(self, *ext_vals: torch.Tensor):
+        if ext_vals and all(t.device.type == "cpu" for t in ext_vals):
+            return tiled_reference(self.layout.g, self.layout.impl, *ext_vals)
+        return self.launch(*ext_vals)
+
+    def _check(self, ext_vals):
+        lay = self.layout
+        if len(ext_vals) != len(lay.f.external_inputs):
+            raise TypeError(f"{self.name}: expects "
+                            f"{len(lay.f.external_inputs)} inputs, got "
+                            f"{len(ext_vals)}")
+        for v, t in zip(lay.f.external_inputs, ext_vals):
+            if t.device.type != "cuda":
+                raise ValueError(f"{self.name}: input {v.name} is on "
+                                 f"{t.device}; K1 launches on CUDA tensors "
+                                 f"only")
+            if t.dtype != torch.float32:
+                raise TypeError(f"{self.name}: input {v.name} has dtype "
+                                f"{t.dtype}, K1 takes float32")
+            if tuple(t.shape) != tuple(v.shape) or not t.is_contiguous():
+                raise ValueError(f"{self.name}: input {v.name} must be a "
+                                 f"contiguous {tuple(v.shape)} tensor, got "
+                                 f"{tuple(t.shape)}")
+
+    def launch(self, *ext_vals: torch.Tensor):
+        self._check(ext_vals)
+        return self._launch(ext_vals)
+
+    def buffers(self, dev: torch.device):
+        """The kernel's raw outputs (``partial`` outputs with their lead
+        axes) and its workspace, allocated on ``dev``."""
+        lay = self.layout
+        raw = []
+        for v in lay.outputs:
+            shape = (lay.lead_shape(v) if lay.out_mode[v] == "partial"
+                     else ()) + tuple(v.shape)
+            raw.append(torch.empty(shape, dtype=torch.float32, device=dev))
+        ws = [torch.empty(c.out.shape, dtype=torch.float32, device=dev)
+              for c in lay.f.calls if c.idx in lay.consumed]
+        return raw, ws
+
+    def launch_into(self, ext_vals, raw, ws):
+        """Launch the kernel on checked inputs into buffers from
+        ``buffers``; the ``partial`` outputs are left uncombined."""
+        if self._fn is None:
+            self._fn = self.module.function(self.gi)
+        ptrs = [t.data_ptr() for t in list(ext_vals) + raw + ws]
+        LAUNCHES.add(self.name)
+        status = self._fn(*ptrs, _stream(ext_vals[0].device))
+        if status != 0:
+            raise CudaLaunchError(f"{self.name}: launch failed with "
+                                  f"cudaError_t {status}")
+
+    def _launch(self, ext_vals):
+        lay = self.layout
+        raw, ws = self.buffers(ext_vals[0].device)
+        self.launch_into(ext_vals, raw, ws)
+        outs = []
+        for v, r in zip(lay.outputs, raw):
+            if lay.out_mode[v] == "partial":
+                r = v.producer.elem.monoid.reduce(
+                    r, dims=range(len(lay.lead_shape(v))))
+            outs.append(r)
+        return tuple(outs)
