@@ -1,9 +1,10 @@
 """repro_torch.core — the paper's contribution: a fusion compiler for
 map/reduce elementary functions, emitting CUDA for Hopper."""
+from ..kernels._launch import LAUNCHES
 from .cache import CacheStats, PlanCache, default_cache
 from .codegen import CompiledProgram, compile_plan, execute_dense
 from .compiler import MODES, FusionCompiler
-from .cuda_codegen import LAUNCHES, GroupKernel, tiled_reference
+from .cuda_codegen import GroupKernel, tiled_reference
 from .elementary import (ArgSpec, Elementary, Kind, Monoid, make_map,
                          make_nested_map, make_nested_map_reduce, make_reduce)
 from .fusion import Fusion, analyse_group, enumerate_fusions, saves_traffic

@@ -45,12 +45,12 @@ in parallel and in no order, so the generator maps them as follows:
 
 Beside the kernel: ``tiled_reference``, the plain torch version that
 walks the plan's tiles with the reference's schedule, and ``LAUNCHES``,
-the launch counter.  A ``GroupKernel`` takes the plain version only for
-tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+the launch counter (``kernels._launch``, shared with the hand
+kernels).  A ``GroupKernel`` takes the plain version only for tensors
+on the CPU; for CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
-import collections
 import ctypes
 import dataclasses
 import itertools
@@ -59,6 +59,7 @@ import math
 import numpy as np
 import torch
 
+from ..kernels import _build, _launch
 from .diagnostics import UnsupportedGroupError
 from .fusion import call_phases, consumed_reductions
 from .graph import Graph, Var
@@ -76,35 +77,6 @@ MAX_MERGE = 16
 SMEM_LIMIT = 200 * 1024
 
 _MONOID_CUDA = {"sum": "k1::Sum", "max": "k1::Max", "min": "k1::Min"}
-
-
-class CudaLaunchError(RuntimeError):
-    """A K1 launch was refused or failed (non-zero ``cudaError_t``)."""
-
-
-# ---------------------------------------------------------------------------
-# launch counter
-# ---------------------------------------------------------------------------
-
-class LaunchCounter:
-    """Launches of generated K1 kernels, by kernel name.  Only
-    ``GroupKernel.launch`` adds to it."""
-
-    def __init__(self):
-        self.by_kernel: collections.Counter = collections.Counter()
-
-    @property
-    def total(self) -> int:
-        return sum(self.by_kernel.values())
-
-    def add(self, name: str):
-        self.by_kernel[name] += 1
-
-    def reset(self):
-        self.by_kernel.clear()
-
-
-LAUNCHES = LaunchCounter()
 
 
 # ---------------------------------------------------------------------------
@@ -729,26 +701,18 @@ class PlanModule:
         self._lib = None
 
     def build(self):
-        from ..kernels import _build
         return _build.build(self.source)
 
     def function(self, gi: int):
         """The C launcher of group ``gi`` (builds and loads on first
         use; a failed build raises ``BuildError``)."""
         if self._lib is None:
-            from ..kernels import _build
             self._lib = _build.load(self.source)
-        fn = getattr(self._lib, kernel_name(gi) + "_launch")
         lay = self.layouts[gi]
         n = (len(lay.f.external_inputs) + len(lay.outputs)
              + len(lay.consumed))
-        fn.argtypes = [ctypes.c_void_p] * (n + 1)
-        fn.restype = ctypes.c_int
-        return fn
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+        return _build.c_function(self._lib, kernel_name(gi) + "_launch",
+                                 [ctypes.c_void_p] * (n + 1))
 
 
 class GroupKernel:
@@ -777,17 +741,8 @@ class GroupKernel:
                             f"{len(lay.f.external_inputs)} inputs, got "
                             f"{len(ext_vals)}")
         for v, t in zip(lay.f.external_inputs, ext_vals):
-            if t.device.type != "cuda":
-                raise ValueError(f"{self.name}: input {v.name} is on "
-                                 f"{t.device}; K1 launches on CUDA tensors "
-                                 f"only")
-            if t.dtype != torch.float32:
-                raise TypeError(f"{self.name}: input {v.name} has dtype "
-                                f"{t.dtype}, K1 takes float32")
-            if tuple(t.shape) != tuple(v.shape) or not t.is_contiguous():
-                raise ValueError(f"{self.name}: input {v.name} must be a "
-                                 f"contiguous {tuple(v.shape)} tensor, got "
-                                 f"{tuple(t.shape)}")
+            _launch.check(self.name, f"input {v.name}", t, tuple(v.shape),
+                          device=ext_vals[0].device)
 
     def launch(self, *ext_vals: torch.Tensor):
         self._check(ext_vals)
@@ -812,11 +767,8 @@ class GroupKernel:
         if self._fn is None:
             self._fn = self.module.function(self.gi)
         ptrs = [t.data_ptr() for t in list(ext_vals) + raw + ws]
-        LAUNCHES.add(self.name)
-        status = self._fn(*ptrs, _stream(ext_vals[0].device))
-        if status != 0:
-            raise CudaLaunchError(f"{self.name}: launch failed with "
-                                  f"cudaError_t {status}")
+        _launch.launch(self.name, self._fn, *ptrs,
+                       device=ext_vals[0].device)
 
     def _launch(self, ext_vals):
         lay = self.layout

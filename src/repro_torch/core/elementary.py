@@ -185,3 +185,17 @@ def make_nested_map_reduce(name: str, fn: Callable,
         in_specs=tuple(ArgSpec(tuple(a)) for a in in_axes), out_axes=(out_axis,),
         fn=fn, monoid=monoid, flops_per_point=flops_per_point, cuda=cuda,
     )
+
+
+# ---------------------------------------------------------------------------
+# Non-multilinear map primitives (the ops an LM decode step needs).
+# ---------------------------------------------------------------------------
+
+exp_map = make_map("exp", torch.exp, arity=1, flops_per_point=1,
+                   cuda="expf({0})")
+rsqrt_map = make_map("rsqrt", torch.rsqrt, arity=1, flops_per_point=1,
+                     cuda="rsqrtf({0})")
+# exp(x - m) with a broadcast (reduce-finished) max — the softmax core
+exp_sub = make_map("exp_sub", lambda x, m: torch.exp(x - m), arity=2,
+                   scalar_args=(1,), flops_per_point=2,
+                   cuda="expf({0} - {1})")

@@ -1,13 +1,16 @@
-"""Build and load of generated CUDA sources.
+"""Build and load of the CUDA sources: K1's generated ones and the hand
+kernels in ``csrc/``.
 
 Every source is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes`` — no
 PyTorch headers, so one build takes seconds, not minutes.  Libraries are
 cached on disk under the build directory (``build/kernels`` at the root
-of the checkout, or ``$REPRO_TORCH_BUILD_DIR``) by a hash of the source
-and of the shared header, and in memory per process.  Builds are safe to
-run from several threads or processes at once: each publishes its
-library with an atomic rename.
+of the checkout, or ``$REPRO_TORCH_BUILD_DIR``) as ``<name>_<hash>.so``:
+``name`` says which kernel it is (``k1`` for generated plans, the source's
+stem for a hand kernel) and the hash covers the source, the headers of
+``csrc/`` it includes and the flags.  Loaded libraries are also cached in
+memory per process.  Builds are safe to run from several threads or
+processes at once: each publishes its library with an atomic rename.
 """
 from __future__ import annotations
 
@@ -15,13 +18,14 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-HEADER = CSRC / "fused_group.cuh"
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 #: ``-Xptxas -v`` reports each kernel's registers, shared memory and
 #: spills; the report is kept in a ``.log`` beside the library
@@ -54,22 +58,38 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def included_headers(source: str) -> list[pathlib.Path]:
+    """The headers of ``csrc/`` that ``source`` includes, directly or
+    through another header, in a fixed order."""
+    found: list[pathlib.Path] = []
+    todo = [source]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop()):
+            path = CSRC / name
+            if path.exists() and path not in found:
+                found.append(path)
+                todo.append(path.read_text())
+    return found
+
+
 def source_key(source: str) -> str:
     h = hashlib.sha256()
-    h.update(HEADER.read_bytes())
+    for path in included_headers(source):
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update(source.encode())
     return h.hexdigest()[:24]
 
 
-def library_path(source: str) -> pathlib.Path:
-    return build_dir() / f"k1_{source_key(source)}.so"
+def library_path(source: str, name: str = "k1") -> pathlib.Path:
+    return build_dir() / f"{name}_{source_key(source)}.so"
 
 
-def build(source: str) -> pathlib.Path:
-    """Compile ``source`` into the build directory (a no-op when a
-    library for the same source is already there); returns its path."""
-    out = library_path(source)
+def build(source: str, name: str = "k1") -> pathlib.Path:
+    """Compile ``source`` into the build directory as kernel ``name`` (a
+    no-op when a library for the same source is already there); returns
+    its path."""
+    out = library_path(source, name)
     if out.exists():
         return out
     nvcc = find_nvcc()
@@ -91,16 +111,32 @@ def build(source: str) -> pathlib.Path:
     return out
 
 
-def load(source: str) -> ctypes.CDLL:
+def load(source: str, name: str = "k1") -> ctypes.CDLL:
     """Build if needed, then load ``source``'s library (once per process)."""
-    key = source_key(source)
+    key = f"{name}_{source_key(source)}"
     with _lock:
         lib = _loaded.get(key)
     if lib is not None:
         return lib
-    path = build(source)
+    path = build(source, name)
     with _lock:
         lib = _loaded.get(key)
         if lib is None:
             lib = _loaded[key] = ctypes.CDLL(str(path))
     return lib
+
+
+def load_csrc(filename: str) -> ctypes.CDLL:
+    """Build if needed, then load the hand kernel ``csrc/<filename>``,
+    named after its stem."""
+    path = CSRC / filename
+    return load(path.read_text(), path.stem)
+
+
+def c_function(lib: ctypes.CDLL, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """``lib.symbol`` with its argument types set; it returns a
+    ``cudaError_t`` as an int."""
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn

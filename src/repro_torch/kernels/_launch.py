@@ -1,0 +1,101 @@
+"""What every kernel wrapper (the generated K1 groups and the hand
+kernels K2-K4) does around its ``ctypes`` call: check the tensors it is
+given, make their device current, count the launch in ``LAUNCHES``,
+raise on a non-zero ``cudaError_t``."""
+from __future__ import annotations
+
+import collections
+import ctypes
+
+import torch
+
+
+class CudaLaunchError(RuntimeError):
+    """A kernel launch, or a C query ahead of one, was refused or failed
+    (non-zero ``cudaError_t``)."""
+
+
+class LaunchCounter:
+    """Kernel launches, by kernel name.  Only ``launch`` adds to it."""
+
+    def __init__(self):
+        self.by_kernel: collections.Counter = collections.Counter()
+
+    @property
+    def total(self) -> int:
+        return sum(self.by_kernel.values())
+
+    def add(self, name: str):
+        self.by_kernel[name] += 1
+
+    def reset(self):
+        self.by_kernel.clear()
+
+
+LAUNCHES = LaunchCounter()
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def check(kernel: str, name: str, t: torch.Tensor, shape: tuple,
+          dtypes=(torch.float32,), device: torch.device | None = None):
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``shape`` and one
+    of ``dtypes`` (``shape`` entries of None match any extent), on
+    ``device`` where one is given."""
+    if not isinstance(t, torch.Tensor) or not _on_cuda(t):
+        where = t.device if isinstance(t, torch.Tensor) else type(t).__name__
+        raise ValueError(f"{kernel}: {name} is on {where}; the kernel "
+                         f"launches on CUDA tensors only")
+    if device is not None and t.device != device:
+        raise ValueError(f"{kernel}: {name} is on {t.device}, the other "
+                         f"tensors on {device}; the kernel runs on one device")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{kernel}: {name} has dtype {t.dtype}, the kernel "
+                        f"takes {', '.join(map(str, dtypes))}")
+    if len(t.shape) != len(shape) or any(
+            s is not None and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{kernel}: {name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def _current(device: torch.device):
+    """A context making ``device`` the current CUDA device (a no-op for
+    any other device)."""
+    return torch.cuda.device(device.index if device.type == "cuda" else -1)
+
+
+def launch(kernel: str, fn, *args, device: torch.device):
+    """Call the C launcher ``fn(*args, stream)`` on ``device``'s current
+    stream, with ``device`` current, and count the launch under
+    ``kernel``."""
+    LAUNCHES.add(kernel)
+    with _current(device):
+        status = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if status != 0:
+        raise CudaLaunchError(f"{kernel}: launch failed with cudaError_t "
+                              f"{status}")
+
+
+_grids: dict = {}
+
+
+def row_groups(kernel: str, fn, m: int, n: int,
+               device: torch.device) -> tuple[int, int]:
+    """(row ranges per column strip, column strips) of an (m, n) launch of
+    ``kernel`` on ``device``, from its C query ``fn(m, n, &groups,
+    &strips)`` (the kernel's occupancy on that card), cached per device
+    and shape."""
+    key = (kernel, device.index, m, n)
+    if key not in _grids:
+        groups, strips = ctypes.c_int(0), ctypes.c_int(0)
+        with _current(device):
+            status = fn(m, n, ctypes.byref(groups), ctypes.byref(strips))
+        if status != 0:
+            raise CudaLaunchError(f"{kernel}: occupancy query failed with "
+                                  f"cudaError_t {status}")
+        _grids[key] = (groups.value, strips.value)
+    return _grids[key]

@@ -6,10 +6,11 @@ factory parameterized by the workload size, a reference implementation,
 and optional serving metadata (an input factory for well-conditioned
 random instances, explicit per-input pad identities).
 
-The paper's 11 BLAS sequences register here (``programs.blas``);
-``repro_torch.blas`` re-exports them as ``blas.REGISTRY``.  Inputs are
-numpy arrays made from a seed (``make_inputs``), the same generator the
-JAX reference uses, so both packages can be fed identical data.
+The paper's 11 BLAS sequences register here (``programs.blas``) next to
+the LM decode-step workloads (``programs.models``); ``repro_torch.blas``
+re-exports the BLAS group as ``blas.REGISTRY``.  Inputs are numpy arrays
+made from a seed (``make_inputs``), the same generator the JAX reference
+uses, so both packages can be fed identical data.
 """
 from __future__ import annotations
 
@@ -52,6 +53,8 @@ Sequence = Program
 REGISTRY: dict[str, Program] = {}
 #: The paper's 11 BLAS evaluation sequences (Table 1).
 BLAS: dict[str, Program] = {}
+#: LM decode-step workloads (rmsnorm, decoder block).
+MODELS: dict[str, Program] = {}
 
 
 def register(prog: Program, group: dict[str, Program] | None = None) -> Program:

@@ -174,5 +174,7 @@ def test_port_imports_no_jax_and_no_reference():
                          text=True, env=env, check=True).stdout
     res = json.loads(out.strip().splitlines()[-1])
     assert res["bad"] == []
-    assert "repro_torch.core.cuda_codegen" in res["mods"]
-    assert "repro_torch.launch.serve" in res["mods"]
+    for mod in ("core.cuda_codegen", "launch.serve", "kernels.ops",
+                "kernels.ref", "kernels.bicgk", "kernels.gemver",
+                "kernels.rmsnorm", "programs.models", "programs.model_lib"):
+        assert f"repro_torch.{mod}" in res["mods"]

@@ -19,8 +19,8 @@ it to the reference:
 * no hidden fallback: a non-CPU tensor never reaches the plain version,
   and a failed build or launch raises.
 
-Tolerance: the reference envelope, rtol 1e-4, atol 1e-3.  Tests that
-need the card carry the ``gpu`` marker and skip without one.
+Tolerance: the reference envelope, rtol 1e-4, atol 1e-3.  The kernels'
+own test on the card is in ``tests/test_torch_gpu.py``.
 """
 import inspect
 
@@ -41,17 +41,16 @@ from repro.core.scheduler import \
     enumerate_combinations as ref_enumerate_combinations
 from repro.programs import BLAS as REF_BLAS
 from repro_torch.blas import elementary_lib as lib
-from repro_torch.core import (V5E, FusionCompiler, PlanCache,
-                              plan_from_reference, trace)
+from repro_torch.core import V5E, FusionCompiler, plan_from_reference, trace
 from repro_torch.core import cuda_codegen
-from repro_torch.core.cuda_codegen import (CudaLaunchError, GroupKernel,
-                                           PlanModule, group_source,
-                                           plan_source, tiled_reference)
+from repro_torch.core.cuda_codegen import (GroupKernel, PlanModule,
+                                           group_source, plan_source,
+                                           tiled_reference)
 from repro_torch.core.diagnostics import UnsupportedGroupError
 from repro_torch.core.fusion import analyse_group
 from repro_torch.core.predictor import cost_impl
 from repro_torch.core.scheduler import build_space
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _launch
 from repro_torch.programs import BLAS, make_inputs
 
 N = 256
@@ -319,44 +318,19 @@ def test_nonzero_launch_status_raises(monkeypatch):
     _forbid_plain(monkeypatch)
     monkeypatch.setattr(kernel.module, "function",
                         lambda gi: (lambda *ptrs: 700))
-    monkeypatch.setattr(cuda_codegen, "_stream", lambda dev: 0)
-    before = cuda_codegen.LAUNCHES.by_kernel[kernel.name]
-    with pytest.raises(CudaLaunchError, match="700"):
+    monkeypatch.setattr(_launch.torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 0})())
+    before = _launch.LAUNCHES.by_kernel[kernel.name]
+    with pytest.raises(_launch.CudaLaunchError, match="700"):
         kernel._launch(meta)
-    assert cuda_codegen.LAUNCHES.by_kernel[kernel.name] == before + 1
+    assert _launch.LAUNCHES.by_kernel[kernel.name] == before + 1
 
 
 def test_cpu_tensors_take_the_plain_version():
     cp, kernel, _ = _kernel("ATAX")
     env = make_inputs(BLAS["ATAX"], N, seed=2)
-    before = cuda_codegen.LAUNCHES.total
+    before = _launch.LAUNCHES.total
     (y,) = (cp(**env),)
     np.testing.assert_allclose(y.numpy(), BLAS["ATAX"].reference(**env)[0],
                                rtol=RTOL, atol=ATOL)
-    assert cuda_codegen.LAUNCHES.total == before
-
-
-# ---------------------------------------------------------------------------
-# on the card
-# ---------------------------------------------------------------------------
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("name", ["ATAX", "BiCGK", "GEMVER", "AXPYDOT"])
-def test_kernels_match_tiled_reference_on_gpu(name):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc")
-    prog = BLAS[name]
-    cc = FusionCompiler(backend="cuda", device="cuda", cache=PlanCache())
-    for mode in ("best", "unfused"):
-        cp = cc.compile(prog.script, prog.shapes(N), mode=mode)
-        vals = dict(zip(cp.plan.input_names,
-                        cp.prepare(**make_inputs(prog, N, seed=4))))
-        outs = []
-        for gp, fn, im in zip(cp.plan.groups, cp.group_fns, cp.group_impls):
-            args = [vals[r[1]] if r[0] == "input" else outs[r[1]][r[2]]
-                    for r in gp.inputs]
-            got = fn.launch(*args)
-            want = tiled_reference(cp.graph, im, *args)
-            for o, w in zip(got, want):
-                torch.testing.assert_close(o, w, rtol=RTOL, atol=ATOL)
-            outs.append(want)
+    assert _launch.LAUNCHES.total == before
