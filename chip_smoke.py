@@ -9,13 +9,21 @@ inputs made from a seed:
 * the compiler's main path — ``FusionCompiler.compile`` (trace, fusion
   search, plan) and execution through one generated CUDA kernel (K1) per
   fused group — for the paper's 11 BLAS sequences and the LM programs
-  ``LM_RMSNORM`` and ``LM_BLOCK``, in modes ``best`` and ``unfused``:
-  BLAS-2 and LM programs at n = 4096 (A is 64 MiB in float32, above the
-  50 MB L2), BLAS-1 sequences at n = 2**24 (64 MiB a vector);
+  ``LM_RMSNORM``, ``LM_BLOCK``, ``LM_DECODE_ATTN`` and ``FUSED_ADAMW``, in
+  modes ``best`` and ``unfused``: BLAS-2, ``LM_RMSNORM`` and
+  ``LM_BLOCK`` at n = 4096 (A is 64 MiB in float32, above the 50 MB
+  L2), BLAS-1 sequences and ``FUSED_ADAMW`` at n = 2**24 (64 MiB a
+  vector), ``LM_DECODE_ATTN`` at n = 131072 (a 128k-token context, one
+  head of d = 48: K + V are 48 MiB);
 * the hand kernels through ``repro_torch.kernels.ops``: K2 (BiCGK) and
-  K3 (GEMVER) at n = 4096, K4 (RMSNorm) on one 4096-wide row as
+  K3 (GEMVER) at n = 4096; K4 (RMSNorm) on one 4096-wide row as
   ``LM_RMSNORM`` and on a (8192, 4096) prefill (the ``d_model`` of
-  Llama-3-8B) in float32 and bfloat16.
+  Llama-3-8B) in float32 and bfloat16; K5 (decode attention) on one
+  Llama-3-8B layer's decode step, (B, Hq, Hkv, S, d) = (8, 32, 8, 8192,
+  128), in bfloat16 and float32; K6 (AdamW) over one Llama-3-8B decoder
+  layer's N = 218,103,808 parameters, p in float32 and p, g in bfloat16;
+  K7 (softmax cross-entropy) on (T, V) = (8192, 128256), 8192 tokens over
+  Llama-3-8B's vocabulary, in float32 and bfloat16.
 
 Phases, each printed as JSON lines:
 
@@ -27,21 +35,28 @@ Phases, each printed as JSON lines:
 3. main: every program's outputs against its numpy reference in
    float64, and the launch counts of that run, which must show every
    group of every plan launched once;
-4. hand: K2, K3 and K4 against their plain versions (``kernels.ref``) on
-   the card, at the main shapes and at a non-square (4096, 6144), an odd
-   (1000, 1531), and RMSNorm rows of (1, 4096) and (7, 33);
+4. hand: K2-K7 against their plain versions (``kernels.ref``) on the
+   card, at the main shapes and at odd ones: K2/K3 at a non-square
+   (4096, 6144) and an odd (1000, 1531); RMSNorm rows of (1, 4096) and
+   (7, 33); K5 at (2, 16, 1, 256, 128) (one KV head), (3, 12, 4, 1000,
+   80) (odd S and d) and (1, 1, 1, 131072, 48) (``LM_DECODE_ATTN``'s
+   shape), its split and combine kernels each against their own plain
+   versions too; K6 at steps 3 and 7 and at N = 1,000,003; K7 at
+   (7, 1000) and (33, 50257), per-row losses and their mean;
 5. hand_main: the ``ops`` path, counts set to 0 just before it and read
-   just after: every hand kernel launched, outputs against float64
-   numpy;
+   just after: every hand kernel launched, outputs against float64;
 6. serve: ``serve_blas`` for GEMVER at n = 4096, 100 requests, in
    ``best`` and ``unfused`` (CUDA events);
-7. series: the paper's comparison for GEMVER, BiCGK and LM_RMSNORM at
-   n = 4096 — compiler ``best`` and ``unfused``, the hand kernels, the
-   ``torch`` backend, and the library-call sequence the paper measures
-   against (cuBLAS matvecs and rank-1 updates; ``F.rms_norm``), timed
-   only, never used by the port — outputs cross-checked first, then µs
-   per request back to back (``*_us``) and as device time
-   (``*_device_us``), beside each hand kernel's bound;
+7. series: the paper's comparison for GEMVER, BiCGK, LM_RMSNORM (n =
+   4096), LM_DECODE_ATTN (n = 131072) and FUSED_ADAMW (n = 2**24) —
+   compiler ``best`` and ``unfused``, the hand kernels, the ``torch``
+   backend, for FUSED_ADAMW the port's ``optim.fused_adamw_update``, and
+   the library calls the paper measures against (cuBLAS matvecs and
+   rank-1 updates; ``F.rms_norm``; ``F.scaled_dot_product_attention``;
+   ``torch.optim.AdamW(fused=True)``), timed only, never used by the
+   port — outputs cross-checked first, then µs per request back to back
+   (``*_us``) and as device time (``*_device_us``), beside the hand
+   kernels' bounds;
 8. time: each kernel's time beside its bound (compulsory bytes over
    3.35 TB/s, or float32 operations over 67 TFLOP/s), the plain
    version's time, and one PyTorch call computing the same function
@@ -50,20 +65,22 @@ Phases, each printed as JSON lines:
    times: the launches are queued behind a spinning kernel, so the host
    path between them is hidden.  For K1 ``ms`` excludes the combine of
    ``partial`` outputs after the kernel; for K2-K4 it is the wrapper's
-   whole device work (the kernel and the sum of its partials).
-   ``wrapper_ms`` is the wrapper's whole path per call, launched back
-   to back (checks, output allocation, the ctypes call, the combine):
-   where it exceeds ``ms``, the host is the limit.
+   whole device work (the kernel and the sum of its partials); K5's
+   split and combine kernels are timed one by one, and K5 as a whole
+   (both, with ``F.scaled_dot_product_attention`` as its library call)
+   on a line of its own.  ``wrapper_ms`` is the wrapper's whole path per
+   call, launched back to back (checks, output allocation, the ctypes
+   call, the combine): where it exceeds ``ms``, the host is the limit.
 
 Tolerances: float32 sums over 4096 to 2**24 terms run in another order
 in the kernels, the plain versions and numpy, so float32 results are
 held to a norm-relative error of 1e-4 (``||got - want|| <= 1e-4 *
-||want||``).  The bfloat16 RMSNorm kernel and its plain version both
-accumulate in float32 and round once to bfloat16, so they differ only
-where the rounding of an output flips by one unit: that kernel is held
-to 1e-3 against its plain version.  Against float64, and against the
-library's ``rms_norm`` (which takes gamma in bfloat16), bfloat16
-outputs (8 bits of mantissa) are held to 2e-2.
+||want||``).  The bfloat16 outputs of K4-K6 and their plain versions
+both accumulate in float32 and round once to bfloat16, so they differ
+only where the rounding of an output flips by one unit: they are held to
+1e-3 against their plain versions.  K7's mean loss is held to 1e-5
+relative.  Against float64, and against the library's bfloat16 calls,
+bfloat16 outputs (8 bits of mantissa) are held to 2e-2.
 
 The last lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``; the card's ``nvidia-smi`` line is in
@@ -85,13 +102,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 MODES = ("best", "unfused")
-BLAS1 = ("AXPYDOT", "VADD", "WAXPBY", "SSCAL")
-LM = ("LM_RMSNORM", "LM_BLOCK")
+#: programs over 2**24-long vectors
+BLAS1 = ("AXPYDOT", "VADD", "WAXPBY", "SSCAL", "FUSED_ADAMW")
+LM = ("LM_RMSNORM", "LM_BLOCK", "LM_DECODE_ATTN", "FUSED_ADAMW")
 #: the paper's three-way comparison (``benchmarks/fused_kernels.py``)
-SERIES = ("GEMVER", "BiCGK", "LM_RMSNORM")
+SERIES = ("GEMVER", "BiCGK", "LM_RMSNORM", "LM_DECODE_ATTN", "FUSED_ADAMW")
 RTOL = 1e-4
 #: bfloat16 kernel against its plain version (one rounding each)
 BF16_KERNEL_RTOL = 1e-3
+#: K7's mean loss against its plain version and float64
+MEAN_RTOL = 1e-5
 #: bfloat16 output against float64 or another bfloat16 computation
 BF16_RTOL = 2e-2
 #: GEMVER's scalars in the hand phase
@@ -112,10 +132,33 @@ HAND = {
                        "src/repro/kernels/rmsnorm.py:18"),
     "K4/rmsnorm_bf16": ("src/repro_torch/csrc/rmsnorm.cu",
                         "src/repro/kernels/rmsnorm.py:18"),
+    **{f"K5/{k}_{dt}": ("src/repro_torch/csrc/decode_attention.cu",
+                        "src/repro/kernels/decode_attention.py:20")
+       for k in ("split", "combine") for dt in ("f32", "bf16")},
+    **{f"K6/adamw_{dt}": ("src/repro_torch/csrc/adamw.cu",
+                          "src/repro/kernels/adamw.py:24")
+       for dt in ("f32", "bf16")},
+    **{f"K7/xent_{dt}": ("src/repro_torch/csrc/softmax_xent.cu",
+                         "src/repro/kernels/softmax_xent.py:17")
+       for dt in ("f32", "bf16")},
 }
 #: RMSNorm prefill rows: 8192 tokens at Llama-3-8B's d_model
 #: (src/repro/configs/llama3_8b.py:6)
 PREFILL = (8192, 4096)
+#: decode attention (B, Hq, Hkv, S, d): one Llama-3-8B layer (32 heads, 8
+#: KV heads, d 128; src/repro/configs/llama3_8b.py:5-8) decoding 8
+#: sequences at an 8k context
+DECODE = (8, 32, 8, 8192, 128)
+#: AdamW over one Llama-3-8B decoder layer's parameters:
+#: 4096 (2 4096 + 2 1024) attention + 3 4096 14336 MLP
+ADAMW_N = 4096 * (2 * 4096 + 2 * 1024) + 3 * 4096 * 14336
+#: the hyperparameters of ``FUSED_ADAMW``'s inputs, the step apart
+K6_HYPERS = dict(lr=1e-3, beta1=0.9, beta2=0.95, eps=1e-8,
+                 weight_decay=0.01)
+#: cross-entropy (T, V): 8192 tokens over Llama-3-8B's vocabulary
+XENT = (8192, 128256)
+ES = {"float32": 4, "bfloat16": 2}
+SHORT = {"float32": "f32", "bfloat16": "bf16"}
 
 
 def fail(msg: str):
@@ -213,6 +256,14 @@ def library_call(im, args):
         return lambda: torch.addcmul(args[1], args[0], args[2], value=-1)
     if name == "sum_reduce":
         return lambda: torch.sum(args[0])
+    if name == "max_reduce":
+        return lambda: torch.amax(args[0])
+    if name == "attn_score":                      # K q
+        return lambda: torch.mv(args[0], args[1])
+    if name == "attn_out":                        # V^T w
+        return lambda: torch.mv(args[0].T, args[1])
+    if name == "div_by":                          # e / z
+        return lambda: torch.div(args[1], args[0])
     return None
 
 
@@ -234,8 +285,8 @@ def bound(im):
 
 
 def hand_bound(kernel: str, shape):
-    """Least time for a hand kernel's function at ``shape``: its inputs
-    read once and its outputs written once (float32 vectors and scalars),
+    """Least time for K2-K4's function at ``shape``: its inputs read
+    once and its outputs written once (float32 vectors and scalars),
     against its float32 operations."""
     a, b = shape
     if kernel == "K2/bicgk":                # A, p, r -> q, s
@@ -246,6 +297,34 @@ def hand_bound(kernel: str, shape):
         return bound_of(4 * (a * b + b + 1 + a), 2 * a * b + a)
     es = 2 if kernel.endswith("bf16") else 4    # x -> out, gamma float32
     return bound_of(2 * es * a * b + 4 * b, 4 * a * b)
+
+
+def k5_bounds(shape, dtype: str, chunks: int):
+    """Least times of K5's split kernel (q, K, V -> float32 partials per
+    chunk), its combine kernel (partials -> o) and the whole function (q,
+    K, V -> o), with ``chunks`` chunks of S per (b, h_kv)."""
+    B, Hq, Hkv, S, d = shape
+    es, G = ES[dtype], Hq // Hkv
+    q_o = B * Hq * d * es
+    kv = 2 * B * S * Hkv * d * es
+    part = B * Hkv * chunks * (G * d + 2 * G) * 4
+    ops = 4 * B * Hq * S * d + 4 * B * Hq * S     # q.k, p v; the softmax
+    return (bound_of(q_o + kv + part, ops),
+            bound_of(part + q_o, 3 * B * Hq * chunks * d),
+            bound_of(2 * q_o + kv, ops))
+
+
+def k6_bound(n: int, dtype: str):
+    """AdamW with p and g in ``dtype``: p, g, m, v read, p', m', v'
+    written; 16 float32 operations a parameter."""
+    es = ES[dtype]
+    return bound_of(n * (3 * es + 16), 16 * n)
+
+
+def k7_bound(T: int, V: int, dtype: str, label_bytes: int = 8):
+    """Softmax cross-entropy: the logits and labels read, T losses
+    written; a max, an exp, a sum and a compare a logit."""
+    return bound_of(T * V * ES[dtype] + T * (label_bytes + 4), 4 * T * V)
 
 
 def tensor_err(got, want):
@@ -266,14 +345,51 @@ def hand_calls(name, d):
                                   d["y"], d["z"], d["alpha"], d["beta"])
     if name == "BiCGK":
         return lambda: ops.bicgk(d["A"], d["p"], d["r"])
+    if name == "LM_DECODE_ATTN":        # Hq = Hkv = 1, B = 1
+        return lambda: (ops.decode_attention(
+            d["q"][None, None], d["K"][None, :, None],
+            d["V"][None, :, None])[0, 0],)
+    if name == "FUSED_ADAMW":
+        from repro_torch.programs.models import ADAMW_HYPERS as H
+        return lambda: ops.adamw_update(
+            d["p"], d["grad"], d["m"], d["v"], lr=H["lr"],
+            beta1=H["beta1"], beta2=H["beta2"], eps=H["eps"],
+            weight_decay=H["weight_decay"], step=H["step"])
     return lambda: (ops.rmsnorm(d["x"][None], d["gamma"])[0],)
+
+
+def fused_adamw_step(p, g, m, v, step: int):
+    """One step of ``torch.optim.AdamW(fused=True)`` from (p, g, m, v) at
+    ``step`` with ``ADAMW_HYPERS``, as a function returning (p', m', v').
+    It updates its own copies in place, so only its first call gives
+    the step's result; later calls are for timing."""
+    import torch
+    from repro_torch.programs.models import ADAMW_HYPERS as H
+    pl = p.clone()
+    pl.grad = g.clone()
+    opt = torch.optim.AdamW([pl], lr=H["lr"], betas=(H["beta1"], H["beta2"]),
+                            eps=H["eps"], weight_decay=H["weight_decay"],
+                            fused=True)
+    st = opt.state[pl]
+    st["step"] = torch.tensor(float(step - 1), device=p.device)
+    st["exp_avg"], st["exp_avg_sq"] = m.clone(), v.clone()
+
+    def run():
+        opt.step()
+        return pl, st["exp_avg"], st["exp_avg_sq"]
+    return run
 
 
 def library_sequence(name, d):
     """The library calls the paper measures a program against: cuBLAS
-    matvecs and rank-1 updates, or one ``F.rms_norm``.  Timed here only;
-    the port never calls them.  None where the library has no call."""
+    matvecs and rank-1 updates, one ``F.rms_norm``, one
+    ``F.scaled_dot_product_attention``, or one step of
+    ``torch.optim.AdamW(fused=True)`` (the same update: decoupled decay,
+    then ``lr c1 m / (sqrt(v c2) + eps)``; it updates its own copies in
+    place).  Timed here only; the port never calls them.  None where the
+    library has no call."""
     import torch
+    F = torch.nn.functional
     if name == "GEMVER":
         alpha, beta = float(d["alpha"]), float(d["beta"])
 
@@ -285,11 +401,18 @@ def library_sequence(name, d):
         return gemver
     if name == "BiCGK":
         return lambda: (torch.mv(d["A"], d["p"]), torch.mv(d["A"].T, d["r"]))
-    if not hasattr(torch.nn.functional, "rms_norm"):
+    if name == "LM_DECODE_ATTN":        # (B, Hkv, S, d) views
+        return lambda: (F.scaled_dot_product_attention(
+            d["q"][None, None, None], d["K"][None, None],
+            d["V"][None, None], enable_gqa=True)[0, 0, 0],)
+    if name == "FUSED_ADAMW":
+        from repro_torch.programs.models import ADAMW_HYPERS as H
+        return fused_adamw_step(d["p"], d["grad"], d["m"], d["v"],
+                                H["step"])
+    if not hasattr(F, "rms_norm"):
         return None
     n = d["x"].shape[0]
-    return lambda: (torch.nn.functional.rms_norm(
-        d["x"][None], (n,), d["gamma"], eps=1e-6)[0],)
+    return lambda: (F.rms_norm(d["x"][None], (n,), d["gamma"], eps=1e-6)[0],)
 
 
 def main(argv=None):
@@ -298,7 +421,9 @@ def main(argv=None):
                     help="size of the BLAS-2 sequences, the LM programs "
                          "and the hand kernels' square matrices")
     ap.add_argument("--n1", type=int, default=1 << 24,
-                    help="size of the BLAS-1 sequences")
+                    help="size of the BLAS-1 sequences and FUSED_ADAMW")
+    ap.add_argument("--n-attn", type=int, default=131072,
+                    help="KV length of LM_DECODE_ATTN")
     ap.add_argument("--requests", type=int, default=100)
     args = ap.parse_args(argv)
 
@@ -309,11 +434,15 @@ def main(argv=None):
     try:
         from repro_torch.core import (LAUNCHES, FusionCompiler, PlanCache,
                                       tiled_reference)
+        from repro_torch.kernels import adamw as k6
         from repro_torch.kernels import bicgk as k2
+        from repro_torch.kernels import decode_attention as k5
         from repro_torch.kernels import gemver as k3
         from repro_torch.kernels import ops, ref
         from repro_torch.kernels import rmsnorm as k4
+        from repro_torch.kernels import softmax_xent as k7
         from repro_torch.launch.serve import serve_blas
+        from repro_torch.optim import fused_adamw_update
         from repro_torch.programs import BLAS, REGISTRY, make_inputs
     except ImportError as e:
         fail(f"cannot import the port from {ROOT}/src: {e}")
@@ -332,6 +461,8 @@ def main(argv=None):
     n2 = args.n2
 
     def size(name):
+        if name == "LM_DECODE_ATTN":
+            return args.n_attn
         return args.n1 if name in BLAS1 else n2
 
     # -- 1. plan every program, build every kernel in parallel ---------------
@@ -345,9 +476,13 @@ def main(argv=None):
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 4) as pool:
         futs = {k: pool.submit(p.module.build) for k, p in progs.items()}
-        for src, launcher in (("bicgk.cu", k2._launchers),
-                              ("gemver.cu", k3._launchers),
-                              ("rmsnorm.cu", k4._launcher)):
+        hand_sources = (("bicgk.cu", k2._launchers),
+                        ("gemver.cu", k3._launchers),
+                        ("rmsnorm.cu", k4._launcher),
+                        ("decode_attention.cu", k5._launchers),
+                        ("adamw.cu", k6._launcher),
+                        ("softmax_xent.cu", k7._launcher))
+        for src, launcher in hand_sources:
             futs[src] = pool.submit(launcher)
         for k, fut in futs.items():
             try:
@@ -357,8 +492,9 @@ def main(argv=None):
     t_build = time.perf_counter() - t0
     emit({"phase": "device", "nvidia_smi": smi_line, "device": dev_name,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "plans": len(keys), "hand_sources": 3, "plan_s": t_plan,
-          "build_s": t_build, "n_blas2": n2, "n_blas1": args.n1})
+          "plans": len(keys), "hand_sources": len(hand_sources),
+          "plan_s": t_plan, "build_s": t_build, "n_blas2": n2,
+          "n_blas1": args.n1, "n_attn": args.n_attn})
     if failures:
         fail("; ".join(failures))
 
@@ -436,6 +572,7 @@ def main(argv=None):
         fail("; ".join(failures))
 
     # -- 4. hand kernels against their plain versions ------------------------
+    F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape, dtype=torch.float32):
@@ -451,9 +588,20 @@ def main(argv=None):
                             f"error {rel:.3g} > {tol}")
         return mabs
 
+    def kernel_tol(dt):
+        return BF16_KERNEL_RTOL if dt == "bfloat16" else RTOL
+
+    #: the timed hand kernels, by launch-counter name: shape, dtype, the
+    #: wrapper, its plain version, a library call or None (with the
+    #: tolerance it is held to against the wrapper), the bound and the
+    #: error against the plain version
+    hand_in: dict[str, dict] = {}
+    #: K5 as a whole (split and combine), timed on lines of their own
+    whole_in: dict[str, dict] = {}
+    #: the full-width inputs the ``ops`` path of phase 5 reuses
+    hand_data: dict = {}
     alpha = torch.tensor(ALPHA, device="cuda")
     beta = torch.tensor(BETA, device="cuda")
-    hand_err, hand_in = {}, {}
     for shape in ((n2, n2), (4096, 6144), (1000, 1531)):
         m, n = shape
         A, p, r = randn(m, n), randn(n), randn(m)
@@ -475,36 +623,148 @@ def main(argv=None):
               k3.gemver(A, u1, v1, u2, v2, y, z, alpha, beta),
               ref.gemver(A, u1, v1, u2, v2, y, z, alpha, beta))
         if shape == (n2, n2):
-            hand_err.update(err)
             k1_in = (A, u1, v1, u2, v2, y)
-            hand_in["K2/bicgk"] = (
-                shape, lambda a=(A, p, r): k2.bicgk(*a),
-                lambda a=(A, p, r): ref.bicgk(*a), None)
-            hand_in["K3/gemver_k1"] = (
-                shape, lambda a=k1_in: k3.gemver_k1(*a),
-                lambda a=k1_in: ref.gemver_k1(*a), None)
             w0 = torch.zeros(m, device="cuda")    # ignored at beta=0
-            hand_in["K3/gemver_k2"] = (
-                shape, lambda a=(B, x, alpha): k3.gemver_k2(*a),
-                lambda a=(B, x, alpha): ref.gemver_k2(*a),
-                lambda a=(w0, B, x): torch.addmv(*a, beta=0, alpha=ALPHA))
-    rms_norm = getattr(torch.nn.functional, "rms_norm", None)
+            for kernel, wrapper, plain, lib in (
+                    ("K2/bicgk", lambda a=(A, p, r): k2.bicgk(*a),
+                     lambda a=(A, p, r): ref.bicgk(*a), None),
+                    ("K3/gemver_k1", lambda a=k1_in: k3.gemver_k1(*a),
+                     lambda a=k1_in: ref.gemver_k1(*a), None),
+                    ("K3/gemver_k2", lambda a=(B, x, alpha): k3.gemver_k2(*a),
+                     lambda a=(B, x, alpha): ref.gemver_k2(*a),
+                     lambda a=(w0, B, x): torch.addmv(*a, beta=0,
+                                                      alpha=ALPHA))):
+                hand_in[kernel] = dict(
+                    shape=shape, dtype="float32", wrapper=wrapper,
+                    plain=plain, lib=lib, lib_tol=RTOL,
+                    bound=hand_bound(kernel, shape), err=err[kernel])
+    rms_norm = getattr(F, "rms_norm", None)
     for T, D, dt in ((*PREFILL, "float32"), (*PREFILL, "bfloat16"),
                      (1, n2, "float32"), (7, 33, "float32"),
                      (7, 33, "bfloat16")):
         xx, g = randn(T, D, dtype=getattr(torch, dt)), randn(D)
         kernel = k4.NAMES[xx.dtype]
         mabs = check(kernel, (T, D), dt, (k4.rmsnorm(xx, g),),
-                     (ref.rmsnorm(xx, g),),
-                     BF16_KERNEL_RTOL if dt == "bfloat16" else RTOL)
+                     (ref.rmsnorm(xx, g),), kernel_tol(dt))
         if (T, D) == PREFILL:
-            hand_err[kernel] = mabs
             g_lib = g.to(xx.dtype)      # the library takes gamma in x's type
-            hand_in[kernel] = (
-                (T, D), lambda xx=xx, g=g: k4.rmsnorm(xx, g),
-                lambda xx=xx, g=g: ref.rmsnorm(xx, g),
-                None if rms_norm is None else
-                lambda xx=xx, g=g_lib, D=D: rms_norm(xx, (D,), g, eps=1e-6))
+            hand_in[kernel] = dict(
+                shape=(T, D), dtype=dt,
+                wrapper=lambda xx=xx, g=g: k4.rmsnorm(xx, g),
+                plain=lambda xx=xx, g=g: ref.rmsnorm(xx, g),
+                lib=None if rms_norm is None else
+                lambda xx=xx, g=g_lib, D=D: rms_norm(xx, (D,), g, eps=1e-6),
+                lib_tol=BF16_RTOL if dt == "bfloat16" else RTOL,
+                bound=hand_bound(kernel, (T, D)), err=mabs)
+
+    # K5: each kernel against its own plain version, then the whole
+    for shape, dt in ((DECODE, "bfloat16"), (DECODE, "float32"),
+                      ((2, 16, 1, 256, 128), "float32"),
+                      ((3, 12, 4, 1000, 80), "float32"),
+                      ((3, 12, 4, 1000, 80), "bfloat16"),
+                      ((1, 1, 1, 131072, 48), "float32")):
+        B, Hq, Hkv, S, d = shape
+        tdt = getattr(torch, dt)
+        q, kk, vv = (randn(B, Hq, d, dtype=tdt),
+                     randn(B, S, Hkv, d, dtype=tdt),
+                     randn(B, S, Hkv, d, dtype=tdt))
+        split_name, comb_name = k5.NAMES[tdt]
+        acc, mm, ll, length = k5.split(q, kk, vv)
+        e_split = check(split_name, shape, dt, (acc, mm, ll),
+                        ref.decode_attention_split(q, kk, vv, length))
+        e_comb = check(comb_name, shape, dt,
+                       (k5.combine(acc, mm, ll, B, Hq, tdt),),
+                       (ref.decode_attention_combine(acc, mm, ll, B, Hq,
+                                                     tdt),),
+                       kernel_tol(dt))
+        e_whole = check("K5", shape, dt, (k5.decode_attention(q, kk, vv),),
+                        (ref.decode_attention(q, kk, vv),), kernel_tol(dt))
+        if shape != DECODE:
+            continue
+        chunks = acc.shape[0] // (B * Hkv)
+        b_split, b_comb, b_whole = k5_bounds(shape, dt, chunks)
+        qkv = (q, kk, vv)
+        hand_in[split_name] = dict(
+            shape=shape, dtype=dt, chunks=chunks, chunk_len=length,
+            wrapper=lambda a=qkv: k5.split(*a),
+            plain=lambda a=qkv, n=length: ref.decode_attention_split(*a, n),
+            lib=None, bound=b_split, err=e_split)
+        part = (acc, mm, ll, B, Hq, tdt)
+        hand_in[comb_name] = dict(
+            shape=shape, dtype=dt, chunks=chunks,
+            wrapper=lambda a=part: k5.combine(*a),
+            plain=lambda a=part: ref.decode_attention_combine(*a),
+            lib=None, bound=b_comb, err=e_comb)
+        whole_in[f"K5/split+combine_{SHORT[dt]}"] = dict(
+            shape=shape, dtype=dt, chunks=chunks,
+            wrapper=lambda a=qkv: k5.decode_attention(*a),
+            plain=lambda a=qkv: ref.decode_attention(*a),
+            lib=lambda q=q, kk=kk, vv=vv: F.scaled_dot_product_attention(
+                q[:, :, None], kk.transpose(1, 2), vv.transpose(1, 2),
+                enable_gqa=True)[:, :, 0],
+            lib_tol=BF16_RTOL if dt == "bfloat16" else RTOL,
+            bound=b_whole, err=e_whole)
+        hand_data["K5", dt] = qkv
+
+    # K6: steps 3 and 7; p' against its plain version at the type's
+    # tolerance, m' and v' (float32) at RTOL
+    for n, dt in ((ADAMW_N, "float32"), (ADAMW_N, "bfloat16"),
+                  (1_000_003, "float32"), (1_000_003, "bfloat16")):
+        tdt = getattr(torch, dt)
+        p, g = randn(n, dtype=tdt), randn(n, dtype=tdt)
+        mm, vv = randn(n).mul_(0.1), randn(n).abs_().mul_(0.01)
+        name = k6.NAMES[tdt]
+        mabs = 0.0
+        for step in (3, 7):
+            got = k6.adamw_update(p, g, mm, vv, step=step, **K6_HYPERS)
+            want = ref.adamw(p, g, mm, vv, step=step, **K6_HYPERS)
+            mabs = max(mabs, check(name, (n,), dt, got[:1], want[:1],
+                                   kernel_tol(dt)),
+                       check(name, (n,), dt, got[1:], want[1:]))
+            del got, want
+        if n != ADAMW_N:
+            continue
+        args4 = (p, g, mm, vv)
+        hand_in[name] = dict(
+            shape=(n,), dtype=dt,
+            wrapper=lambda a=args4: k6.adamw_update(*a, step=7,
+                                                    **K6_HYPERS),
+            plain=lambda a=args4: ref.adamw(*a, step=7, **K6_HYPERS),
+            # the library keeps m and v in p's type: float32 only
+            lib=fused_adamw_step(*args4, 7) if dt == "float32" else None,
+            lib_tol=RTOL, bound=k6_bound(n, dt), err=mabs)
+        hand_data["K6", dt] = args4
+
+    # K7: per-row losses against the plain version, and their mean
+    for (T, V), dt in ((XENT, "float32"), (XENT, "bfloat16"),
+                       ((7, 1000), "float32"), ((33, 50257), "float32"),
+                       ((33, 50257), "bfloat16")):
+        tdt = getattr(torch, dt)
+        logits = randn(T, V).mul_(3.0).to(tdt)
+        labels = torch.randint(0, V, (T,), generator=gen, device="cuda")
+        name = k7.NAMES[tdt]
+        mabs = check(name, (T, V), dt,
+                     (k7.softmax_xent_rows(logits, labels),),
+                     (ref.softmax_xent_rows(logits, labels),))
+        got, want = (float(k7.softmax_xent(logits, labels)),
+                     float(ref.softmax_xent(logits, labels)))
+        rel = abs(got - want) / abs(want)
+        emit({"phase": "hand", "kernel": name, "shape": [T, V],
+              "dtype": dt, "mean": got, "mean_rel_err": rel})
+        if not rel <= MEAN_RTOL:
+            failures.append(f"hand {name} {(T, V)} {dt}: mean loss "
+                            f"relative error {rel:.3g} > {MEAN_RTOL}")
+        if (T, V) != XENT:
+            continue
+        lg_lb = (logits, labels)
+        hand_in[name] = dict(
+            shape=(T, V), dtype=dt,
+            wrapper=lambda a=lg_lb: k7.softmax_xent_rows(*a),
+            plain=lambda a=lg_lb: ref.softmax_xent_rows(*a),
+            lib=lambda a=lg_lb: F.cross_entropy(*a, reduction="none"),
+            lib_tol=BF16_RTOL if dt == "bfloat16" else RTOL,
+            bound=k7_bound(T, V, dt), err=mabs)
+        hand_data["K7", dt] = lg_lb
     torch.cuda.synchronize()
     if failures:
         fail("; ".join(failures))
@@ -518,37 +778,82 @@ def main(argv=None):
     LAUNCHES.reset()
     hand_out = {name: hand_calls(name, series_dev[name])() for name in SERIES}
     prefill_out = {dt: ops.rmsnorm(x, gamma) for dt, x in prefill.items()}
+    attn_out = ops.decode_attention(*hand_data["K5", "bfloat16"])
+    adamw_out = ops.adamw_update(*hand_data["K6", "bfloat16"], step=7,
+                                 **K6_HYPERS)
+    xent_out = {dt: ops.softmax_xent(*hand_data["K7", dt])
+                for dt in ("float32", "bfloat16")}
     torch.cuda.synchronize()
     hand_launches = dict(LAUNCHES.by_kernel)
     want_counts = {"K2/bicgk": 1, "K3/gemver_k1": 1, "K3/gemver_k2": 1,
-                   "K4/rmsnorm_f32": 2, "K4/rmsnorm_bf16": 1}
+                   "K4/rmsnorm_f32": 2, "K4/rmsnorm_bf16": 1,
+                   "K5/split_f32": 1, "K5/combine_f32": 1,
+                   "K5/split_bf16": 1, "K5/combine_bf16": 1,
+                   "K6/adamw_f32": 1, "K6/adamw_bf16": 1,
+                   "K7/xent_f32": 1, "K7/xent_bf16": 1}
+
+    def hand_main(rec, got, want, tol):
+        rel = max(tensor_err(x, y)[0] for x, y in zip(got, want))
+        finite = all(bool(torch.isfinite(x).all()) for x in got)
+        shapes = all(x.shape == y.shape for x, y in zip(got, want))
+        emit({"phase": "hand_main", **rec, "norm_rel_err": rel,
+              "finite": finite})
+        if not (rel <= tol and finite and shapes):
+            failures.append(f"hand_main {rec}: error {rel:.3g}, finite "
+                            f"{finite}, shapes {shapes}")
+
     for name in SERIES:
-        got = hand_out[name]
         ref64 = REGISTRY[name].reference(
             **{n: np.asarray(x, np.float64) for n, x in inputs[name].items()})
         ref64 = ref64 if isinstance(ref64, tuple) else (ref64,)
-        errs = [norm_rel(x.cpu().numpy(), r) for x, r in zip(got, ref64)]
-        finite = all(bool(torch.isfinite(x).all()) for x in got)
-        shapes = all(tuple(x.shape) == np.shape(r) for x, r in zip(got, ref64))
-        emit({"phase": "hand_main", "program": name, "n": n2,
-              "norm_rel_err": max(errs), "finite": finite})
-        if not (max(errs) <= RTOL and finite and shapes):
-            failures.append(f"hand_main {name}: error {max(errs):.3g}, "
-                            f"finite {finite}, shapes {shapes}")
+        hand_main({"program": name, "n": size(name)}, hand_out[name],
+                  [torch.from_numpy(np.asarray(r)).cuda() for r in ref64],
+                  RTOL)
     for dt, x in prefill.items():
         x64, g64 = x.double(), gamma.double()
         want = x64 * torch.rsqrt((x64 * x64).mean(-1, keepdim=True) + 1e-6) \
             * g64
-        rel, _ = tensor_err(prefill_out[dt], want)
-        finite = bool(torch.isfinite(prefill_out[dt]).all())
-        tol = BF16_RTOL if dt == "bfloat16" else RTOL
-        emit({"phase": "hand_main", "program": "rmsnorm", "shape":
-              list(PREFILL), "dtype": dt, "norm_rel_err": rel,
-              "finite": finite})
-        if not (rel <= tol and finite
-                and prefill_out[dt].dtype == x.dtype):
-            failures.append(f"hand_main rmsnorm {dt}: error {rel:.3g}, "
-                            f"finite {finite}")
+        hand_main({"program": "rmsnorm", "shape": list(PREFILL),
+                   "dtype": dt}, (prefill_out[dt],), (want,),
+                  BF16_RTOL if dt == "bfloat16" else RTOL)
+        if prefill_out[dt].dtype != x.dtype:
+            failures.append(f"hand_main rmsnorm {dt}: output dtype "
+                            f"{prefill_out[dt].dtype}")
+    q, kk, vv = (t.double() for t in hand_data["K5", "bfloat16"])
+    B, Hq, Hkv, S, d = DECODE
+    w = torch.softmax(torch.einsum(
+        "bhgd,bshd->bhgs", q.reshape(B, Hkv, Hq // Hkv, d), kk) / d ** 0.5,
+        dim=-1)
+    want = torch.einsum("bhgs,bshd->bhgd", w, vv).reshape(B, Hq, d)
+    hand_main({"program": "decode_attention", "shape": list(DECODE),
+               "dtype": "bfloat16"}, (attn_out,), (want,), BF16_RTOL)
+    del q, kk, vv, w, want
+    p, g, mm, vv = (t.double() for t in hand_data["K6", "bfloat16"])
+    H = K6_HYPERS
+    m2 = H["beta1"] * mm + (1 - H["beta1"]) * g
+    v2 = H["beta2"] * vv + (1 - H["beta2"]) * g * g
+    p2 = p - H["lr"] * ((m2 / (1 - H["beta1"] ** 7))
+                        / (torch.sqrt(v2 / (1 - H["beta2"] ** 7)) + H["eps"])
+                        + H["weight_decay"] * p)
+    hand_main({"program": "adamw_update", "shape": [ADAMW_N],
+               "dtype": "bfloat16", "output": "p"}, adamw_out[:1], (p2,),
+              BF16_RTOL)
+    hand_main({"program": "adamw_update", "shape": [ADAMW_N],
+               "dtype": "bfloat16", "output": "m, v"}, adamw_out[1:],
+              (m2, v2), RTOL)
+    del p, g, mm, vv, m2, v2, p2
+    for dt, mean in xent_out.items():
+        logits, labels = hand_data["K7", dt]
+        rows = torch.cat([torch.logsumexp(c.double(), dim=-1)
+                          for c in logits.split(1024)])
+        rows -= torch.gather(logits, 1, labels[:, None])[:, 0].double()
+        want = float(rows.mean())
+        rel = abs(float(mean) - want) / abs(want)
+        emit({"phase": "hand_main", "program": "softmax_xent",
+              "shape": list(XENT), "dtype": dt, "mean_rel_err": rel})
+        if not rel <= MEAN_RTOL:
+            failures.append(f"hand_main softmax_xent {dt}: mean loss "
+                            f"relative error {rel:.3g} > {MEAN_RTOL}")
     emit({"phase": "hand_main", "launches": hand_launches})
     if hand_launches != want_counts:
         failures.append(f"hand_main: launch counts {hand_launches}, want "
@@ -572,29 +877,39 @@ def main(argv=None):
     if failures:
         fail("; ".join(failures))
 
-    # -- 7. the three-way series, with the library sequence ------------------
-    series_kernels = {"GEMVER": (("K3/gemver_k1", (n2, n2)),
-                                 ("K3/gemver_k2", (n2, n2))),
-                      "BiCGK": (("K2/bicgk", (n2, n2)),),
-                      "LM_RMSNORM": (("K4/rmsnorm_f32", (1, n2)),)}
+    # -- 7. the series: compiler, hand, torch backend, library -------------
+    series_bounds = {
+        "GEMVER": {k: hand_bound(k, (n2, n2))[0]
+                   for k in ("K3/gemver_k1", "K3/gemver_k2")},
+        "BiCGK": {"K2/bicgk": hand_bound("K2/bicgk", (n2, n2))[0]},
+        "LM_RMSNORM": {"K4/rmsnorm_f32":
+                       hand_bound("K4/rmsnorm_f32", (1, n2))[0]},
+        "LM_DECODE_ATTN": {"K5": k5_bounds((1, 1, 1, args.n_attn, 48),
+                                           "float32", 1)[2][0]},
+        "FUSED_ADAMW": {"K6/adamw_f32": k6_bound(args.n1, "float32")[0]},
+    }
     for name in SERIES:
         tprog = FusionCompiler(backend="torch", device="cuda",
                                cache=PlanCache()).compile(
-            REGISTRY[name].script, REGISTRY[name].shapes(n2))
+            REGISTRY[name].script, REGISTRY[name].shapes(size(name)))
         t_in = tprog.prepare(**inputs[name])
+        d = series_dev[name]
         runs = {
             "compiler_best": lambda p=progs[(name, "best")],
             a=dev_inputs[(name, "best")]: p.fn(*a),
             "compiler_unfused": lambda p=progs[(name, "unfused")],
             a=dev_inputs[(name, "unfused")]: p.fn(*a),
-            "hand": hand_calls(name, series_dev[name]),
+            "hand": hand_calls(name, d),
             "torch": lambda p=tprog, a=t_in: p.fn(*a),
         }
-        lib = library_sequence(name, series_dev[name])
+        if name == "FUSED_ADAMW":       # the port's optimizer entry point
+            runs["optim_fused"] = lambda d=d: fused_adamw_update(
+                d["p"], d["grad"], d["m"], d["v"], step=3, **K6_HYPERS)
+        lib = library_sequence(name, d)
         if lib is not None:
             runs["library_seq"] = lib
         want = runs["torch"]()
-        rec = {"phase": "series", "program": name, "n": n2,
+        rec = {"phase": "series", "program": name, "n": size(name),
                "groups_best": progs[(name, "best")].n_groups}
         for key, fn in runs.items():
             got = fn()
@@ -608,8 +923,8 @@ def main(argv=None):
             rec[f"{key}_device_us"] = device_ms(fn) * 1e3
         if lib is None:
             rec["library_seq_us"] = rec["library_seq_device_us"] = None
-        rec["hand_bound_us"] = {k: hand_bound(k, shp)[0] * 1e3
-                                for k, shp in series_kernels[name]}
+        rec["hand_bound_us"] = {k: ms * 1e3
+                                for k, ms in series_bounds[name].items()}
         emit(rec)
     if failures:
         fail("; ".join(failures))
@@ -644,29 +959,42 @@ def main(argv=None):
                   "library_norm_rel_err": lib_err, "grid": list(im.grid),
                   "blocks": list(im.blocks),
                   "units": fn.layout.units, "bound_share": b_ms / ms})
-    for kernel, (shape, wrapper, plain, lib) in hand_in.items():
-        ms = device_ms(wrapper)
-        wrapper_ms = time_ms(wrapper)
-        plain_ms = time_ms(plain)
+
+    def tensors_of(x):
+        return tuple(t for t in (x if isinstance(x, tuple) else (x,))
+                     if isinstance(t, torch.Tensor))
+
+    def time_hand(kernel, e):
+        """The time record of one hand-kernel entry."""
+        ms = device_ms(e["wrapper"])
+        wrapper_ms = time_ms(e["wrapper"])
+        plain_ms = time_ms(e["plain"])
         lib_ms = lib_err = None
-        if lib is not None:
-            lib_err, _ = tensor_err(lib(), wrapper())
-            if not lib_err <= (BF16_RTOL if kernel.endswith("bf16")
-                               else RTOL):
+        if e["lib"] is not None:
+            lib_err = max(tensor_err(x, y)[0] for x, y in
+                          zip(tensors_of(e["lib"]()),
+                              tensors_of(e["wrapper"]())))
+            if not lib_err <= e["lib_tol"]:
                 failures.append(f"library call for {kernel} disagrees with "
                                 f"the kernel: {lib_err:.3g}")
-            lib_ms = device_ms(lib)
-        b_ms, b_by = hand_bound(kernel, shape)
-        source, replaces = HAND[kernel]
+            lib_ms = device_ms(e["lib"])
+        b_ms, b_by = e["bound"]
+        source, replaces = HAND[kernel.replace("split+combine", "split")]
         rec = {"name": kernel, "route": "cuda", "source": source,
                "replaces": replaces, "launches": hand_launches.get(kernel, 0),
-               "max_abs_err": hand_err[kernel], "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": lib_ms}
-        records.append(rec)
-        emit({"phase": "time", **rec, "shape": list(shape),
-              "wrapper_ms": wrapper_ms, "library_norm_rel_err": lib_err,
-              "bound_share": b_ms / ms})
+               "max_abs_err": e["err"], "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        extra = {k: e[k] for k in ("chunks", "chunk_len") if k in e}
+        emit({"phase": "time", **rec, "shape": list(e["shape"]),
+              "dtype": e["dtype"], "wrapper_ms": wrapper_ms,
+              "library_norm_rel_err": lib_err, "bound_share": b_ms / ms,
+              **extra})
+        return rec
+
+    for kernel, e in hand_in.items():
+        records.append(time_hand(kernel, e))
+    for kernel, e in whole_in.items():      # lines only: two launches each
+        time_hand(kernel, e)
     if failures:
         fail("; ".join(failures))
 

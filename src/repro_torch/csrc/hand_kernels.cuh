@@ -1,5 +1,6 @@
-// Device helpers shared by the hand-written kernels K2-K4
-// (bicgk.cu, gemver.cu, rmsnorm.cu).
+// Device helpers shared by the hand-written kernels K2-K7
+// (bicgk.cu, gemver.cu, rmsnorm.cu, decode_attention.cu, adamw.cu,
+// softmax_xent.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -77,6 +78,29 @@ inline cudaError_t row_groups(KA ka, KB kb, int m, int n, int tn,
   const int most = (m + WARPS - 1) / WARPS;
   if (g > most) g = most;
   *groups = g > 1 ? g : 1;
+  return cudaSuccess;
+}
+
+// Blocks of NT threads for a grid-stride pass over `work` items, one
+// item per thread per step: as many CTAs as the card holds at once of
+// `kernel` (with `smem` bytes of dynamic shared memory), fewer where
+// there is less work.
+template <class K>
+inline cudaError_t resident_grid(K kernel, long long work, size_t smem,
+                                 int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, NT, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long need = (work + NT - 1) / NT;
+  const long long cap = (long long)per_sm * sms;
+  *grid = (int)(need < cap ? (need > 0 ? need : 1) : cap);
   return cudaSuccess;
 }
 

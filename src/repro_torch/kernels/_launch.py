@@ -1,5 +1,5 @@
 """What every kernel wrapper (the generated K1 groups and the hand
-kernels K2-K4) does around its ``ctypes`` call: check the tensors it is
+kernels K2-K7) does around its ``ctypes`` call: check the tensors it is
 given, make their device current, count the launch in ``LAUNCHES``,
 raise on a non-zero ``cudaError_t``."""
 from __future__ import annotations
@@ -83,19 +83,27 @@ def launch(kernel: str, fn, *args, device: torch.device):
 _grids: dict = {}
 
 
-def row_groups(kernel: str, fn, m: int, n: int,
+def grid_query(kernel: str, fn, *args: int,
                device: torch.device) -> tuple[int, int]:
-    """(row ranges per column strip, column strips) of an (m, n) launch of
-    ``kernel`` on ``device``, from its C query ``fn(m, n, &groups,
-    &strips)`` (the kernel's occupancy on that card), cached per device
-    and shape."""
-    key = (kernel, device.index, m, n)
+    """The two ints that the C query ``fn(*args, &a, &b)`` of ``kernel``
+    returns for ``device`` (a grid sized from the kernel's occupancy on
+    that card: K2's and K3 ``_k1``'s (row ranges, column strips), K5's
+    (chunks, chunk length)), cached per device and arguments."""
+    key = (kernel, device.index, *args)
     if key not in _grids:
-        groups, strips = ctypes.c_int(0), ctypes.c_int(0)
+        a, b = ctypes.c_int(0), ctypes.c_int(0)
         with _current(device):
-            status = fn(m, n, ctypes.byref(groups), ctypes.byref(strips))
+            status = fn(*args, ctypes.byref(a), ctypes.byref(b))
         if status != 0:
             raise CudaLaunchError(f"{kernel}: occupancy query failed with "
                                   f"cudaError_t {status}")
-        _grids[key] = (groups.value, strips.value)
+        _grids[key] = (a.value, b.value)
     return _grids[key]
+
+
+def device_scalar(a, device: torch.device) -> torch.Tensor:
+    """A scalar as a 0-d float32 tensor on ``device``, made there (no
+    host round trip) when it is a Python number."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.float32).reshape(())
+    return torch.full((), float(a), dtype=torch.float32, device=device)

@@ -40,7 +40,7 @@ def bicgk(A: torch.Tensor, p: torch.Tensor, r: torch.Tensor):
     _launch.check(NAME, "p", p, (n,), device=A.device)
     _launch.check(NAME, "r", r, (m,), device=A.device)
     launch, query = _launchers()
-    groups, strips = _launch.row_groups(NAME, query, m, n, A.device)
+    groups, strips = _launch.grid_query(NAME, query, m, n, device=A.device)
     q_part = torch.empty((strips, m), dtype=torch.float32, device=A.device)
     s_part = torch.empty((groups, n), dtype=torch.float32, device=A.device)
     _launch.launch(NAME, launch, A.data_ptr(), p.data_ptr(), r.data_ptr(),

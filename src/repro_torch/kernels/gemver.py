@@ -45,7 +45,7 @@ def gemver_k1(A, u1, v1, u2, v2, y):
                           ("v2", v2, n), ("y", y, m)):
         _launch.check(NAME_K1, name, t, (size,), device=A.device)
     launch, _, query = _launchers()
-    groups, _ = _launch.row_groups(NAME_K1, query, m, n, A.device)
+    groups, _ = _launch.grid_query(NAME_K1, query, m, n, device=A.device)
     B = torch.empty_like(A)
     t_part = torch.empty((groups, n), dtype=torch.float32, device=A.device)
     _launch.launch(NAME_K1, launch,

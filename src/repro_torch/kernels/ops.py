@@ -1,37 +1,42 @@
 """Public API over the hand kernels, with the reference's names and
-argument order (``repro.kernels.ops``): ``rmsnorm`` (K4), ``bicgk`` (K2)
-and ``gemver`` (K3).
+argument order (``repro.kernels.ops``): ``rmsnorm`` (K4), ``bicgk`` (K2),
+``gemver`` (K3), ``adamw_update`` (K6), ``softmax_xent`` (K7) and
+``decode_attention`` (K5).
 
 Tensors on a CUDA device always launch the kernel; tensors on the CPU
 run the plain version in ``kernels.ref``.  Nothing falls back: a failed
 build or launch, or a mix of devices, raises.  The reference's
-``use_pallas``/``interpret`` switches are gone, and so is its
-``LANES = 128`` gate (rmsnorm only on ``D % 128 == 0``, else the plain
-version): that was a TPU layout limit, and the CUDA kernels take any
-``D``.  ``adamw_update``, ``softmax_xent`` and ``decode_attention`` come
-with their kernels (K6, K7, K5).
+``use_pallas``/``interpret`` switches are gone, and so are its gates
+that sent TPU-unfriendly shapes to the plain version, because the CUDA
+kernels take those shapes:
+
+* ``rmsnorm``: any ``D`` (the reference's ``D % 128``);
+* ``adamw_update``: any ``N`` and any shape, taken flat (the reference's
+  1-D ``N % 128``);
+* ``decode_attention``: any head dim ``d`` up to
+  ``kernels.decode_attention.D_MAX`` = 256 (the reference's ``d % 128``);
+  a larger ``d`` raises.  ``Hq % Hkv != 0`` raises ``ValueError`` on
+  every device: the plain version cannot compute it either;
+* ``softmax_xent``: 2-D logits on CUDA (the reference's ``ndim == 2``
+  gate); other shapes raise there.
 """
 from __future__ import annotations
 
 import torch
 
+from . import adamw as _adamw
 from . import bicgk as _bicgk
+from . import decode_attention as _attn
 from . import gemver as _gemver
 from . import ref
 from . import rmsnorm as _rmsnorm
+from . import softmax_xent as _xent
+from ._launch import device_scalar
 
 
 def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors
                if isinstance(t, torch.Tensor))
-
-
-def _device_scalar(a, device: torch.device) -> torch.Tensor:
-    """A scalar as a one-element float32 tensor on ``device``, made on
-    the device (no host round trip) when it is a Python number."""
-    if isinstance(a, torch.Tensor):
-        return a.to(device=device, dtype=torch.float32)
-    return torch.full((), float(a), dtype=torch.float32, device=device)
 
 
 def rmsnorm(x, gamma, eps=1e-6):
@@ -55,5 +60,36 @@ def gemver(A, u1, v1, u2, v2, y, z, alpha, beta):
     if _on_cpu(A, u1, v1, u2, v2, y, z, alpha, beta):
         return ref.gemver(A, u1, v1, u2, v2, y, z, alpha, beta)
     return _gemver.gemver(A, u1, v1, u2, v2, y, z,
-                          _device_scalar(alpha, A.device),
-                          _device_scalar(beta, A.device))
+                          device_scalar(alpha, A.device),
+                          device_scalar(beta, A.device))
+
+
+def adamw_update(p, g, m, v, *, lr, beta1=0.9, beta2=0.95, eps=1e-8,
+                 weight_decay=0.0, step=1):
+    """One AdamW step; returns new (p', m', v') of p's shape.  ``lr``
+    and ``step`` may be tensors (a schedule)."""
+    kw = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps,
+              weight_decay=weight_decay, step=step)
+    if _on_cpu(p, g, m, v, lr, step):
+        return ref.adamw(p, g, m, v, **kw)
+    outs = _adamw.adamw_update(p.reshape(-1), g.reshape(-1), m.reshape(-1),
+                               v.reshape(-1), **kw)
+    return tuple(o.reshape(p.shape) for o in outs)
+
+
+def softmax_xent(logits, labels):
+    """Mean token cross-entropy; logits (T, V), labels (T,)."""
+    if _on_cpu(logits, labels):
+        return ref.softmax_xent(logits, labels)
+    if logits.dim() != 2:
+        raise ValueError(f"softmax_xent: logits must be 2-D (T, V) on "
+                         f"CUDA, got shape {tuple(logits.shape)}")
+    return _xent.softmax_xent(logits, labels)
+
+
+def decode_attention(q, k, v):
+    """q: (B, Hq, d); k, v: (B, S, Hkv, d) -> (B, Hq, d)."""
+    _attn.check_heads(q.shape[1], k.shape[2])
+    if _on_cpu(q, k, v):
+        return ref.decode_attention(q, k, v)
+    return _attn.decode_attention(q, k, v)

@@ -53,7 +53,8 @@ Sequence = Program
 REGISTRY: dict[str, Program] = {}
 #: The paper's 11 BLAS evaluation sequences (Table 1).
 BLAS: dict[str, Program] = {}
-#: LM decode-step workloads (rmsnorm, decoder block).
+#: LM decode-step workloads (rmsnorm, decoder block, decode attention,
+#: AdamW).
 MODELS: dict[str, Program] = {}
 
 

@@ -176,5 +176,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert res["bad"] == []
     for mod in ("core.cuda_codegen", "launch.serve", "kernels.ops",
                 "kernels.ref", "kernels.bicgk", "kernels.gemver",
-                "kernels.rmsnorm", "programs.models", "programs.model_lib"):
+                "kernels.rmsnorm", "kernels.decode_attention",
+                "kernels.adamw", "kernels.softmax_xent", "optim",
+                "optim.fused", "programs.models", "programs.model_lib"):
         assert f"repro_torch.{mod}" in res["mods"]

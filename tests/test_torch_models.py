@@ -1,5 +1,6 @@
-"""The port's LM programs ``LM_RMSNORM`` and ``LM_BLOCK`` against the JAX
-reference: same inputs, same plans, same numbers.
+"""The port's LM programs ``LM_RMSNORM``, ``LM_BLOCK``, ``LM_DECODE_ATTN``
+and ``FUSED_ADAMW`` against the JAX reference: same inputs, same plans,
+same numbers.
 
 * the input factories give the same arrays for the same seed;
 * plan JSON equals the reference's, backend apart, for ``best``,
@@ -11,8 +12,9 @@ reference: same inputs, same plans, same numbers.
 * ``tiled_reference`` against the reference's Pallas kernel
   ``_group_pallas_fn`` in interpret mode, for every group of the
   enumerated combinations at n = 256 (grids of more than one tile);
-* the new elementaries' per-point CUDA expressions against their torch
-  ``fn`` (``rms_scale``, ``exp``, ``rsqrt``, ``exp_sub``).
+* every LM elementary's per-point CUDA expression against its torch
+  ``fn`` (maps point by point; the attention contractions as the sum of
+  their per-point terms over the reduce axis).
 
 Tolerance: the reference envelope, rtol 1e-4, atol 1e-3 (float32 sums
 in another order; ``rsqrtf`` is within 2 ulp).
@@ -42,10 +44,11 @@ from repro_torch.core import (V5E, FusionCompiler, PlanCache, build_plan,
 from repro_torch.core import elementary as core_elem
 from repro_torch.core.cuda_codegen import (GroupLayout, plan_source,
                                            tiled_reference)
+from repro_torch.optim import fused as optim_fused
 from repro_torch.programs import MODELS, REGISTRY, make_inputs
 from repro_torch.programs import model_lib
 
-NAMES = ("LM_BLOCK", "LM_RMSNORM")
+NAMES = ("FUSED_ADAMW", "LM_BLOCK", "LM_DECODE_ATTN", "LM_RMSNORM")
 MODES = ("best", "unfused") + tuple(range(8))
 RTOL, ATOL = 1e-4, 1e-3
 
@@ -106,13 +109,34 @@ def test_plans_match_reference_and_emit(name, n):
         assert src.count("__global__") == cp.n_groups
     best = FusionCompiler(device="cpu", cache=None).compile(
         prog.script, prog.shapes(n))
-    lay = GroupLayout(best.graph, best.group_impls[0])
-    # the sum of squares is consumed by rms_scale: a two-phase group
-    assert lay.names == "ew_mul+sum_reduce+rms_scale" and lay.n_phases == 2
+    lays = [GroupLayout(best.graph, im) for im in best.group_impls]
+    if name in ("LM_RMSNORM", "LM_BLOCK"):
+        # the sum of squares is consumed by rms_scale: a two-phase group
+        assert lays[0].names == "ew_mul+sum_reduce+rms_scale"
+        assert lays[0].n_phases == 2
+    if name == "LM_DECODE_ATTN":
+        # scores, a three-phase softmax (a MAX, then a SUM, consumed),
+        # and the weighted value sum
+        assert [(la.names, la.n_phases) for la in lays] == [
+            ("attn_score", 1),
+            ("scal+max_reduce+exp_sub+sum_reduce+div_by", 3),
+            ("attn_out", 1)]
+        assert [c.elem.monoid.value for c in lays[1].f.calls
+                if c.elem.is_reduction] == ["max", "sum"]
+    if name == "FUSED_ADAMW":
+        # one streaming pass: four maps, three outputs
+        assert len(lays) == 1 and lays[0].n_phases == 1
+        assert [lays[0].out_mode[v] for v in lays[0].outputs] == ["map"] * 3
     if n == 4096:
-        assert [(gp.call_indices, gp.blocks) for gp in best.plan.groups] == (
-            [((0, 1, 2), (128,))] if name == "LM_RMSNORM" else
-            [((0, 1, 2), (128,)), ((3,), (4096, 128)), ((4,), (128,))])
+        want = {
+            "LM_RMSNORM": [((0, 1, 2), (128,))],
+            "LM_BLOCK": [((0, 1, 2), (128,)), ((3,), (4096, 128)),
+                         ((4,), (128,))],
+            "LM_DECODE_ATTN": [((0,), (4096, 8)), ((1, 2, 3, 4, 5), (128,)),
+                               ((6,), (48, 8))],
+            "FUSED_ADAMW": [((0, 1, 2, 3), (128,))]}[name]
+        assert [(gp.call_indices, gp.blocks)
+                for gp in best.plan.groups] == want
 
 
 @pytest.mark.parametrize("mode", ["best", "unfused"])
@@ -178,24 +202,53 @@ def test_tiled_reference_matches_pallas_interpret(name):
 
 
 _FLOAT_SUFFIX = re.compile(r"(\d(?:\.\d*)?(?:e[-+]?\d+)?)f\b")
+_CUDA_MATH = {"rsqrtf": torch.rsqrt, "expf": torch.exp, "sqrtf": torch.sqrt}
+LM_ELEMENTARIES = [model_lib.rms_scale, core_elem.exp_map,
+                   core_elem.rsqrt_map, core_elem.exp_sub, model_lib.div_by,
+                   model_lib.attn_score, model_lib.attn_out,
+                   model_lib.ema_pm, model_lib.ema_sq_pm, optim_fused.ema,
+                   optim_fused.ema_sq, optim_fused.adam_dir,
+                   optim_fused.apply_lr]
 
 
-@pytest.mark.parametrize("elem", [model_lib.rms_scale, core_elem.exp_map,
-                                  core_elem.rsqrt_map, core_elem.exp_sub],
-                         ids=lambda e: e.name)
+def test_model_lib_holds_the_reference_elementaries():
+    from repro.programs import model_lib as ref_model_lib
+    assert sorted(model_lib.ALL) == sorted(ref_model_lib.ALL)
+    for name, e in model_lib.ALL.items():
+        r = ref_model_lib.ALL[name]
+        assert (e.kind.value, [a.axes for a in e.in_specs], e.out_axes,
+                e.monoid.value, e.flops_per_point) == (
+            r.kind.value, [a.axes for a in r.in_specs], r.out_axes,
+            r.monoid.value, r.flops_per_point)
+        assert e.cuda, name
+    assert model_lib.adam_dir is optim_fused.adam_dir
+    assert model_lib.apply_lr is optim_fused.apply_lr
+
+
+@pytest.mark.parametrize("elem", LM_ELEMENTARIES, ids=lambda e: e.name)
 def test_cuda_expression_matches_torch_fn(elem):
     """The per-point CUDA expression, evaluated over the iteration space
     with the CUDA math functions as their torch counterparts, equals the
-    elementary's torch ``fn``."""
+    elementary's torch ``fn``; for a contraction, the sum of its terms
+    over the reduce axis does."""
     rng = np.random.default_rng(0)
-    args = []
+    sizes = (5, 7)[:elem.depth]
+    args, points = [], []
     for spec in elem.in_specs:
-        shape = (7,) if spec.axes else ()
+        shape = tuple(sizes[a] for a in spec.axes)
         # positive values: rsqrt's argument and rms_scale's sum of squares
-        args.append(torch.from_numpy(
-            rng.uniform(0.5, 2.0, shape).astype(np.float32)))
-    env = {f"a{k}": a for k, a in enumerate(args)}
+        x = torch.from_numpy(rng.uniform(0.5, 2.0, shape).astype(np.float32))
+        args.append(x)
+        # the argument at every point of the iteration space
+        view = [1] * elem.depth
+        for a, n in zip(spec.axes, shape):
+            view[a] = n
+        points.append(x.reshape(view) if spec.axes else x)
+    env = {f"a{k}": a for k, a in enumerate(points)}
     expr = _FLOAT_SUFFIX.sub(r"\1", elem.cuda_expr(*env))
-    got = eval(expr, {"rsqrtf": torch.rsqrt, "expf": torch.exp}, env)  # noqa: S307
-    torch.testing.assert_close(got.expand(7), elem.fn(*args).expand(7),
-                               rtol=1e-6, atol=1e-6)
+    got = eval(expr, dict(_CUDA_MATH), env).expand(sizes)  # noqa: S307
+    if elem.is_reduction:
+        got = elem.monoid.reduce(got, dims=elem.reduce_axes)
+    want = elem.fn(*args)
+    torch.testing.assert_close(got, want.expand(got.shape), rtol=1e-6,
+                               atol=1e-6)
