@@ -31,7 +31,10 @@ Phases, each printed as JSON lines:
    build of every plan's kernels and of the hand kernels (one ``nvcc``
    per source, in parallel);
 2. kernel: every K1 group's kernel against K1's plain tiled version on
-   the same inputs on the card;
+   the same inputs on the card, and a second launch of it bitwise equal
+   to the first (the groups whose reduce axes K1 cuts into slices
+   combine their partials in a fixed order, with no atomics); each
+   record gives the group's work units and slices per phase;
 3. main: every program's outputs against its numpy reference in
    float64, and the launch counts of that run, which must show every
    group of every plan launched once;
@@ -48,11 +51,12 @@ Phases, each printed as JSON lines:
 6. serve: ``serve_blas`` for GEMVER at n = 4096, 100 requests, in
    ``best`` and ``unfused`` (CUDA events);
 7. series: the paper's comparison for GEMVER, BiCGK, LM_RMSNORM (n =
-   4096), LM_DECODE_ATTN (n = 131072) and FUSED_ADAMW (n = 2**24) —
-   compiler ``best`` and ``unfused``, the hand kernels, the ``torch``
-   backend, for FUSED_ADAMW the port's ``optim.fused_adamw_update``, and
-   the library calls the paper measures against (cuBLAS matvecs and
-   rank-1 updates; ``F.rms_norm``; ``F.scaled_dot_product_attention``;
+   4096), AXPYDOT, FUSED_ADAMW (n = 2**24) and LM_DECODE_ATTN (n =
+   131072) — compiler ``best`` and ``unfused``, the hand kernels (none
+   for AXPYDOT), the ``torch`` backend, for FUSED_ADAMW the port's
+   ``optim.fused_adamw_update``, and the library calls the paper
+   measures against (cuBLAS matvecs and rank-1 updates; ``addcmul`` and
+   ``dot``; ``F.rms_norm``; ``F.scaled_dot_product_attention``;
    ``torch.optim.AdamW(fused=True)``), timed only, never used by the
    port — outputs cross-checked first, then µs per request back to back
    (``*_us``) and as device time (``*_device_us``), beside the hand
@@ -106,7 +110,10 @@ MODES = ("best", "unfused")
 BLAS1 = ("AXPYDOT", "VADD", "WAXPBY", "SSCAL", "FUSED_ADAMW")
 LM = ("LM_RMSNORM", "LM_BLOCK", "LM_DECODE_ATTN", "FUSED_ADAMW")
 #: the paper's three-way comparison (``benchmarks/fused_kernels.py``)
-SERIES = ("GEMVER", "BiCGK", "LM_RMSNORM", "LM_DECODE_ATTN", "FUSED_ADAMW")
+SERIES = ("GEMVER", "BiCGK", "AXPYDOT", "LM_RMSNORM", "LM_DECODE_ATTN",
+          "FUSED_ADAMW")
+#: the series programs with a hand kernel behind ``ops``
+HANDED = tuple(name for name in SERIES if name != "AXPYDOT")
 RTOL = 1e-4
 #: bfloat16 kernel against its plain version (one rounding each)
 BF16_KERNEL_RTOL = 1e-3
@@ -337,8 +344,8 @@ def tensor_err(got, want):
 
 
 def hand_calls(name, d):
-    """The ``ops`` call serving program ``name`` on device inputs ``d``,
-    with the program's outputs in order."""
+    """The ``ops`` call serving program ``name`` (one of ``HANDED``) on
+    device inputs ``d``, with the program's outputs in order."""
     from repro_torch.kernels import ops
     if name == "GEMVER":
         return lambda: ops.gemver(d["A"], d["u1"], d["v1"], d["u2"], d["v2"],
@@ -382,8 +389,8 @@ def fused_adamw_step(p, g, m, v, step: int):
 
 def library_sequence(name, d):
     """The library calls the paper measures a program against: cuBLAS
-    matvecs and rank-1 updates, one ``F.rms_norm``, one
-    ``F.scaled_dot_product_attention``, or one step of
+    matvecs and rank-1 updates, ``addcmul`` and ``dot``, one
+    ``F.rms_norm``, one ``F.scaled_dot_product_attention``, or one step of
     ``torch.optim.AdamW(fused=True)`` (the same update: decoupled decay,
     then ``lr c1 m / (sqrt(v c2) + eps)``; it updates its own copies in
     place).  Timed here only; the port never calls them.  None where the
@@ -401,6 +408,11 @@ def library_sequence(name, d):
         return gemver
     if name == "BiCGK":
         return lambda: (torch.mv(d["A"], d["p"]), torch.mv(d["A"].T, d["r"]))
+    if name == "AXPYDOT":               # z = w - alpha v; r = z . u
+        def axpydot():
+            z = torch.addcmul(d["w"], d["alpha"], d["v"], value=-1)
+            return z, torch.dot(z, d["u"])
+        return axpydot
     if name == "LM_DECODE_ATTN":        # (B, Hkv, S, d) views
         return lambda: (F.scaled_dot_product_attention(
             d["q"][None, None, None], d["K"][None, None],
@@ -519,6 +531,7 @@ def main(argv=None):
             a = group_args(prog, outs_so_far, gp, dev_inputs[k])
             try:
                 got = fn.launch(*a)
+                again = fn.launch(*a)
                 torch.cuda.synchronize()
             except Exception as e:  # noqa: BLE001
                 failures.append(f"kernel {fn.name}: {e}")
@@ -529,13 +542,22 @@ def main(argv=None):
                         for x, y in zip(got, want)]
                 mabs = max(float((x - y).abs().max()) for x, y in
                            zip(got, want))
+                bitwise = all(torch.equal(x.view(torch.int32),
+                                          y.view(torch.int32))
+                              for x, y in zip(got, again))
                 kernel_err[fn.name] = mabs
                 kernel_out[fn.name] = got
                 emit({"phase": "kernel", "kernel": fn.name,
-                      "max_abs_err": mabs, "norm_rel_err": max(errs)})
+                      "max_abs_err": mabs, "norm_rel_err": max(errs),
+                      "repeat_bitwise": bitwise,
+                      "units": [ph.units for ph in fn.layout.phases],
+                      "slices": [ph.S for ph in fn.layout.phases]})
                 if not max(errs) <= RTOL:
                     failures.append(f"kernel {fn.name}: norm-relative error "
                                     f"{max(errs):.3g} > {RTOL}")
+                if not bitwise:
+                    failures.append(f"kernel {fn.name}: a second launch "
+                                    f"differs from the first")
             group_in[fn.name] = (prog, im, a)
             outs_so_far.append(want)
     if failures:
@@ -776,7 +798,8 @@ def main(argv=None):
                for dt in ("float32", "bfloat16")}
     gamma = randn(PREFILL[1])
     LAUNCHES.reset()
-    hand_out = {name: hand_calls(name, series_dev[name])() for name in SERIES}
+    hand_out = {name: hand_calls(name, series_dev[name])()
+                for name in HANDED}
     prefill_out = {dt: ops.rmsnorm(x, gamma) for dt, x in prefill.items()}
     attn_out = ops.decode_attention(*hand_data["K5", "bfloat16"])
     adamw_out = ops.adamw_update(*hand_data["K6", "bfloat16"], step=7,
@@ -802,7 +825,7 @@ def main(argv=None):
             failures.append(f"hand_main {rec}: error {rel:.3g}, finite "
                             f"{finite}, shapes {shapes}")
 
-    for name in SERIES:
+    for name in HANDED:
         ref64 = REGISTRY[name].reference(
             **{n: np.asarray(x, np.float64) for n, x in inputs[name].items()})
         ref64 = ref64 if isinstance(ref64, tuple) else (ref64,)
@@ -882,6 +905,8 @@ def main(argv=None):
         "GEMVER": {k: hand_bound(k, (n2, n2))[0]
                    for k in ("K3/gemver_k1", "K3/gemver_k2")},
         "BiCGK": {"K2/bicgk": hand_bound("K2/bicgk", (n2, n2))[0]},
+        # no hand kernel: the program's own bound (w, v, u read; z written)
+        "AXPYDOT": {"program": bound_of(16 * args.n1, 4 * args.n1)[0]},
         "LM_RMSNORM": {"K4/rmsnorm_f32":
                        hand_bound("K4/rmsnorm_f32", (1, n2))[0]},
         "LM_DECODE_ATTN": {"K5": k5_bounds((1, 1, 1, args.n_attn, 48),
@@ -899,9 +924,10 @@ def main(argv=None):
             a=dev_inputs[(name, "best")]: p.fn(*a),
             "compiler_unfused": lambda p=progs[(name, "unfused")],
             a=dev_inputs[(name, "unfused")]: p.fn(*a),
-            "hand": hand_calls(name, d),
             "torch": lambda p=tprog, a=t_in: p.fn(*a),
         }
+        if name in HANDED:
+            runs["hand"] = hand_calls(name, d)
         if name == "FUSED_ADAMW":       # the port's optimizer entry point
             runs["optim_fused"] = lambda d=d: fused_adamw_update(
                 d["p"], d["grad"], d["m"], d["v"], step=3, **K6_HYPERS)
@@ -921,8 +947,9 @@ def main(argv=None):
         for key, fn in runs.items():
             rec[f"{key}_us"] = time_ms(fn) * 1e3
             rec[f"{key}_device_us"] = device_ms(fn) * 1e3
-        if lib is None:
-            rec["library_seq_us"] = rec["library_seq_device_us"] = None
+        for key in ("hand", "library_seq"):
+            if key not in runs:
+                rec[f"{key}_us"] = rec[f"{key}_device_us"] = None
         rec["hand_bound_us"] = {k: ms * 1e3
                                 for k, ms in series_bounds[name].items()}
         emit(rec)
@@ -958,7 +985,9 @@ def main(argv=None):
             emit({"phase": "time", **rec, "wrapper_ms": wrapper_ms,
                   "library_norm_rel_err": lib_err, "grid": list(im.grid),
                   "blocks": list(im.blocks),
-                  "units": fn.layout.units, "bound_share": b_ms / ms})
+                  "units": [ph.units for ph in fn.layout.phases],
+                  "slices": [ph.S for ph in fn.layout.phases],
+                  "bound_share": b_ms / ms})
 
     def tensors_of(x):
         return tuple(t for t in (x if isinstance(x, tuple) else (x,))

@@ -21,25 +21,47 @@ in parallel and in no order, so the generator maps them as follows:
 
 * **Work units.**  Per phase, the axes that the phase's ``acc`` outputs
   and consumed reductions reduce over (an innermost suffix of the order)
-  are *serial*: one CTA walks their whole range in plan order, which
-  replaces the reference's revisited output block.  Axes that the
-  phase's ``partial`` outputs reduce over are cut at the plan's tiles,
-  one partial per plan tile, combined after the kernel.  All other axes
-  are *free* — nothing reduces over them — and are re-tiled for the card
-  (split or merged), which changes no result.  Each CTA takes work units
-  grid-stride.
+  are *serial*: a unit spans their whole range, which replaces the
+  reference's revisited output block.  Axes that the phase's ``partial``
+  outputs reduce over are *tiled*: a unit spans one plan tile, and the
+  output keeps one partial per plan tile, combined after the kernel.
+  All other axes are *free* — nothing reduces over them — and are
+  re-tiled for the card (split or merged), which changes no result.
+* **Slices.**  A phase whose units would leave the card idle (fewer than
+  ``SPLIT_BELOW``) and whose unit walks at least ``SPLIT_MIN_POINTS``
+  points has its serial and tiled spans cut into slices: a power of two
+  of them in all, so that units x slices reaches ``TARGET_UNITS``, none
+  under ``MIN_SLICE_POINTS`` points.  The count is fixed here, from the
+  plan's shapes, order and tiles alone (never from the grid or the
+  occupancy), so the order of every sum depends on the plan alone.  An
+  *item* is one (unit, slice); CTAs take items grid-stride.  A group with
+  both axes serial (BiCGK's ``gemv+gemtv``) gets 2-D slices, each reading
+  its tile of A once and writing a row and a column partial, as hand K2
+  does.
+* **Combine.**  A reduction whose reduce axes were cut writes one partial
+  per slice into a workspace; after a grid barrier every CTA folds them,
+  one warp an output element: lane l takes slices l, l + 32, ... in
+  order, then a fixed shuffle tree.  No float atomics, so the results are
+  bitwise equal from run to run.  The barrier, and not a last-CTA
+  combine with an arrival counter, because multi-phase groups already
+  launch cooperatively; because the workspace can then come from
+  ``torch.empty`` (a counter would have to stay zeroed between launches,
+  which two streams could race on); and because every CTA shares the
+  combine, where a last CTA would fold all of BiCGK's 2 x 4096 partial
+  sums alone.  A split group is therefore one cooperative launch too.
 * **Phases.**  A group that consumes a finished reduction
   (``call_phases`` > 1) is one cooperative launch with a grid barrier
   between phases; its grid is sized by occupancy so every CTA is
   co-resident.  Consumed reductions live in a device workspace the
-  wrapper allocates; map values are recomputed per phase.
-* **Reductions.**  With 256 threads as 8 rows x 32 lanes (lanes along
-  the contiguous axis), a reduction over the lane axis is a warp
-  shuffle per sub-tile into a per-row shared accumulator; a reduction
-  over the row axis accumulates per thread in shared memory and the 8
-  rows are combined at the end of the unit; a full reduction
+  wrapper allocates, written (after the combine, if cut) before the
+  barrier; map values are recomputed per phase.
+* **Reductions inside an item.**  With 256 threads as 8 rows x 32 lanes
+  (lanes along the contiguous axis), a reduction over the lane axis is a
+  warp shuffle per sub-tile into a per-row shared accumulator; a
+  reduction over the row axis accumulates per thread in shared memory
+  and the 8 rows are combined at the end of the item; a full reduction
   accumulates in registers and ends in a block reduction.  The order is
-  fixed, so results do not change from run to run.  No global atomics.
+  fixed, so results do not change from run to run.
 * **No host synchronisation.**  Scalars — inputs and finished
   reductions alike — travel as one-element device tensors.
 
@@ -68,9 +90,19 @@ from .predictor import Impl, accumulable, reduce_roots_of
 #: threads per CTA: 8 rows x 32 lanes for depth-2 groups, 256 lanes at depth 1
 NT = 256
 ROWS, LANES = 8, 32
-#: work units wanted per phase before free axes stop being merged
-#: (four per SM of an H100)
+#: work units wanted per phase before free axes stop being merged, and
+#: the units x slices a cut phase is brought to (four per SM of an H100)
 TARGET_UNITS = 4 * 132
+#: a phase with fewer units than this is cut into slices: below two CTAs
+#: an SM the card idles, while a 512-unit phase would buy no CTAs worth a
+#: grid barrier and a combine
+SPLIT_BELOW = TARGET_UNITS // 2
+#: ... if one unit walks at least this many points; a shorter walk (such
+#: as LM_RMSNORM's 4096-element sum, 2.2 us on one CTA) costs less than
+#: the barrier
+SPLIT_MIN_POINTS = 1 << 16
+#: no slice holds fewer points than this: half a CTA's threads
+MIN_SLICE_POINTS = NT // 2
 #: merged free chunks stay within this many sub-tiles per axis
 MAX_MERGE = 16
 #: shared-memory ceiling for one CTA's accumulators (of 227 KB)
@@ -91,16 +123,35 @@ class _Red:
     rr: tuple[int, ...]           # reduce roots, fusion axis order
     consumed: bool                # carried to later phases in the workspace
     out_mode: str | None          # "acc" | "partial" | None (not an output)
+    cut: int = 1                  # slices along rr: partials to combine
+    size: int = 0                 # elements it writes (partial: lead x out)
+    pt: int | None = None         # its partials' workspace, when cut > 1
 
 
 @dataclasses.dataclass
 class _Phase:
     reds: list[_Red]
-    serial: set
-    tiled: set
-    chunk: dict                   # root -> box extent along it
+    serial: set                   # reduce axes a unit spans whole
+    tiled: set                    # reduce axes a unit spans a plan tile of
+    span: dict                    # root -> a unit's extent along it
     unit_axes: tuple              # non-serial roots, plan order
     units: int
+    slices: dict                  # serial or tiled root -> slices of a span
+    chunk: dict                   # root -> an item's extent along it
+
+    @property
+    def S(self) -> int:
+        return math.prod(self.slices.values())
+
+    @property
+    def items(self) -> int:
+        return self.units * self.S
+
+    @property
+    def cut_axes(self) -> list:
+        """The axes cut into slices, in the order the kernel decomposes
+        an item index (fastest first)."""
+        return sorted((r for r, s in self.slices.items() if s > 1))
 
 
 def _group_names(f) -> str:
@@ -181,6 +232,8 @@ class GroupLayout:
             else:
                 self.out_mode[v] = "map"
         self.phases = [self._phase(p, loc) for p in range(self.n_phases)]
+        for k, r in enumerate(self.cut_reds):
+            r.pt = k
 
     def roots_of(self, v: Var) -> tuple[int, ...]:
         return tuple(self.g.axis_root(a) for a in v.axis_ids)
@@ -214,33 +267,104 @@ class GroupLayout:
                         f"{r.call.out.name} reduces over an axis that "
                         f"another reduction of its phase walks serially")
                 tiled |= set(r.rr)
-        chunk = {}
+        span = {}
         for r in self.order:
             if r in serial:
-                chunk[r] = self.sizes[r]
+                span[r] = self.sizes[r]
             elif r in tiled:
-                chunk[r] = self.blk[r]
+                span[r] = self.blk[r]
             else:
-                chunk[r] = min(self.extent[r], self.sizes[r])
+                span[r] = min(self.extent[r], self.sizes[r])
         unit_axes = tuple(r for r in self.order if r not in serial)
 
-        def units_of(ch):
-            return math.prod(-(-self.sizes[r] // ch[r]) for r in unit_axes)
+        def units_of(sp):
+            return math.prod(-(-self.sizes[r] // sp[r]) for r in unit_axes)
 
         # merge free tiles while enough units remain to fill the card
         free = [r for r in (self.lane, self.row) if r is not None
                 and r not in serial and r not in tiled]
         for r in free:
-            while (chunk[r] < self.sizes[r]
-                   and chunk[r] * 2 <= self.extent[r] * MAX_MERGE
-                   and units_of({**chunk, r: chunk[r] * 2}) >= TARGET_UNITS):
-                chunk[r] *= 2
-        return _Phase(reds=reds, serial=serial, tiled=tiled, chunk=chunk,
-                      unit_axes=unit_axes, units=units_of(chunk))
+            while (span[r] < self.sizes[r]
+                   and span[r] * 2 <= self.extent[r] * MAX_MERGE
+                   and units_of({**span, r: span[r] * 2}) >= TARGET_UNITS):
+                span[r] *= 2
+        units = units_of(span)
+        slices, chunk = self._slices(units, span, serial | tiled)
+        for r in reds:
+            r.cut = math.prod(slices[a] for a in r.rr)
+            r.size = math.prod(r.call.out.shape) * (
+                math.prod(self.lead_shape(r.call.out))
+                if r.out_mode == "partial" else 1)
+        return _Phase(reds=reds, serial=serial, tiled=tiled, span=span,
+                      unit_axes=unit_axes, units=units, slices=slices,
+                      chunk=chunk)
+
+    def _slices(self, units: int, span: dict, cut: set):
+        """(slices, chunk): how many slices each serial or tiled span is
+        cut into, and the extent of an item along every axis.  Cuts the
+        longest slice in two (rows first on a tie) until units x slices
+        reaches ``TARGET_UNITS``; a slice stays a multiple of its axis's
+        sub-tile (``LANES`` along the contiguous axis, so a warp's loads
+        stay aligned, ``ROWS`` along the other) and holds at least
+        ``MIN_SLICE_POINTS`` points.  Depends on the plan alone."""
+        slices, chunk = {r: 1 for r in cut}, dict(span)
+        if units >= SPLIT_BELOW or math.prod(span.values()) < SPLIT_MIN_POINTS:
+            return slices, chunk
+        while units * math.prod(slices.values()) < TARGET_UNITS:
+            best = None
+            for r in sorted(cut, key=self.order.index):
+                step = LANES if r == self.lane else ROWS
+                n = -(-span[r] // (2 * slices[r]))
+                n = -(-n // step) * step
+                if (n < chunk[r] and math.prod({**chunk, r: n}.values())
+                        >= MIN_SLICE_POINTS
+                        and (best is None or (chunk[r], r == self.row)
+                             > (chunk[best[0]], best[0] == self.row))):
+                    best = (r, n)
+            if best is None:
+                break
+            r, n = best
+            slices[r] *= 2
+            chunk[r] = n
+        return slices, chunk
+
+    def axis_ranges(self, p: int, r: int) -> list[tuple[int, int]]:
+        """The [c0, c1) of axis ``r`` for each of its (tile, slice)
+        indices in phase ``p``, by the arithmetic the kernel does (empty
+        where a rounded slice runs past its span's end)."""
+        ph, n = self.phases[p], self.sizes[r]
+        s, ch, sp = ph.slices.get(r, 1), ph.chunk[r], ph.span[r]
+        tiles = 1 if r in ph.serial else -(-n // sp)
+        out = []
+        for t in range(tiles):
+            end = min(t * sp + sp, n)
+            for k in range(s):
+                c0 = t * sp + k * ch
+                out.append((c0, min(c0 + ch, end)))
+        return out
 
     @property
-    def units(self) -> int:
-        return max(ph.units for ph in self.phases)
+    def items(self) -> int:
+        """CTAs the widest phase can use: units x slices."""
+        return max(ph.items for ph in self.phases)
+
+    @property
+    def cooperative(self) -> bool:
+        """Launched cooperatively: a grid barrier between phases or
+        before a combine."""
+        return self.n_phases > 1 or any(ph.S > 1 for ph in self.phases)
+
+    @property
+    def cut_reds(self) -> list[_Red]:
+        return [r for ph in self.phases for r in ph.reds if r.cut > 1]
+
+    def workspace(self) -> list[tuple[int, ...]]:
+        """Shapes of the kernel's workspace buffers: each consumed
+        reduction, then each cut reduction's partials (slices x
+        elements)."""
+        return ([tuple(c.out.shape) for c in self.f.calls
+                 if c.idx in self.consumed]
+                + [(r.cut, r.size) for r in self.cut_reds])
 
     def red_kind(self, red: _Red) -> str:
         kept = set(self.f.axis_roots) - set(red.rr)
@@ -329,22 +453,38 @@ class _Emitter:
             base += NT // 32
         self.smem_floats = max(self.smem_floats, base)
 
-        e(f"// phase {p}: {ph.units} work unit(s); serial axes "
-          f"{sorted(lay.f.axis_roots.index(r) for r in ph.serial)}", 1)
-        e(f"for (long long u = blockIdx.x; u < {ph.units}LL; "
+        e(f"// phase {p}: {ph.units} work unit(s) x {ph.S} slice(s); serial "
+          f"axes {sorted(lay.f.axis_roots.index(r) for r in ph.serial)}", 1)
+        e(f"for (long long u = blockIdx.x; u < {ph.items}LL; "
           f"u += gridDim.x) {{", 1)
-        if ph.unit_axes:
+        if ph.unit_axes or ph.S > 1:
             e("long long rest = u;", 2)
+        for r in ph.cut_axes:                 # slices vary fastest
+            s = ph.slices[r]
+            e(f"const long long s_{lay.coord[r]} = rest % {s}LL; "
+              f"rest /= {s}LL;", 2)
+        # the same arithmetic as GroupLayout.axis_ranges
         for r in reversed(ph.unit_axes):
-            n = lay.sizes[r]
-            cnt = -(-n // ph.chunk[r])
+            n, sp, ch = lay.sizes[r], ph.span[r], ph.chunk[r]
+            cnt = -(-n // sp)
             c = lay.coord[r]
             e(f"const long long t_{c} = rest % {cnt}LL; rest /= {cnt}LL;", 2)
-            e(f"const long long {c}0 = t_{c} * {ph.chunk[r]}LL;", 2)
-            e(f"const long long {c}1 = min({c}0 + {ph.chunk[r]}LL, {n}LL);", 2)
+            if ph.slices.get(r, 1) > 1:       # a plan tile cut into slices
+                e(f"const long long {c}0 = t_{c} * {sp}LL + s_{c} * {ch}LL;",
+                  2)
+                e(f"const long long {c}1 = min({c}0 + {ch}LL, "
+                  f"min(t_{c} * {sp}LL + {sp}LL, {n}LL));", 2)
+            else:
+                e(f"const long long {c}0 = t_{c} * {sp}LL;", 2)
+                e(f"const long long {c}1 = min({c}0 + {sp}LL, {n}LL);", 2)
         for r in sorted(ph.serial, key=lay.order.index):
-            c = lay.coord[r]
-            e(f"const long long {c}0 = 0, {c}1 = {lay.sizes[r]}LL;", 2)
+            n, c = lay.sizes[r], lay.coord[r]
+            if ph.slices[r] > 1:
+                ch = ph.chunk[r]
+                e(f"const long long {c}0 = s_{c} * {ch}LL;", 2)
+                e(f"const long long {c}1 = min({c}0 + {ch}LL, {n}LL);", 2)
+            else:
+                e(f"const long long {c}0 = 0, {c}1 = {n}LL;", 2)
         for r in ph.reds:
             kind, mon = kinds[id(r)], _MONOID_CUDA[r.call.elem.monoid.value]
             k = r.call.idx
@@ -381,6 +521,42 @@ class _Emitter:
         for r in ph.reds:
             self.finalize(r, kinds[id(r)], acc_at, red_at, ph)
         e("__syncthreads();", 2)
+        e("}", 1)
+        self.combine(p, ph)
+
+    def combine(self, p: int, ph: _Phase):
+        """After a grid barrier, fold the slices' partials of every cut
+        reduction of the phase: one warp an output element, lane l taking
+        slices l, l + 32, ... in order, then the shuffle tree."""
+        e = self.emit
+        cut = [r for r in ph.reds if r.cut > 1]
+        if not cut:
+            return
+        warps = NT // 32
+        total = sum(r.size for r in cut)
+        e("k1::grid_barrier();", 1)
+        e(f"// phase {p}: fold the partials of {len(cut)} cut reduction(s)", 1)
+        e(f"for (long long w = (long long)blockIdx.x * {warps} + (tid >> 5); "
+          f"w < {total}LL; w += (long long)gridDim.x * {warps}) {{", 1)
+        e("const int ln = tid & 31;", 2)
+        base = 0
+        for k, r in enumerate(cut):
+            mon = _MONOID_CUDA[r.call.elem.monoid.value]
+            e(f"{'if' if k == 0 else '} else if'} (w < {base + r.size}LL) {{",
+              2)
+            e(f"const long long e = w - {base}LL;", 3)
+            e(f"float val = {mon}::id();", 3)
+            e(f"for (int q = ln; q < {r.cut}; q += 32) val = {mon}::op(val, "
+              f"pt{r.pt}[q * {r.size}LL + e]);", 3)
+            e(f"val = k1::warp_reduce<{mon}>(val);", 3)
+            e("if (ln == 0) {", 3)
+            if r.consumed:
+                e(f"ws{self.ws[r.call.idx]}[e] = val;", 4)
+            if r.out_mode is not None:
+                e(f"out{self.outs[r.call.out]}[e] = val;", 4)
+            e("}", 3)
+            base += r.size
+        e("}", 2)
         e("}", 1)
 
     def body(self, p, ph, calls, kinds, acc_at, ind):
@@ -438,19 +614,28 @@ class _Emitter:
 
         def writes(ind):
             off = _offset(lay, v, lay.coord)
+            if r.out_mode == "partial":       # behind one lead per plan tile
+                lead, stride = [], 1
+                for rt in reversed(r.rr):
+                    lead.append(f"t_{lay.coord[rt]} * {stride}LL")
+                    stride *= lay.grid[rt]
+                off = (f"({' + '.join(lead)}) * {math.prod(v.shape)}LL + "
+                       f"{off}")
+            if r.cut > 1:                     # one partial per slice
+                q, stride = [], 1
+                for rt in reversed(r.rr):
+                    if ph.slices[rt] > 1:
+                        q.append(f"s_{lay.coord[rt]} * {stride}LL")
+                        stride *= ph.slices[rt]
+                e(f"pt{r.pt}[({' + '.join(q)}) * {r.size}LL + {off}] = val;",
+                  ind)
+                return
             if r.consumed:
                 e(f"ws{self.ws[k]}[{off}] = val;", ind)
             if r.out_mode == "acc":
                 e(f"out{self.outs[v]}[{off}] = val;", ind)
             elif r.out_mode == "partial":
-                lead, stride = [], 1
-                rr = reduce_roots_of(v, lay.f, lay.g)
-                for rt in reversed(rr):
-                    lead.append(f"t_{lay.coord[rt]} * {stride}LL")
-                    stride *= lay.grid[rt]
-                numel = math.prod(v.shape)
-                e(f"out{self.outs[v]}[({' + '.join(lead)}) * {numel}LL + "
-                  f"{off}] = val;", ind)
+                e(f"out{self.outs[v]}[{off}] = val;", ind)
 
         if kind == "scalar":
             e(f"{{ const float val = k1::block_reduce<{mon}, {NT}>("
@@ -481,7 +666,8 @@ class _Emitter:
         f = lay.f
         params = ([f"const float* __restrict__ in{k}" for k in self.ins.values()]
                   + [f"float* __restrict__ out{k}" for k in self.outs.values()]
-                  + [f"float* __restrict__ ws{k}" for k in self.ws.values()])
+                  + [f"float* __restrict__ ws{k}" for k in self.ws.values()]
+                  + [f"float* __restrict__ pt{r.pt}" for r in lay.cut_reds])
         body = _Emitter(lay, self.name)
         for p, ph in enumerate(lay.phases):
             if p:
@@ -495,7 +681,8 @@ class _Emitter:
                 f"accumulators need {smem} bytes of shared memory, more "
                 f"than {SMEM_LIMIT}")
         e(f"// group [{lay.names}]: order {self.order_desc()}, blocks "
-          f"{lay.impl.blocks}, grid {lay.impl.grid}, {lay.n_phases} phase(s)")
+          f"{lay.impl.blocks}, grid {lay.impl.grid}, {lay.n_phases} phase(s), "
+          f"slices {[ph.S for ph in lay.phases]}")
         e(f"extern \"C\" __global__ void __launch_bounds__({NT}) {self.name}(")
         e("    " + ",\n    ".join(params) + ") {")
         e("extern __shared__ float smem[];", 1)
@@ -531,14 +718,14 @@ class _Emitter:
           f"{self.name}, {NT}, smem)) != cudaSuccess) return (int)err;", 2)
         e("if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;", 2)
         e("const long long cap = (long long)per_sm * sms;", 2)
-        e(f"grid = (int)({lay.units}LL < cap ? {lay.units}LL : cap);", 2)
+        e(f"grid = (int)({lay.items}LL < cap ? {lay.items}LL : cap);", 2)
         e("}", 1)
         for k, (p, c) in enumerate(zip(params, casts)):
             decl = p.replace(" __restrict__", "")
             e(f"{decl} = {c};", 1)
         e("cudaStream_t s = (cudaStream_t)stream;", 1)
         names = [p.rsplit(" ", 1)[1] for p in params]
-        if lay.n_phases > 1:
+        if lay.cooperative:
             e("void* args[] = {" + ", ".join(f"(void*)&{a}" for a in names)
               + "};", 1)
             e(f"cudaError_t err = cudaLaunchCooperativeKernel((const void*)"
@@ -710,7 +897,7 @@ class PlanModule:
             self._lib = _build.load(self.source)
         lay = self.layouts[gi]
         n = (len(lay.f.external_inputs) + len(lay.outputs)
-             + len(lay.consumed))
+             + len(lay.workspace()))
         return _build.c_function(self._lib, kernel_name(gi) + "_launch",
                                  [ctypes.c_void_p] * (n + 1))
 
@@ -750,15 +937,17 @@ class GroupKernel:
 
     def buffers(self, dev: torch.device):
         """The kernel's raw outputs (``partial`` outputs with their lead
-        axes) and its workspace, allocated on ``dev``."""
+        axes) and its workspace (consumed reductions, then the slices'
+        partials), allocated on ``dev``; the kernel writes every element
+        before it reads it."""
         lay = self.layout
         raw = []
         for v in lay.outputs:
             shape = (lay.lead_shape(v) if lay.out_mode[v] == "partial"
                      else ()) + tuple(v.shape)
             raw.append(torch.empty(shape, dtype=torch.float32, device=dev))
-        ws = [torch.empty(c.out.shape, dtype=torch.float32, device=dev)
-              for c in lay.f.calls if c.idx in lay.consumed]
+        ws = [torch.empty(shape, dtype=torch.float32, device=dev)
+              for shape in lay.workspace()]
         return raw, ws
 
     def launch_into(self, ext_vals, raw, ws):

@@ -5,7 +5,12 @@
 // parts: index arithmetic, the glued per-point expressions of the
 // group's elementaries, and the stores.  What lives here is what every
 // group needs: the monoids, the warp and block reductions, and the
-// grid-wide barrier between the phases of a multi-phase group.
+// grid-wide barrier.  The barrier serves two ends, both in one
+// cooperative launch: between the phases of a multi-phase group (a
+// consumed reduction finished before its consumers read it), and
+// between the items of a phase whose reduce axes were cut into slices
+// and the fold of their partials (every slice's partial written before
+// any CTA combines them).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -15,8 +20,9 @@
 namespace k1 {
 
 // Monoids: identity and combine.  Every reduction of a group combines
-// with one of these, in a fixed order, so a kernel's result does not
-// change from run to run (no atomics anywhere).
+// with one of these, in a fixed order that depends on the plan alone
+// (the slice counts included), so a kernel's result does not change from
+// run to run (no atomics anywhere).
 struct Sum {
   static __device__ __forceinline__ float id() { return 0.0f; }
   static __device__ __forceinline__ float op(float a, float b) { return a + b; }
@@ -57,10 +63,11 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
   return r;
 }
 
-// The phase boundary of a multi-phase group: every block of the grid
-// has finished the earlier phase, and its global-memory writes (the
-// consumed reductions' workspace) are visible to all blocks.  Valid only
-// under cudaLaunchCooperativeKernel with every block co-resident.
+// Every block of the grid has finished what came before, and its
+// global-memory writes (the consumed reductions' workspace, the slices'
+// partials) are visible to all blocks: a phase boundary, or the step
+// from the slices to their combine.  Valid only under
+// cudaLaunchCooperativeKernel with every block co-resident.
 __device__ __forceinline__ void grid_barrier() {
   cooperative_groups::this_grid().sync();
 }

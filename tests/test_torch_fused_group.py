@@ -12,9 +12,9 @@ it to the reference:
   ``acc`` reduce loop over several tiles, ``partial`` outputs with more
   than one lead tile, and two-phase groups (ATAX's, and the
   SGEMVT-/GEMVER-shaped ``A (A^T y)`` chains);
-* the generator: it emits every impl the scheduler enumerates, gives the
-  same source for the same plan, and refuses non-float32 groups with
-  RPL214;
+* the generator: it emits every impl the scheduler enumerates for all
+  15 programs, gives the same source for the same plan, and refuses
+  non-float32 groups with RPL214;
 * each elementary's per-point CUDA expression against its torch ``fn``;
 * no hidden fallback: a non-CPU tensor never reaches the plain version,
   and a failed build or launch raises.
@@ -51,7 +51,7 @@ from repro_torch.core.fusion import analyse_group
 from repro_torch.core.predictor import cost_impl
 from repro_torch.core.scheduler import build_space
 from repro_torch.kernels import _build, _launch
-from repro_torch.programs import BLAS, make_inputs
+from repro_torch.programs import BLAS, REGISTRY, make_inputs
 
 N = 256
 #: enumerated combinations per program (groups deduplicated across them)
@@ -195,16 +195,25 @@ def test_hand_built_impls_match_pallas_interpret(case):
 
 @pytest.mark.parametrize("n", [N, 4096])
 def test_generator_emits_every_enumerated_impl(n):
+    """Every impl of every program emits (none is refused, with reduce
+    axes cut into slices or not), with one grid barrier per phase
+    boundary and one per phase whose reduce axes are cut."""
     emitted = 0
-    for name in sorted(BLAS):
-        g = trace(BLAS[name].script, BLAS[name].shapes(n))
+    for name in sorted(REGISTRY):
+        g = trace(REGISTRY[name].script, REGISTRY[name].shapes(n))
         space = build_space(g)
         for f in space.fusions:
             for im in space.impls_by_fusion[f.key]:
                 src = group_source(g, im, "k1_x")
                 assert "k1_x_launch" in src
+                lay = cuda_codegen.GroupLayout(g, im)
+                cut = sum(ph.S > 1 for ph in lay.phases)
+                assert src.count("k1::grid_barrier();") == \
+                    lay.n_phases - 1 + cut
+                assert ("cudaLaunchCooperativeKernel" in src) == \
+                    lay.cooperative
                 emitted += 1
-    assert emitted > 50
+    assert emitted >= 120
 
 
 def test_same_plan_same_source():

@@ -8,7 +8,9 @@ a machine with an NVIDIA GPU and the CUDA toolkit alone:
 
 Every test carries the ``gpu`` marker and skips without a CUDA device.
 Tolerance: float32 sums run in another order, so K1's groups are held to
-the reference envelope (rtol 1e-4, atol 1e-3) at n = 256, and the hand
+the reference envelope (rtol 1e-4, atol 1e-3) at n = 256, K1's groups
+whose reduce axes are cut into slices (sums of up to 2**20 terms) to a
+norm-relative error of 1e-4 and to bitwise-equal repeats, and the hand
 kernels at (1000, 1531) — dot products of 1531 terms, where a few
 outputs near zero lose their relative digits to cancellation — to a
 norm-relative error of 1e-4, as ``chip_smoke.py`` holds them.  The
@@ -58,6 +60,41 @@ def test_kernels_match_tiled_reference_on_gpu(name, cuda):
             for o, w in zip(got, want):
                 torch.testing.assert_close(o, w, rtol=RTOL, atol=ATOL)
             outs.append(want)
+
+
+#: sizes at which K1 cuts reduce axes into slices; 3000, 1_000_003 and
+#: 100_003 do not divide into the slices (nor 3000 into lane chunks)
+SPLIT_CASES = [("AXPYDOT", 1 << 20), ("AXPYDOT", 1_000_003),
+               ("BiCGK", 3000), ("SGEMVT", 3000), ("ATAX", 3000),
+               ("GEMVER", 2048), ("LM_DECODE_ATTN", 131072),
+               ("LM_DECODE_ATTN", 100_003)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,n", SPLIT_CASES)
+def test_split_groups_match_tiled_reference_and_repeat_bitwise(name, n,
+                                                               cuda):
+    prog = REGISTRY[name]
+    cc = FusionCompiler(backend="cuda", device="cuda", cache=PlanCache())
+    split = 0
+    for mode in ("best", "unfused"):
+        cp = cc.compile(prog.script, prog.shapes(n), mode=mode)
+        vals = dict(zip(cp.plan.input_names,
+                        cp.prepare(**make_inputs(prog, n, seed=8))))
+        outs = []
+        for gp, fn, im in zip(cp.plan.groups, cp.group_fns, cp.group_impls):
+            args = [vals[r[1]] if r[0] == "input" else outs[r[1]][r[2]]
+                    for r in gp.inputs]
+            want = tiled_reference(cp.graph, im, *args)
+            if any(ph.S > 1 for ph in fn.layout.phases):
+                split += 1
+                got, again = fn.launch(*args), fn.launch(*args)
+                for o, a, w in zip(got, again, want):
+                    assert _rel(o, w) <= RTOL, fn.name
+                    assert torch.equal(o.view(torch.int32),
+                                       a.view(torch.int32)), fn.name
+            outs.append(want)
+    assert split, f"{name} at n={n}: no group cut into slices"
 
 
 @pytest.mark.gpu
