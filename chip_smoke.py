@@ -40,12 +40,18 @@ Phases, each printed as JSON lines:
    group of every plan launched once;
 4. hand: K2-K7 against their plain versions (``kernels.ref``) on the
    card, at the main shapes and at odd ones: K2/K3 at a non-square
-   (4096, 6144) and an odd (1000, 1531); RMSNorm rows of (1, 4096) and
-   (7, 33); K5 at (2, 16, 1, 256, 128) (one KV head), (3, 12, 4, 1000,
-   80) (odd S and d) and (1, 1, 1, 131072, 48) (``LM_DECODE_ATTN``'s
-   shape), its split and combine kernels each against their own plain
-   versions too; K6 at steps 3 and 7 and at N = 1,000,003; K7 at
-   (7, 1000) and (33, 50257), per-row losses and their mean;
+   (4096, 6144) and an odd (1000, 1531); RMSNorm rows of (1, 4096),
+   (7, 33), (2, 8) and (3, 20000) (longer than K4's register path),
+   each with the path K4 takes, its rows a CTA and a bitwise repeat; K5
+   at (2, 16, 1, 256, 128) (one KV head), (3, 12, 4, 1000, 80) (odd S
+   and d), granite_34b's (1, 48, 1, 1000, 128) and hymba_1p5b's (2, 25,
+   5, 777, 64) head layouts and (1, 1, 1, 131072, 48)
+   (``LM_DECODE_ATTN``'s shape), its split and combine kernels each
+   against their own plain versions too, each with its chunk count and
+   length, the split's ring stages, shared memory, CTAs an SM and head
+   groups, and a bitwise repeat; K6 at steps 3 and 7 and at N =
+   1,000,003; K7 at (7, 1000) and (33, 50257), per-row losses and their
+   mean;
 5. hand_main: the ``ops`` path, counts set to 0 just before it and read
    just after: every hand kernel launched, outputs against float64;
 6. serve: ``serve_blas`` for GEMVER at n = 4096, 100 requests, in
@@ -72,7 +78,8 @@ Phases, each printed as JSON lines:
    whole device work (the kernel and the sum of its partials); K5's
    split and combine kernels are timed one by one, and K5 as a whole
    (both, with ``F.scaled_dot_product_attention`` as its library call)
-   on a line of its own.  ``wrapper_ms`` is the wrapper's whole path per
+   on a line of its own, and the three again at ``LM_DECODE_ATTN``'s
+   shape.  ``wrapper_ms`` is the wrapper's whole path per
    call, launched back to back (checks, output allocation, the ctypes
    call, the combine): where it exceeds ``ms``, the host is the limit.
 
@@ -156,6 +163,14 @@ PREFILL = (8192, 4096)
 #: KV heads, d 128; src/repro/configs/llama3_8b.py:5-8) decoding 8
 #: sequences at an 8k context
 DECODE = (8, 32, 8, 8192, 128)
+#: decode attention at the head layouts of granite_34b (MQA: 48 query
+#: heads on one KV head, d 128; src/repro/configs/granite_34b.py:7) and
+#: hymba_1p5b (25 heads on 5, d 64; src/repro/configs/hymba_1p5b.py:12)
+GRANITE_34B_DECODE = (1, 48, 1, 1000, 128)
+HYMBA_DECODE = (2, 25, 5, 777, 64)
+#: LM_DECODE_ATTN's shape as K5 sees it: one head of d = 48 over a 128k
+#: context (src/repro/programs/models.py:37)
+LM_ATTN = (1, 1, 1, 131072, 48)
 #: AdamW over one Llama-3-8B decoder layer's parameters:
 #: 4096 (2 4096 + 2 1024) attention + 3 4096 14336 MLP
 ADAMW_N = 4096 * (2 * 4096 + 2 * 1024) + 3 * 4096 * 14336
@@ -332,6 +347,13 @@ def k7_bound(T: int, V: int, dtype: str, label_bytes: int = 8):
     """Softmax cross-entropy: the logits and labels read, T losses
     written; a max, an exp, a sum and a compare a logit."""
     return bound_of(T * V * ES[dtype] + T * (label_bytes + 4), 4 * T * V)
+
+
+def bits(t):
+    """A tensor's bits as integers of its width, for bitwise compares."""
+    import torch
+    return t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
 
 
 def tensor_err(got, want):
@@ -613,12 +635,22 @@ def main(argv=None):
     def kernel_tol(dt):
         return BF16_KERNEL_RTOL if dt == "bfloat16" else RTOL
 
+    def repeat_bitwise(kernel, shape, dtype, first, again):
+        """A second launch must give the same bits as the first."""
+        same = all(torch.equal(bits(x), bits(y))
+                   for x, y in zip(first, again))
+        if not same:
+            failures.append(f"hand {kernel} {shape} {dtype}: a second "
+                            f"launch differs from the first")
+        return same
+
     #: the timed hand kernels, by launch-counter name: shape, dtype, the
     #: wrapper, its plain version, a library call or None (with the
     #: tolerance it is held to against the wrapper), the bound and the
     #: error against the plain version
     hand_in: dict[str, dict] = {}
-    #: K5 as a whole (split and combine), timed on lines of their own
+    #: K5 as a whole (split and combine), and K5 at LM_DECODE_ATTN's
+    #: shape, timed on lines of their own
     whole_in: dict[str, dict] = {}
     #: the full-width inputs the ``ops`` path of phase 5 reuses
     hand_data: dict = {}
@@ -663,11 +695,18 @@ def main(argv=None):
     rms_norm = getattr(F, "rms_norm", None)
     for T, D, dt in ((*PREFILL, "float32"), (*PREFILL, "bfloat16"),
                      (1, n2, "float32"), (7, 33, "float32"),
-                     (7, 33, "bfloat16")):
+                     (7, 33, "bfloat16"), (3, 20000, "bfloat16"),
+                     (2, 8, "float32"), (2, 8, "bfloat16")):
         xx, g = randn(T, D, dtype=getattr(torch, dt)), randn(D)
         kernel = k4.NAMES[xx.dtype]
-        mabs = check(kernel, (T, D), dt, (k4.rmsnorm(xx, g),),
-                     (ref.rmsnorm(xx, g),), kernel_tol(dt))
+        got = k4.rmsnorm(xx, g)
+        mabs = check(kernel, (T, D), dt, (got,), (ref.rmsnorm(xx, g),),
+                     kernel_tol(dt))
+        emit({"phase": "hand", "kernel": kernel, "shape": [T, D],
+              "dtype": dt, **k4.plan(D, xx.dtype, xx.device),
+              "repeat_bitwise": repeat_bitwise(kernel, (T, D), dt, (got,),
+                                               (k4.rmsnorm(xx, g),))})
+        del got
         if (T, D) == PREFILL:
             g_lib = g.to(xx.dtype)      # the library takes gamma in x's type
             hand_in[kernel] = dict(
@@ -679,12 +718,15 @@ def main(argv=None):
                 lib_tol=BF16_RTOL if dt == "bfloat16" else RTOL,
                 bound=hand_bound(kernel, (T, D)), err=mabs)
 
-    # K5: each kernel against its own plain version, then the whole
+    # K5: each kernel against its own plain version, then the whole; the
+    # split's configuration and chunks, and a bitwise repeat
     for shape, dt in ((DECODE, "bfloat16"), (DECODE, "float32"),
                       ((2, 16, 1, 256, 128), "float32"),
                       ((3, 12, 4, 1000, 80), "float32"),
                       ((3, 12, 4, 1000, 80), "bfloat16"),
-                      ((1, 1, 1, 131072, 48), "float32")):
+                      (GRANITE_34B_DECODE, "bfloat16"),
+                      (HYMBA_DECODE, "bfloat16"),
+                      (LM_ATTN, "float32")):
         B, Hq, Hkv, S, d = shape
         tdt = getattr(torch, dt)
         q, kk, vv = (randn(B, Hq, d, dtype=tdt),
@@ -692,41 +734,57 @@ def main(argv=None):
                      randn(B, S, Hkv, d, dtype=tdt))
         split_name, comb_name = k5.NAMES[tdt]
         acc, mm, ll, length = k5.split(q, kk, vv)
+        chunks = acc.shape[0] // (B * Hkv)
+        o = k5.combine(acc, mm, ll, B, Hq, tdt)
         e_split = check(split_name, shape, dt, (acc, mm, ll),
                         ref.decode_attention_split(q, kk, vv, length))
-        e_comb = check(comb_name, shape, dt,
-                       (k5.combine(acc, mm, ll, B, Hq, tdt),),
+        e_comb = check(comb_name, shape, dt, (o,),
                        (ref.decode_attention_combine(acc, mm, ll, B, Hq,
                                                      tdt),),
                        kernel_tol(dt))
         e_whole = check("K5", shape, dt, (k5.decode_attention(q, kk, vv),),
                         (ref.decode_attention(q, kk, vv),), kernel_tol(dt))
-        if shape != DECODE:
+        again = k5.split(q, kk, vv)
+        emit({"phase": "hand", "kernel": "K5", "shape": list(shape),
+              "dtype": dt, "chunks": chunks, "chunk_len": length,
+              **k5.config(Hq // Hkv, d, tdt, q.device),
+              "repeat_bitwise": repeat_bitwise(
+                  "K5", shape, dt, (acc, mm, ll, o),
+                  (*again[:3], k5.combine(*again[:3], B, Hq, tdt)))})
+        del again
+        if shape not in (DECODE, LM_ATTN):
             continue
-        chunks = acc.shape[0] // (B * Hkv)
         b_split, b_comb, b_whole = k5_bounds(shape, dt, chunks)
-        qkv = (q, kk, vv)
-        hand_in[split_name] = dict(
-            shape=shape, dtype=dt, chunks=chunks, chunk_len=length,
-            wrapper=lambda a=qkv: k5.split(*a),
-            plain=lambda a=qkv, n=length: ref.decode_attention_split(*a, n),
-            lib=None, bound=b_split, err=e_split)
-        part = (acc, mm, ll, B, Hq, tdt)
-        hand_in[comb_name] = dict(
-            shape=shape, dtype=dt, chunks=chunks,
-            wrapper=lambda a=part: k5.combine(*a),
-            plain=lambda a=part: ref.decode_attention_combine(*a),
-            lib=None, bound=b_comb, err=e_comb)
-        whole_in[f"K5/split+combine_{SHORT[dt]}"] = dict(
-            shape=shape, dtype=dt, chunks=chunks,
-            wrapper=lambda a=qkv: k5.decode_attention(*a),
-            plain=lambda a=qkv: ref.decode_attention(*a),
-            lib=lambda q=q, kk=kk, vv=vv: F.scaled_dot_product_attention(
-                q[:, :, None], kk.transpose(1, 2), vv.transpose(1, 2),
-                enable_gqa=True)[:, :, 0],
-            lib_tol=BF16_RTOL if dt == "bfloat16" else RTOL,
-            bound=b_whole, err=e_whole)
-        hand_data["K5", dt] = qkv
+        qkv, part = (q, kk, vv), (acc, mm, ll, B, Hq, tdt)
+        whole = f"K5/split+combine_{SHORT[dt]}"
+        timed = {
+            split_name: dict(
+                shape=shape, dtype=dt, chunks=chunks, chunk_len=length,
+                wrapper=lambda a=qkv: k5.split(*a),
+                plain=lambda a=qkv, n=length: ref.decode_attention_split(
+                    *a, n),
+                lib=None, bound=b_split, err=e_split),
+            comb_name: dict(
+                shape=shape, dtype=dt, chunks=chunks,
+                wrapper=lambda a=part: k5.combine(*a),
+                plain=lambda a=part: ref.decode_attention_combine(*a),
+                lib=None, bound=b_comb, err=e_comb),
+            whole: dict(
+                shape=shape, dtype=dt, chunks=chunks,
+                wrapper=lambda a=qkv: k5.decode_attention(*a),
+                plain=lambda a=qkv: ref.decode_attention(*a),
+                lib=lambda q=q, kk=kk, vv=vv: F.scaled_dot_product_attention(
+                    q[:, :, None], kk.transpose(1, 2), vv.transpose(1, 2),
+                    enable_gqa=True)[:, :, 0],
+                lib_tol=BF16_RTOL if dt == "bfloat16" else RTOL,
+                bound=b_whole, err=e_whole)}
+        if shape == DECODE:     # the main shape: split and combine records
+            whole_in[whole] = timed.pop(whole)
+            hand_in.update(timed)
+            hand_data["K5", dt] = qkv
+        else:                   # LM_DECODE_ATTN's: lines only
+            whole_in.update({f"{k} (LM_DECODE_ATTN)": e
+                             for k, e in timed.items()})
 
     # K6: steps 3 and 7; p' against its plain version at the type's
     # tolerance, m' and v' (float32) at RTOL
@@ -1008,7 +1066,8 @@ def main(argv=None):
                                 f"the kernel: {lib_err:.3g}")
             lib_ms = device_ms(e["lib"])
         b_ms, b_by = e["bound"]
-        source, replaces = HAND[kernel.replace("split+combine", "split")]
+        source, replaces = HAND[kernel.split(" ")[0].replace(
+            "split+combine", "split")]
         rec = {"name": kernel, "route": "cuda", "source": source,
                "replaces": replaces, "launches": hand_launches.get(kernel, 0),
                "max_abs_err": e["err"], "ms": ms, "plain_ms": plain_ms,
@@ -1022,7 +1081,7 @@ def main(argv=None):
 
     for kernel, e in hand_in.items():
         records.append(time_hand(kernel, e))
-    for kernel, e in whole_in.items():      # lines only: two launches each
+    for kernel, e in whole_in.items():
         time_hand(kernel, e)
     if failures:
         fail("; ".join(failures))

@@ -8,12 +8,22 @@
 // (T, D) = (8192, 4096) float32 that is 268 MB, 0.080 ms at 3.35 TB/s
 // (0.040 ms in bfloat16); its 4 flops per element are 1/16 of that time.
 //
-// Design: one CTA per row, 16-byte loads and stores where the row allows
-// (D a multiple of 4 floats or 8 bfloat16s and the pointers aligned),
-// element by element otherwise, so any D is taken.  A first pass sums
-// the squares (block reduction); the second pass reads the row again —
-// from L1/L2, the row is at most a few tens of KB — and writes the
-// scaled values.  gamma is float32 (the wrapper casts it).
+// Design (the register path): each row is read once from device memory
+// into registers, by `tpr` threads (32 to 128, a power of two) that hold
+// `ppt` (1 to 8) 16-byte packs each; a CTA of NT threads takes NT / tpr
+// rows at once.  A thread issues all its x loads and its gamma loads
+// (float32, as 16-byte vectors) before the sum of squares, sums over its
+// row's lanes (shuffles, then the row's warps in order through shared
+// memory), and scales and stores the same registers.  Many small CTAs a
+// SM keep other rows' loads in flight while one reduces.  At D = 4096
+// that is 128 threads x 4 packs a row in bfloat16 (2 rows a CTA) and 128
+// x 8 in float32.
+// The general path takes what the register path does not (rows over
+// 1024 packs, D not a multiple of the pack, unaligned pointers): one CTA
+// a row, a first pass for the sum of squares and a second that reads
+// the row again from L1/L2 to scale it, 16-byte packs where D and the
+// pointers allow, element by element otherwise.  Sums run in a fixed
+// order on both paths: the same inputs give the same bits every run.
 
 #include "hand_kernels.cuh"
 
@@ -21,11 +31,92 @@ namespace {
 
 using hk::NT;
 using hk::WARPS;
+constexpr int PPT_MAX = 8;    // packs a thread holds on the register path
+constexpr int TPR_MAX = 128;  // threads a row on the register path
+
+// V floats of gamma from element i: 16-byte loads where V allows.
+template <int V>
+__device__ __forceinline__ void gamma_of(const float* __restrict__ gamma,
+                                         int i, float* g) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < V / 4; ++k) {
+      const float4 x = *reinterpret_cast<const float4*>(gamma + i + 4 * k);
+      g[4 * k] = x.x;
+      g[4 * k + 1] = x.y;
+      g[4 * k + 2] = x.z;
+      g[4 * k + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) g[e] = gamma[i + e];
+  }
+}
+
+template <typename T, int PPT>
+__global__ void __launch_bounds__(NT)
+    rmsnorm_rows(const T* __restrict__ x, const float* __restrict__ gamma,
+                 T* __restrict__ out, int rows, int D, int tpr, float eps) {
+  constexpr int V = 16 / sizeof(T);
+  using P = hk::Pack<T, V>;
+  __shared__ float red[WARPS];
+  const int packs = D / V;
+  const int j = threadIdx.x % tpr;
+  const long long row = (long long)blockIdx.x * (NT / tpr) + threadIdx.x / tpr;
+  const bool live = row < rows;
+  const P* xr = reinterpret_cast<const P*>(x + row * D);
+
+  P xv[PPT];
+  float g[PPT][V];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int pk = j + k * tpr;
+    if (live && pk < packs) xv[k] = xr[pk];
+  }
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int pk = j + k * tpr;
+    if (live && pk < packs) gamma_of<V>(gamma, pk * V, g[k]);
+  }
+  float ss = 0.0f;
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    if (live && j + k * tpr < packs) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float f = hk::to_f32(xv[k].v[e]);
+        ss += f * f;
+      }
+    }
+  }
+  ss = hk::warp_sum(ss);
+  if (tpr > 32) {  // the row's warps, in order
+    const int warp = threadIdx.x >> 5, per_row = tpr >> 5;
+    if ((threadIdx.x & 31) == 0) red[warp] = ss;
+    __syncthreads();
+    const int first = warp / per_row * per_row;
+    ss = 0.0f;
+    for (int w = 0; w < per_row; ++w) ss += red[first + w];
+  }
+  const float scale = rsqrtf(ss / (float)D + eps);
+  P* orow = reinterpret_cast<P*>(out + row * D);
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int pk = j + k * tpr;
+    if (live && pk < packs) {
+      P o;
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        o.v[e] = hk::from_f32<T>(hk::to_f32(xv[k].v[e]) * scale * g[k][e]);
+      orow[pk] = o;
+    }
+  }
+}
 
 template <typename T, int V>
 __global__ void __launch_bounds__(NT)
-    rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                   T* __restrict__ out, int D, float eps) {
+    rmsnorm_general(const T* __restrict__ x, const float* __restrict__ gamma,
+                    T* __restrict__ out, int D, float eps) {
   __shared__ float red[WARPS];
   using P = hk::Pack<T, V>;
   const long long base = (long long)blockIdx.x * D;
@@ -47,23 +138,83 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll 4
   for (int k = threadIdx.x; k < packs; k += NT) {
     const P v = xr[k];
+    float g[V];
+    gamma_of<V>(gamma, k * V, g);
     P o;
 #pragma unroll
     for (int e = 0; e < V; ++e)
-      o.v[e] = hk::from_f32<T>(hk::to_f32(v.v[e]) * scale * gamma[k * V + e]);
+      o.v[e] = hk::from_f32<T>(hk::to_f32(v.v[e]) * scale * g[e]);
     orow[k] = o;
   }
 }
 
-template <typename T, int V>
+// The path for a row of D elements of `es` bytes: 0 the register path
+// (with tpr threads a row holding ppt packs each), 1 the general path
+// in 16-byte packs, 2 element by element.
+struct Plan {
+  int path, tpr, ppt;
+};
+
+Plan plan_of(int D, int es, bool aligned) {
+  const int V = 16 / es;
+  if (!aligned || D % V != 0) return {2, 0, 0};
+  const int packs = D / V;
+  if (packs > TPR_MAX * PPT_MAX) return {1, 0, 0};
+  int tpr = 32;  // about 4 packs a thread, at most TPR_MAX threads a row
+  while (tpr < TPR_MAX && tpr * 4 < packs) tpr <<= 1;
+  int ppt = 1;  // a power of two
+  while (ppt * tpr < packs) ppt <<= 1;
+  return {0, tpr, ppt};
+}
+
+template <typename T>
 cudaError_t launch(const void* x, const void* gamma, void* out, int rows,
-                   int D, float eps, cudaStream_t s) {
-  rmsnorm_kernel<T, V><<<rows, NT, 0, s>>>(
-      (const T*)x, (const float*)gamma, (T*)out, D, eps);
+                   int D, float eps, bool aligned, cudaStream_t s) {
+  const Plan p = plan_of(D, sizeof(T), aligned);
+  const T* xt = (const T*)x;
+  const float* g = (const float*)gamma;
+  T* o = (T*)out;
+  if (p.path == 0) {
+    const int per_cta = NT / p.tpr;
+    const int grid = (int)(((long long)rows + per_cta - 1) / per_cta);
+    switch (p.ppt) {
+      case 1:
+        rmsnorm_rows<T, 1><<<grid, NT, 0, s>>>(xt, g, o, rows, D, p.tpr, eps);
+        break;
+      case 2:
+        rmsnorm_rows<T, 2><<<grid, NT, 0, s>>>(xt, g, o, rows, D, p.tpr, eps);
+        break;
+      case 4:
+        rmsnorm_rows<T, 4><<<grid, NT, 0, s>>>(xt, g, o, rows, D, p.tpr, eps);
+        break;
+      default:
+        rmsnorm_rows<T, 8><<<grid, NT, 0, s>>>(xt, g, o, rows, D, p.tpr, eps);
+    }
+  } else if (p.path == 1) {
+    rmsnorm_general<T, 16 / sizeof(T)><<<rows, NT, 0, s>>>(xt, g, o, D, eps);
+  } else {
+    rmsnorm_general<T, 1><<<rows, NT, 0, s>>>(xt, g, o, D, eps);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
+
+// The path K4 takes for rows of D elements (bf16: bfloat16, else
+// float32) with 16-byte aligned pointers (aligned != 0) or not: path 0
+// (registers), 1 (general, 16-byte packs) or 2 (general, element by
+// element); on path 0 the threads a row, the rows a CTA and the packs a
+// thread.
+extern "C" int rmsnorm_plan(int D, int bf16, int aligned, int* path,
+                            int* tpr, int* rows_per_cta, int* ppt) {
+  if (D < 1) return (int)cudaErrorInvalidValue;
+  const Plan p = plan_of(D, bf16 ? 2 : 4, aligned != 0);
+  *path = p.path;
+  *tpr = p.tpr;
+  *rows_per_cta = p.path == 0 ? NT / p.tpr : 1;
+  *ppt = p.ppt;
+  return (int)cudaSuccess;
+}
 
 // x and out are (rows, D) of float32 (bf16 == 0) or bfloat16 (bf16 == 1);
 // gamma is (D,) float32.
@@ -73,12 +224,9 @@ extern "C" int rmsnorm_launch(const void* x, const void* gamma, void* out,
   if (rows < 0 || D < 0) return (int)cudaErrorInvalidValue;
   if (rows == 0 || D == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  const bool aligned = hk::aligned16(x) && hk::aligned16(out);
+  const bool aligned =
+      hk::aligned16(x) && hk::aligned16(out) && hk::aligned16(gamma);
   if (bf16)
-    return (int)(D % 8 == 0 && aligned
-                     ? launch<__nv_bfloat16, 8>(x, gamma, out, rows, D, eps, s)
-                     : launch<__nv_bfloat16, 1>(x, gamma, out, rows, D, eps, s));
-  return (int)(D % 4 == 0 && aligned
-                   ? launch<float, 4>(x, gamma, out, rows, D, eps, s)
-                   : launch<float, 1>(x, gamma, out, rows, D, eps, s));
+    return (int)launch<__nv_bfloat16>(x, gamma, out, rows, D, eps, aligned, s);
+  return (int)launch<float>(x, gamma, out, rows, D, eps, aligned, s);
 }

@@ -83,21 +83,22 @@ def launch(kernel: str, fn, *args, device: torch.device):
 _grids: dict = {}
 
 
-def grid_query(kernel: str, fn, *args: int,
-               device: torch.device) -> tuple[int, int]:
-    """The two ints that the C query ``fn(*args, &a, &b)`` of ``kernel``
-    returns for ``device`` (a grid sized from the kernel's occupancy on
-    that card: K2's and K3 ``_k1``'s (row ranges, column strips), K5's
-    (chunks, chunk length)), cached per device and arguments."""
+def grid_query(kernel: str, fn, *args: int, device: torch.device,
+               count: int = 2) -> tuple[int, ...]:
+    """The ``count`` ints that the C query ``fn(*args, &a, &b, ...)`` of
+    ``kernel`` returns for ``device`` (a grid sized from the kernel's
+    occupancy on that card: K2's and K3 ``_k1``'s (row ranges, column
+    strips); K5's split configuration; K4's path), cached per device and
+    arguments."""
     key = (kernel, device.index, *args)
     if key not in _grids:
-        a, b = ctypes.c_int(0), ctypes.c_int(0)
+        outs = [ctypes.c_int(0) for _ in range(count)]
         with _current(device):
-            status = fn(*args, ctypes.byref(a), ctypes.byref(b))
+            status = fn(*args, *map(ctypes.byref, outs))
         if status != 0:
             raise CudaLaunchError(f"{kernel}: occupancy query failed with "
                                   f"cudaError_t {status}")
-        _grids[key] = (a.value, b.value)
+        _grids[key] = tuple(o.value for o in outs)
     return _grids[key]
 
 

@@ -5,10 +5,14 @@ head sharing its K/V stream (flash-decoding).
 Replaces ``src/repro/kernels/decode_attention.py:20``
 ``_decode_attn_kernel``.  The CUDA source, its bound and its design are
 in ``csrc/decode_attention.cu``: a split kernel, one CTA per (b, h_kv,
-chunk of S) with the chunk count sized from its occupancy, writes
-float32 partials ``(acc, m, l)`` per chunk; a combine kernel rescales
-and sums them into ``o`` in q's dtype.  Two launches, counted as
-``K5/split_*`` and ``K5/combine_*``.  The plain versions are
+chunk of S, group of at most 8 query heads), streams its chunk of K and
+V through a ring of shared-memory stages filled by ``cp.async`` (bulk
+copies and tensor cores for bfloat16 at d of 64, 128 or 256) and
+writes float32 partials ``(acc, m, l)`` per chunk; a combine kernel
+folds the chunks of each query head, a warp per 1-32 chunks, into ``o``
+in q's dtype.  Two launches, counted as ``K5/split_*`` and
+``K5/combine_*``.  The chunks are sized by ``chunk_plan`` from the
+split's configuration on the card (``config``).  The plain versions are
 ``kernels.ref.decode_attention`` (the whole function) and
 ``ref.decode_attention_split`` / ``ref.decode_attention_combine`` (each
 kernel).
@@ -28,12 +32,17 @@ NAMES = {torch.float32: ("K5/split_f32", "K5/combine_f32"),
 #: go up to DeepSeek-V2-Lite's 128 + 64 = 192 query-key dims)
 D_MAX = 256
 
+#: the split configuration's fields, in the order the C query returns them
+CONFIG_FIELDS = ("ctas_per_sm", "sms", "head_groups", "heads_per_cta",
+                 "tile", "stages", "smem_bytes", "threads", "lanes_per_row",
+                 "tensor_cores")
+
 _fns: tuple | None = None
 
 
 def _launchers():
     """The C launchers of the split and combine kernels, and the split's
-    C grid query."""
+    C configuration query."""
     global _fns
     if _fns is None:
         lib = _build.load_csrc("decode_attention.cu")
@@ -43,9 +52,41 @@ def _launchers():
                                   + [ctypes.c_float, i, ptr]),
                 _build.c_function(lib, "decode_attention_combine_launch",
                                   [ptr] * 4 + [i] * 6 + [ptr]),
-                _build.c_function(lib, "decode_attention_chunks",
-                                  [i] * 5 + [ctypes.POINTER(i)] * 2))
+                _build.c_function(lib, "decode_attention_config",
+                                  [i] * 3 + [ctypes.POINTER(i)]
+                                  * len(CONFIG_FIELDS)))
     return _fns
+
+
+def config(G: int, d: int, dtype, device: torch.device) -> dict:
+    """The split kernel's configuration for G query heads a KV head and
+    head dim d on ``device``'s card (K and V 16-byte aligned):
+    ``CONFIG_FIELDS``."""
+    vals = _launch.grid_query(NAMES[dtype][0], _launchers()[2], G, d,
+                              int(dtype == torch.bfloat16), device=device,
+                              count=len(CONFIG_FIELDS))
+    return dict(zip(CONFIG_FIELDS, vals))
+
+
+def ctas_per_chunk(B: int, Hkv: int, cfg: dict) -> int:
+    """The split's CTAs for one chunk of S: one a (b, KV head, group of
+    query heads)."""
+    return B * Hkv * cfg["head_groups"]
+
+
+def chunk_plan(ctas: int, S: int, slots: int, tile: int) -> tuple[int, int]:
+    """(chunks, length): S cut into chunks of ``length`` positions, a
+    whole number of ``tile``-row tiles each, so that ``ctas`` CTAs a
+    chunk (``ctas_per_chunk``) fill the card's ``slots`` resident CTAs
+    in one wave; at least one chunk, and every chunk holds at least one
+    position (only the last one is short)."""
+    if min(ctas, S, slots, tile) < 1:
+        raise ValueError(f"chunk_plan: needs positive arguments, got "
+                         f"{ctas}, {S}, {slots}, {tile}")
+    want = max(1, slots // ctas)
+    length = -(-S // want)
+    length = -(-length // tile) * tile
+    return -(-S // length), length
 
 
 def check_heads(Hq: int, Hkv: int):
@@ -79,10 +120,10 @@ def split(q, k, v, scale: float | None = None):
     B, Hq, Hkv, S, d = _check(q, k, v)
     G = Hq // Hkv
     bf16 = int(q.dtype == torch.bfloat16)
-    # one wave of CTAs over (b, h_kv, chunk) on this card
-    chunks, length = _launch.grid_query(NAMES[q.dtype][0], _launchers()[2],
-                                        B * Hkv, S, G, d, bf16,
-                                        device=q.device)
+    cfg = config(G, d, q.dtype, q.device)
+    chunks, length = chunk_plan(ctas_per_chunk(B, Hkv, cfg), S,
+                                cfg["ctas_per_sm"] * cfg["sms"],
+                                cfg["tile"])
     rows = B * Hkv * chunks
     acc = torch.empty((rows, G, d), dtype=torch.float32, device=q.device)
     m = torch.empty((rows, G), dtype=torch.float32, device=q.device)

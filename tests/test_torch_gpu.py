@@ -26,6 +26,7 @@ from repro_torch.kernels._launch import LAUNCHES
 from repro_torch.kernels import adamw as k6
 from repro_torch.kernels import decode_attention as k5
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rmsnorm as k4
 from repro_torch.kernels import softmax_xent as k7
 from repro_torch.optim import fused_adamw_update
 from repro_torch.programs import REGISTRY, make_inputs
@@ -140,13 +141,19 @@ def _randn(rng, *shape, dtype=torch.float32, scale=1.0):
                             .astype(np.float32)).cuda().to(dtype)
 
 
+#: K5's shapes (B, Hq, Hkv, S, d): one KV head, odd S and d, a d of 256,
+#: and the head layouts of the repository's configs: granite_34b's MQA
+#: (G = 48, d = 128, six head groups a KV head), hymba_1p5b's G = 5 and
+#: d = 64, and LM_DECODE_ATTN's one head of d = 48 over a 128k context
+#: (some 256 chunks for the combine to fold)
+K5_SHAPES = [(1, 4, 4, 256, 128), (2, 16, 1, 256, 128), (3, 12, 4, 1000, 80),
+             (1, 1, 1, 4099, 48), (2, 8, 2, 70, 256), (1, 48, 1, 1000, 128),
+             (2, 25, 5, 777, 64), (1, 1, 1, 131072, 48)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,Hq,Hkv,S,d", [(1, 4, 4, 256, 128),
-                                          (2, 16, 1, 256, 128),
-                                          (3, 12, 4, 1000, 80),
-                                          (1, 1, 1, 4099, 48),
-                                          (2, 8, 2, 70, 256)])
+@pytest.mark.parametrize("B,Hq,Hkv,S,d", K5_SHAPES)
 def test_decode_attention_kernels_match_ref_on_gpu(B, Hq, Hkv, S, d, dtype,
                                                    cuda):
     rng = np.random.default_rng(S + d)
@@ -165,6 +172,100 @@ def test_decode_attention_kernels_match_ref_on_gpu(B, Hq, Hkv, S, d, dtype,
     got = k5.decode_attention(q, k, v)
     assert got.dtype == dtype and got.shape == (B, Hq, d)
     assert _rel(got, ref.decode_attention(q, k, v)) <= tol
+    cfg = k5.config(Hq // Hkv, d, dtype, q.device)
+    assert (acc.shape[0] // (B * Hkv), length) == k5.chunk_plan(
+        k5.ctas_per_chunk(B, Hkv, cfg), S, cfg["ctas_per_sm"] * cfg["sms"],
+        cfg["tile"])
+    assert length % cfg["tile"] == 0
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,S,d", [(8, 32, 8, 2048, 128),
+                                          (1, 1, 1, 131072, 48),
+                                          (1, 48, 1, 1000, 128)])
+def test_decode_attention_repeats_bitwise(B, Hq, Hkv, S, d, dtype, cuda):
+    """A second launch of split + combine gives the same bits (no
+    atomics; every sum in a fixed order)."""
+    rng = np.random.default_rng(B + S)
+    q = _randn(rng, B, Hq, d, dtype=dtype, scale=0.5)
+    k = _randn(rng, B, S, Hkv, d, dtype=dtype, scale=0.2)
+    v = _randn(rng, B, S, Hkv, d, dtype=dtype)
+    first = k5.split(q, k, v)
+    again = k5.split(q, k, v)
+    for a, b in zip(first[:3], again[:3]):
+        assert torch.equal(_bits(a), _bits(b))
+    o1 = k5.combine(*first[:3], B, Hq, dtype)
+    o2 = k5.combine(*again[:3], B, Hq, dtype)
+    assert torch.equal(_bits(o1), _bits(o2))
+
+
+@pytest.mark.gpu
+def test_decode_attention_unaligned_views_take_the_element_path(cuda):
+    """K and V at an offset of one element are not 16-byte aligned: the
+    split takes its element-by-element instance, with the same result."""
+    rng = np.random.default_rng(11)
+    B, Hq, Hkv, S, d = 2, 8, 2, 300, 64
+    q = _randn(rng, B, Hq, d)
+    flat = _randn(rng, 2 * B * S * Hkv * d + 1)
+    k = flat[1:1 + B * S * Hkv * d].view(B, S, Hkv, d)
+    v = flat[1 + B * S * Hkv * d:].view(B, S, Hkv, d)
+    assert k.data_ptr() % 16 and k.is_contiguous()
+    acc, m, l, length = k5.split(q, k, v)
+    for got, w in zip((acc, m, l), ref.decode_attention_split(q, k, v,
+                                                              length)):
+        assert _rel(got, w) <= 1e-4
+    assert _rel(k5.decode_attention(q, k, v),
+                ref.decode_attention(q, k, v)) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,D,dtype,path", [
+    (64, 4096, torch.float32, "registers"),
+    (64, 4096, torch.bfloat16, "registers"),
+    (3, 20000, torch.bfloat16, "general_packs"),
+    (5, 33, torch.float32, "general_elements"),
+    (5, 33, torch.bfloat16, "general_elements"),
+    (2, 8, torch.float32, "registers"),
+    (2, 8, torch.bfloat16, "registers"),
+    (7, 1000, torch.bfloat16, "registers")])
+def test_rmsnorm_kernel_paths_match_ref_and_repeat_bitwise(T, D, dtype,
+                                                           path, cuda):
+    """K4 on its register path (rows of up to 1024 packs) and its general
+    path (a row longer than that, an odd D), against its plain version,
+    and bitwise equal on a second launch."""
+    rng = np.random.default_rng(T * D)
+    x, g = _randn(rng, T, D, dtype=dtype), _randn(rng, D)
+    assert k4.plan(D, dtype, x.device)["path"] == path
+    got = k4.rmsnorm(x, g)
+    assert got.dtype == dtype and got.shape == (T, D)
+    tol = 1e-3 if dtype == torch.bfloat16 else 1e-4
+    assert _rel(got, ref.rmsnorm(x, g)) <= tol
+    assert torch.equal(_bits(got), _bits(k4.rmsnorm(x, g)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_unaligned_view_matches_ref(dtype, cuda):
+    """Rows at an offset of one element take the general element path;
+    an unaligned gamma is copied to an aligned one."""
+    rng = np.random.default_rng(12)
+    T, D = 9, 4096
+    flat = _randn(rng, T * D + 1, dtype=dtype)
+    x = flat[1:].view(T, D)
+    gflat = _randn(rng, D + 1)
+    g = gflat[1:]
+    assert x.data_ptr() % 16 and g.data_ptr() % 16
+    assert k4.plan(D, dtype, x.device, aligned=False)["path"] == \
+        "general_elements"
+    tol = 1e-3 if dtype == torch.bfloat16 else 1e-4
+    assert _rel(k4.rmsnorm(x, g), ref.rmsnorm(x, g)) <= tol
+    assert _rel(k4.rmsnorm(x.clone(), g), ref.rmsnorm(x, g)) <= tol
 
 
 @pytest.mark.gpu

@@ -165,7 +165,9 @@ def test_softmax_xent_plain_matches_reference(T, V):
                                           (2, 8, 2, 512, 128),
                                           (2, 16, 1, 256, 128),
                                           (2, 8, 2, 256, 48),
-                                          (1, 6, 3, 512, 80)])
+                                          (1, 6, 3, 512, 80),
+                                          (1, 48, 1, 1024, 128),
+                                          (2, 25, 5, 768, 64)])
 def test_decode_attention_plain_matches_reference(B, Hq, Hkv, S, d):
     rng = np.random.default_rng(B * Hq + S)
     q = randn(rng, B, Hq, d, scale=0.5)
@@ -179,10 +181,15 @@ def test_decode_attention_plain_matches_reference(B, Hq, Hkv, S, d):
     close(got, np.asarray(want_pallas), 3e-4)
 
 
-@pytest.mark.parametrize("B,Hq,Hkv,S,d,length", [(2, 8, 2, 300, 48, 64),
-                                                 (1, 1, 1, 1000, 80, 77),
-                                                 (3, 12, 4, 1000, 80, 1000),
-                                                 (2, 16, 1, 256, 128, 64)])
+@pytest.mark.parametrize("B,Hq,Hkv,S,d,length", [
+    (2, 8, 2, 300, 48, 64), (1, 1, 1, 1000, 80, 77),
+    (3, 12, 4, 1000, 80, 1000), (2, 16, 1, 256, 128, 64),
+    # chunks of whole 32- and 64-row tiles, the last one short
+    (2, 8, 2, 1000, 128, 128), (1, 4, 4, 70, 64, 64), (2, 4, 1, 200, 32, 32),
+    # 513 chunks at B·Hkv = 1, the last one of 5 positions
+    (1, 1, 1, 32 * 1024 + 5, 48, 64),
+    # granite_34b's G = 48 and hymba_1p5b's G = 5
+    (1, 48, 1, 1000, 128, 128), (2, 25, 5, 777, 64, 64)])
 def test_decode_attention_split_and_combine_compose(B, Hq, Hkv, S, d,
                                                     length):
     """K5's two plain kernels, chunked as the split kernel chunks S (the
@@ -199,6 +206,42 @@ def test_decode_attention_split_and_combine_compose(B, Hq, Hkv, S, d,
                                rtol=1e-5, atol=1e-6)
     got16 = ref.decode_attention_combine(acc, m, l, B, Hq, torch.bfloat16)
     assert got16.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("ctas,S,slots,tile,want", [
+    # Llama-3-8B decode step: B·Hkv = 64 over 2 CTAs an SM x 132 SMs
+    (64, 8192, 264, 64, (4, 2048)),
+    # LM_DECODE_ATTN: one KV head over 128k positions; 131072 / 264 =
+    # 496.5 rounds up to 8 tiles of 64
+    (1, 131072, 264, 64, (256, 512)),
+    # a short S: one tile and a short one of 6 positions
+    (64, 70, 264, 64, (2, 64)),
+    # more CTAs than slots: one chunk, S rounded up to whole tiles
+    (1000, 5000, 264, 32, (1, 5024)),
+    (3, 1, 132, 32, (1, 32)),
+    # granite_34b's 6 head groups a KV head: 132 // 6 = 22 chunks of 46
+    # positions round up to 64, so 1000 positions take 16 chunks
+    (6, 1000, 132, 32, (16, 64))])
+def test_decode_attention_chunk_plan(ctas, S, slots, tile, want):
+    """The split's chunk rule: whole tiles a chunk, one wave of CTAs,
+    every chunk non-empty."""
+    chunks, length = k5.chunk_plan(ctas, S, slots, tile)
+    assert (chunks, length) == want
+    assert length % tile == 0 and chunks * length >= S
+    assert (chunks - 1) * length < S
+
+
+def test_decode_attention_chunk_plan_invariants():
+    rng = np.random.default_rng(0)
+    for _ in range(500):
+        ctas, S = int(rng.integers(1, 300)), int(rng.integers(1, 300000))
+        slots, tile = int(rng.integers(1, 600)), int(rng.choice([32, 64]))
+        chunks, length = k5.chunk_plan(ctas, S, slots, tile)
+        assert length % tile == 0 and 1 <= chunks <= S
+        assert (chunks - 1) * length < S <= chunks * length
+        assert chunks == 1 or ctas * chunks <= slots
+    with pytest.raises(ValueError, match="positive"):
+        k5.chunk_plan(0, 10, 10, 32)
 
 
 # ---------------------------------------------------------------------------
