@@ -55,8 +55,37 @@ Phases, each printed as JSON lines:
 5. hand_main: the ``ops`` path, counts set to 0 just before it and read
    just after: every hand kernel launched, outputs against float64;
 6. serve: ``serve_blas`` for GEMVER at n = 4096, 100 requests, in
-   ``best`` and ``unfused`` (CUDA events);
-7. series: the paper's comparison for GEMVER, BiCGK, LM_RMSNORM (n =
+   ``best`` and ``unfused`` (CUDA events): µs per request replaying the
+   plan's CUDA graph and on the eager path (a Python call a group) side
+   by side, and the device time of each;
+7. engine: the ``ServingEngine`` on one mixed stream of 64 requests
+   from ``--seed`` at full width: GEMVER and BiCGK with n from 1000 to
+   4096 (buckets 1024, 2048, 4096), AXPYDOT with n from 2**20 to 2**24,
+   LM_DECODE_ATTN at ragged KV lengths from 100,000 to 131,072 (masked,
+   d = 48); max_batch 8, max_pack 8; inputs on the card.  The stream is
+   drawn by ``launch.serve.engine_stream``, the ``--engine`` CLI's
+   generator, and drained twice to warm it, then once measured with the
+   counts set to 0 just before and read just after (every engine kernel
+   launched, no graph captured); its results are held across the next
+   drain and must keep their bits; the stream again open loop at 2000
+   requests a second, every result kept: no graph held, none captured
+   twice for one input set, every result with the closed loop's bits;
+   every request against float64 numpy (norm-relative, and AXPYDOT's
+   dot product, whose terms cancel, relative to the sum of its terms'
+   magnitudes); every result bitwise equal to
+   eager single-request launches of its bucket's plan (so every batched
+   and packed replay is); the packed drain bitwise equal to the same
+   stream unpacked (max_pack 1); a graph replay bitwise equal to the
+   eager run of the same staged batch; each engine kernel on one staged
+   batch against its plain batched version (the group's dense function,
+   request by request), and timed;
+8. fp16: AXPYDOT (2**24) and GEMVER (4096, A and the u, v vectors scaled
+   by n**-0.5 to stay inside float16's range) in float16 through K1,
+   ``best`` and ``unfused``: launches counted (each group once), outputs
+   against float64, each group against its plain version (K1's tiled
+   version, in float32 and rounded where the kernel stores), times
+   beside the bound;
+9. series: the paper's comparison for GEMVER, BiCGK, LM_RMSNORM (n =
    4096), AXPYDOT, FUSED_ADAMW (n = 2**24) and LM_DECODE_ATTN (n =
    131072) — compiler ``best`` and ``unfused``, the hand kernels (none
    for AXPYDOT), the ``torch`` backend, for FUSED_ADAMW the port's
@@ -66,14 +95,17 @@ Phases, each printed as JSON lines:
    ``torch.optim.AdamW(fused=True)``), timed only, never used by the
    port — outputs cross-checked first, then µs per request back to back
    (``*_us``) and as device time (``*_device_us``), beside the hand
-   kernels' bounds;
-8. time: each kernel's time beside its bound (compulsory bytes over
+   kernels' bounds; the compiler's programs run as their callers run
+   them, one CUDA graph replay a request (``best`` also eager);
+10. time: each kernel's time beside its bound (compulsory bytes over
    3.35 TB/s, or float32 operations over 67 TFLOP/s), the plain
    version's time, and one PyTorch call computing the same function
    where there is one (checked against the kernel once, timed here
    only, never used by the port).  ``ms`` and ``library_ms`` are device
-   times: the launches are queued behind a spinning kernel, so the host
-   path between them is hidden.  For K1 ``ms`` excludes the combine of
+   times by CUDA graph replay (``graph_ms``: about 1 ms of back-to-back
+   calls captured in one graph, so no host path lies between them; a
+   call that cannot be captured is queued behind a spinning kernel
+   instead, ``"timed_by": "spin"``).  For K1 ``ms`` excludes the fold of
    ``partial`` outputs after the kernel; for K2-K4 it is the wrapper's
    whole device work (the kernel and the sum of its partials); K5's
    split and combine kernels are timed one by one, and K5 as a whole
@@ -93,7 +125,15 @@ only where the rounding of an output flips by one unit: they are held to
 relative.  Against float64, and against the library's bfloat16 calls,
 bfloat16 outputs (8 bits of mantissa) are held to 2e-2.
 
-The last lines are the ``{"kernels": [...]}`` record and
+float16 outputs (11 bits of mantissa) are held to 1e-2 against float64;
+K1 and its plain version both compute a float16 group in float32 and
+round where the kernel stores, so a float16 kernel is held to 1e-3
+against its plain version.  Bitwise checks compare the bits of the
+outputs.
+
+The last lines are the ``{"kernels": [...]}`` record (the main path's
+K1 groups and hand kernels, then the engine's and the float16 path's K1
+groups, each with the launches of its own counted run) and
 ``{"ok": true, "device": {...}}``; the card's ``nvidia-smi`` line is in
 the first (``device``) record.  Any failed
 phase ends the run with exit code 1 and no result line; so does a
@@ -179,8 +219,53 @@ K6_HYPERS = dict(lr=1e-3, beta1=0.9, beta2=0.95, eps=1e-8,
                  weight_decay=0.01)
 #: cross-entropy (T, V): 8192 tokens over Llama-3-8B's vocabulary
 XENT = (8192, 128256)
+#: the engine phase: requests, largest batch, most members a pack
+ENGINE_REQUESTS, ENGINE_BATCH, ENGINE_PACK = 64, 8, 8
+#: arrival rate of the engine phase's open-loop run (requests a second)
+OPEN_LOOP_HZ = 2000.0
+#: float16 through K1: AXPYDOT over 2**24, GEMVER at 4096
+FP16 = ("AXPYDOT", "GEMVER")
+#: float16 output against float64: 11 bits of mantissa
+FP16_RTOL = 1e-2
+#: float16 kernel against its plain version (one rounding each)
+FP16_KERNEL_RTOL = 1e-3
 ES = {"float32": 4, "bfloat16": 2}
 SHORT = {"float32": "f32", "bfloat16": "bf16"}
+
+
+def engine_ranges(args) -> dict:
+    """The engine phase's size range per sequence: GEMVER and BiCGK with
+    n from 1000/4096 of ``--n2`` up to it (buckets 1024, 2048, 4096 at
+    the default; A is 64 MiB at 4096), AXPYDOT with n from ``--n1``/16
+    to ``--n1`` (2**20 to 2**24), and LM_DECODE_ATTN at ragged KV
+    lengths from 100000/131072 of ``--n-attn`` up to it (one bucket,
+    served through per-lane masking).  The stream is drawn from them by
+    ``launch.serve.engine_stream``, the generator ``--engine`` serves."""
+    return {"GEMVER": (args.n2 * 1000 // 4096, args.n2),
+            "BiCGK": (args.n2 * 1000 // 4096, args.n2),
+            "AXPYDOT": (args.n1 // 16, args.n1),
+            "LM_DECODE_ATTN": (args.n_attn * 100000 // 131072, args.n_attn)}
+
+
+#: outputs that are sums whose terms cancel, by (sequence, output index):
+#: the float64 sum of the terms' magnitudes, from a request's float64
+#: inputs (AXPYDOT's r = (w - alpha v) . u)
+CANCELLING = {("AXPYDOT", 1): lambda w, v, u, alpha:
+              float(abs((w - alpha * v) * u).sum())}
+
+
+def fp16_inputs(name: str, n: int, seed: int = 0) -> dict:
+    """float16 inputs: ``make_inputs``, with GEMVER's A, u1, v1, u2 and v2
+    scaled by n**-0.5 so that B = A + u1 v1ᵀ + u2 v2ᵀ has a norm of O(1)
+    and w = α B x stays inside float16's ±65504 (unscaled, v1·x grows as
+    n and w overflows from n = 1024 on)."""
+    import numpy as np
+    from repro_torch.programs import REGISTRY, make_inputs
+    env = make_inputs(REGISTRY[name], n, seed=seed)
+    if name == "GEMVER":
+        for k in ("A", "u1", "v1", "u2", "v2"):
+            env[k] = env[k] / np.float32(np.sqrt(n))
+    return {k: np.asarray(v).astype(np.float16) for k, v in env.items()}
 
 
 def fail(msg: str):
@@ -229,10 +314,56 @@ def time_ms(fn, budget_ms: float = 300.0, max_reps: int = 50,
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, budget_ms: float = 200.0):
+    """(Mean device time per call of ``fn``, "graph"), by CUDA graph
+    replay: ``k`` calls (about 1 ms of work, at most 64) captured back
+    to back into one graph, replayed until ``budget_ms``; a replay's
+    host path is a few µs against ~1 ms of device work, so the host
+    never holds the device back.  A ``fn`` that cannot be captured (a
+    library call that synchronises) is timed by ``device_ms`` instead:
+    (time, "spin")."""
+    import torch
+    from repro_torch.core import LAUNCHES
+    fn()
+    torch.cuda.synchronize()
+    first = time_ms(fn, max_reps=1, warmup=False)
+    k = max(1, min(64, int(1.0 / max(first, 1e-3))))
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with LAUNCHES.capturing():      # a capture launches nothing
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                for _ in range(k):
+                    fn()
+    except RuntimeError:
+        del graph
+        torch.cuda.synchronize()
+        return device_ms(fn, budget_ms), "spin"
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    reps = max(3, min(200, int(budget_ms / max(start.elapsed_time(end),
+                                               1e-3))))
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * k)
+    del graph
+    return ms, "graph"
+
+
 def device_ms(fn, budget_ms: float = 300.0, max_reps: int = 100) -> float:
     """Mean device time per call of ``fn``: the calls are queued behind a
     spinning kernel that lasts twice their measured host path, so the
-    events see the device run them back to back."""
+    events see the device run them back to back (while the host keeps
+    ahead of the queue: ``graph_ms`` is the robust measure, this one is
+    for what cannot be captured)."""
     import torch
     fn()
     first = time_ms(fn, max_reps=1, warmup=False)
@@ -255,8 +386,10 @@ def device_ms(fn, budget_ms: float = 300.0, max_reps: int = 100) -> float:
     return start.elapsed_time(end) / reps
 
 
-def library_call(im, args):
-    """One PyTorch call computing a lone group's function, or None."""
+def library_call(im, args, batched: bool = False):
+    """One PyTorch call computing a lone group's function, or None; with
+    ``batched``, over a leading batch axis of every argument (matrix
+    products as ``matmul``, scalars broadcast along the batch)."""
     import torch
     calls = im.fusion.calls
     if len(calls) != 1:
@@ -264,6 +397,17 @@ def library_call(im, args):
     name = calls[0].elem.name
     ext = list(im.fusion.external_inputs)     # x*x reads x once
     args = [args[ext.index(v)] for v in calls[0].args]
+    if batched:
+        if name in ("gemv", "attn_score"):
+            return lambda: torch.matmul(args[0], args[1][..., None])[..., 0]
+        if name in ("gemtv", "attn_out"):
+            return lambda: torch.matmul(args[0].transpose(1, 2),
+                                        args[1][..., None])[..., 0]
+        if name in ("sum_reduce", "max_reduce"):
+            red = torch.sum if name == "sum_reduce" else torch.amax
+            return lambda: red(args[0], dim=-1)
+        # elementwise: a batch of scalars as a column
+        args = [a[:, None] if a.dim() == 1 else a for a in args]
     if name == "gemv":
         return lambda: torch.mv(args[0], args[1])
     if name == "gemtv":
@@ -459,6 +603,10 @@ def main(argv=None):
     ap.add_argument("--n-attn", type=int, default=131072,
                     help="KV length of LM_DECODE_ATTN")
     ap.add_argument("--requests", type=int, default=100)
+    ap.add_argument("--engine-requests", type=int, default=ENGINE_REQUESTS,
+                    help="requests in the engine phase's stream")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the engine phase's stream and inputs")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -475,9 +623,13 @@ def main(argv=None):
         from repro_torch.kernels import ops, ref
         from repro_torch.kernels import rmsnorm as k4
         from repro_torch.kernels import softmax_xent as k7
-        from repro_torch.launch.serve import serve_blas
+        from repro_torch.core.codegen import _batched_dense_fn
+        from repro_torch.core.cuda_codegen import torch_dtype
+        from repro_torch.core.masking import MASK_INPUT, mask_row
+        from repro_torch.launch.serve import engine_stream, serve_blas
         from repro_torch.optim import fused_adamw_update
         from repro_torch.programs import BLAS, REGISTRY, make_inputs
+        from repro_torch.serving import Request, ServingEngine
     except ImportError as e:
         fail(f"cannot import the port from {ROOT}/src: {e}")
     if any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
@@ -506,10 +658,28 @@ def main(argv=None):
     progs = {k: cc.compile(REGISTRY[k[0]].script,
                            REGISTRY[k[0]].shapes(size(k[0])),
                            mode=k[1], label=f"{k[0]}/{k[1]}") for k in keys}
+    # the engine's programs: one per (sequence, bucket) of the stream
+    stream = engine_stream(engine_ranges(args), args.engine_requests,
+                           args.seed)
+    engine = ServingEngine(
+        FusionCompiler(backend="cuda", device="cuda", cache=PlanCache()),
+        max_batch=ENGINE_BATCH, min_bucket=64, registry=REGISTRY,
+        max_pack=ENGINE_PACK)
+    engine_keys = sorted({(s_, engine.bucket_of(n)) for s_, n in stream})
+    engine_progs = {k: engine._get_program(*k) for k in engine_keys}
+    # float16 programs
+    cc16 = FusionCompiler(backend="cuda", device="cuda", cache=PlanCache(),
+                          dtype=np.float16)
+    keys16 = [(name, mode) for name in FP16 for mode in MODES]
+    progs16 = {k: cc16.compile(REGISTRY[k[0]].script,
+                               REGISTRY[k[0]].shapes(size(k[0])), mode=k[1],
+                               label=f"fp16/{k[0]}/{k[1]}") for k in keys16}
     t_plan = time.perf_counter() - t0
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 4) as pool:
         futs = {k: pool.submit(p.module.build) for k, p in progs.items()}
+        for k, p in [*engine_progs.items(), *progs16.items()]:
+            futs[("build",) + k] = pool.submit(p.module.build)
         hand_sources = (("bicgk.cu", k2._launchers),
                         ("gemver.cu", k3._launchers),
                         ("rmsnorm.cu", k4._launcher),
@@ -526,7 +696,8 @@ def main(argv=None):
     t_build = time.perf_counter() - t0
     emit({"phase": "device", "nvidia_smi": smi_line, "device": dev_name,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "plans": len(keys), "hand_sources": len(hand_sources),
+          "plans": len(keys), "engine_plans": len(engine_progs),
+          "fp16_plans": len(progs16), "hand_sources": len(hand_sources),
           "plan_s": t_plan, "build_s": t_build, "n_blas2": n2,
           "n_blas1": args.n1, "n_attn": args.n_attn})
     if failures:
@@ -942,23 +1113,340 @@ def main(argv=None):
     if failures:
         fail("; ".join(failures))
 
-    # -- 6. serving ------------------------------------------------------------
+    # -- 6. serving: one request a call, graph replay beside eager ------------
     for mode in MODES:
         res = serve_blas(argparse.Namespace(
             blas="GEMVER", n=n2, requests=args.requests, mode=mode,
             backend="cuda", device="cuda", seed=0))
+        p, a = progs[("GEMVER", mode)], dev_inputs[("GEMVER", mode)]
+        replay_ms = device_ms(lambda: p.run(*a))
+        eager_ms = device_ms(lambda: p.fn(*a))
+        kernels_ms, how = graph_ms(lambda: p.fn(*a))
         emit({"phase": "serve", "program": "GEMVER", "n": n2,
               "mode": mode, "requests": args.requests,
               "us_per_request": res["us_per_request"],
+              "eager_us_per_request": res["eager_us_per_request"],
+              "device_us": replay_ms * 1e3,
+              "eager_device_us": eager_ms * 1e3,
+              "kernels_device_us": kernels_ms * 1e3, "kernels_timed_by": how,
               "kernel_launches": res["kernel_launches"],
+              "eager_kernel_launches": res["eager_kernel_launches"],
               "groups": res["n_groups"]})
-        if res["kernel_launches"] != args.requests * res["n_groups"]:
-            failures.append(f"serve GEMVER/{mode}: "
-                            f"{res['kernel_launches']} launches")
+        for key in ("kernel_launches", "eager_kernel_launches"):
+            if res[key] != args.requests * res["n_groups"]:
+                failures.append(f"serve GEMVER/{mode}: {res[key]} {key}")
     if failures:
         fail("; ".join(failures))
 
-    # -- 7. the series: compiler, hand, torch backend, library -------------
+    #: kernel records of the engine and float16 paths, for the last line
+    path_records = []
+
+    # -- 7. the engine: a mixed stream, batched, packed, replayed ------------
+    t0 = time.perf_counter()
+    host_in = [make_inputs(REGISTRY[s_], n, seed=args.seed + 1000 + i)
+               for i, (s_, n) in enumerate(stream)]
+    reqs = [(s_, n, {k: torch.as_tensor(np.asarray(v)).cuda()
+                     for k, v in env.items()})
+            for (s_, n), env in zip(stream, host_in)]
+    t_inputs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for s_ in sorted({s_ for s_, _ in stream}):
+        engine.warm(s_, [n for t, n in stream if t == s_], trace_packs=False)
+    engine.warm_packs()
+    t_warm = time.perf_counter() - t0
+
+    def serve_stream(eng, rate_hz=None):
+        """Results of the stream, in stream order: one drain, or (with a
+        rate) as many as the arrivals make."""
+        base = eng._rid
+        out = [None] * len(reqs)
+        for r in eng.serve(reqs, rate_hz=rate_hz):
+            out[r.rid - base] = r
+        return out
+
+    # two drains make the stream's own pack compositions and staging
+    # sets warm (seen, then captured); the third is measured and counted
+    serve_stream(engine)
+    serve_stream(engine)
+    torch.cuda.synchronize()
+    n_disp0, n_pack0 = engine.n_dispatches, engine.n_packed_dispatches
+    n_members0 = engine.n_packed_members
+    caps0 = sum(p.replays.n_captures for p in engine_progs.values()
+                if p.replays is not None)
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    results = serve_stream(engine)
+    t_serve = time.perf_counter() - t0
+    eng_launches = dict(LAUNCHES.by_kernel)
+    caps1 = sum(p.replays.n_captures for p in engine_progs.values()
+                if p.replays is not None)
+    n_disp = engine.n_dispatches - n_disp0
+    n_pack = engine.n_packed_dispatches - n_pack0
+    n_members = engine.n_packed_members - n_members0
+    waits = sorted(r.queue_wait_s for r in results)
+    lat = sorted(r.latency_s for r in results)
+
+    # a result held across the next drain keeps its bits
+    held = [tuple(o.clone() for o in r.outputs) for r in results]
+    serve_stream(engine)
+    torch.cuda.synchronize()
+    held_ok = all(torch.equal(bits(o), bits(c)) for r, h in
+                  zip(results, held) for o, c in zip(r.outputs, h))
+    del held
+    # open loop: the stream arriving at OPEN_LOOP_HZ, drained as it
+    # comes, every result kept to the end.  Results are copies, so no
+    # graph is held: no call runs eagerly for want of a free graph, no
+    # input set has a second graph, and every result keeps the bits of
+    # the closed-loop drain (a batch gives the bits of single requests)
+    held0 = engine.stats()["graph_held_calls"]
+    disp_open0 = engine.n_dispatches
+    t0 = time.perf_counter()
+    open_res = serve_stream(engine, rate_hz=OPEN_LOOP_HZ)
+    t_open = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    open_st = engine.stats()
+    open_ok = (open_st["graph_held_calls"] == held0
+               and open_st["graphs_per_input_set"] == 1
+               and all(torch.equal(bits(o), bits(c)) for r, q in
+                       zip(results, open_res)
+                       for o, c in zip(r.outputs, q.outputs)))
+    del open_res
+    # every request's unpadded output against float64 numpy, and the
+    # batched (and packed) replay against single-request eager launches
+    refs64 = []
+    for (s_, n), env in zip(stream, host_in):
+        ref64 = REGISTRY[s_].reference(
+            **{k: np.asarray(v, np.float64) for k, v in env.items()})
+        refs64.append(ref64 if isinstance(ref64, tuple) else (ref64,))
+    # every output is held to RTOL of its own norm; a sum whose terms
+    # cancel (CANCELLING) to RTOL of the sum of its terms' magnitudes
+    # instead, the scale of its float32 rounding: AXPYDOT's r over 10**6
+    # terms of ~1 can cancel to 10**-3 and keep no float32 digits
+    singles, rel_max, cancel_max, single_ok = {}, 0.0, 0.0, True
+    for i, ((s_, n), ref64, r) in enumerate(zip(stream, refs64, results)):
+        for j, (o, w) in enumerate(zip(r.outputs, ref64)):
+            got = o.cpu().numpy().astype(np.float64)
+            if (s_, j) in CANCELLING:
+                scale = CANCELLING[s_, j](**{
+                    k: np.asarray(v, np.float64)
+                    for k, v in host_in[i].items()})
+                rel = float(np.linalg.norm(np.ravel(got - w))) / scale
+                cancel_max = max(cancel_max, rel)
+            else:
+                rel = norm_rel(got, w)
+                rel_max = max(rel_max, rel)
+            if not (rel <= RTOL and tuple(o.shape) == np.shape(w)):
+                failures.append(f"engine {s_} n={n} output {j}: error "
+                                f"{rel:.3g}")
+        key = (s_, r.bucket)
+        script, shapes, pads, masked = engine._compile_specs(*key)
+        if key not in singles:
+            singles[key] = engine.compiler.compile(script, shapes)
+        one = singles[key]
+        padded = {}
+        for name, shape in shapes.items():
+            v = one.graph.inputs[one.plan.input_names.index(name)]
+            if masked and name == MASK_INPUT:
+                padded[name] = torch.from_numpy(mask_row(shape[0], n)).cuda()
+                continue
+            t = torch.full(shape, float(pads[name]), device="cuda",
+                           dtype=torch_dtype(v.dtype))
+            x = reqs[i][2][name]
+            t[tuple(slice(d) for d in x.shape)] = x
+            padded[name] = t
+        outs = one.fn(*one.prepare(**padded))
+        for o, w in zip(r.outputs, outs):
+            w = w[tuple(slice(n) if d == r.bucket else slice(None)
+                        for d in w.shape)]
+            single_ok &= torch.equal(bits(o), bits(w))
+    # the packed dispatches against the same stream unpacked
+    unpacked = serve_stream(ServingEngine(
+        engine.compiler, max_batch=ENGINE_BATCH, min_bucket=64,
+        registry=REGISTRY, max_pack=1))
+    packed_ok = all(torch.equal(bits(o), bits(u)) for r, q in
+                    zip(results, unpacked) for o, u in zip(r.outputs,
+                                                            q.outputs))
+    del results, unpacked
+    # a graph replay against the eager run of the same staged batch
+    replay_ok = True
+    for (s_, b), prog in engine_progs.items():
+        stage = engine._staging[(s_, b, max(bs for s2, b2, bs in
+                                            engine._staging
+                                            if (s2, b2) == (s_, b)))]
+        ins = [stage[v.name] for v in prog.graph.inputs]
+        eager = prog.fn(*ins)
+        replayed = prog.run(*ins)
+        replay_ok &= all(torch.equal(bits(x), bits(y))
+                         for x, y in zip(eager, replayed))
+    torch.cuda.synchronize()
+    used = {fn.__self__.name for k, p in engine_progs.items()
+            for fn in p.group_fns}
+    never = sorted(k for k in used if not eng_launches.get(k))
+    emit({"phase": "engine", "requests": len(stream),
+          "max_batch": ENGINE_BATCH, "max_pack": ENGINE_PACK,
+          "programs": [f"{s_}/{b}" for s_, b in engine_keys],
+          "n_dispatches": n_disp, "n_packed_dispatches": n_pack,
+          "n_packed_members": n_members,
+          "us_per_request": t_serve / len(stream) * 1e6,
+          "serve_s": t_serve, "warm_s": t_warm, "inputs_s": t_inputs,
+          "queue_wait_p50_ms": waits[len(waits) // 2] * 1e3,
+          "queue_wait_p99_ms": waits[min(len(waits) - 1,
+                                         int(len(waits) * 0.99))] * 1e3,
+          "latency_p50_ms": lat[len(lat) // 2] * 1e3,
+          "captures_in_drain": caps1 - caps0,
+          "open_loop_hz": OPEN_LOOP_HZ, "open_loop_s": t_open,
+          "open_loop_dispatches": open_st["n_dispatches"] - disp_open0,
+          "graph_captures": open_st["graph_captures"],
+          "graph_held_calls": open_st["graph_held_calls"],
+          "graphs_per_input_set": open_st["graphs_per_input_set"],
+          "gpu_reserved_gib": torch.cuda.memory_reserved() / 2**30,
+          "launches": sum(eng_launches.values()),
+          "kernels_launched": len(eng_launches),
+          "max_norm_rel_err": rel_max, "max_cancelling_err": cancel_max,
+          "batched_vs_single_bitwise": single_ok,
+          "packed_vs_unpacked_bitwise": packed_ok,
+          "replay_vs_eager_bitwise": replay_ok,
+          "held_result_unchanged": held_ok})
+    for ok, what in ((single_ok, "a batched result differs from its "
+                      "single-request launches"),
+                     (packed_ok, "a packed dispatch differs from the "
+                      "unpacked one"),
+                     (replay_ok, "a graph replay differs from the eager "
+                      "run"),
+                     (held_ok, "a held result changed in the next drain"),
+                     (caps1 == caps0, f"the measured drain captured "
+                      f"{caps1 - caps0} graphs"),
+                     (open_ok, "the open-loop run held a graph, captured "
+                      "a second one for an input set, or changed a "
+                      "result's bits"),
+                     (not never, f"kernels never launched: {never}")):
+        if not ok:
+            failures.append(f"engine: {what}")
+    if failures:
+        fail("; ".join(failures))
+
+    # each engine kernel on one staged batch of its key's requests:
+    # against the group's plain batched version (the dense group function,
+    # request by request), then timed
+    for (s_, b), prog in engine_progs.items():
+        chunk = [i for i, (t, n) in enumerate(stream)
+                 if (t, engine.bucket_of(n)) == (s_, b)][:ENGINE_BATCH]
+        nb = 1 << (len(chunk).bit_length() - 1)
+        stage = engine._assemble(
+            [Request(rid=i, sequence=s_, n=stream[i][1], inputs=reqs[i][2])
+             for i in chunk[:nb]], s_, b, nb)
+        vals = {v.name: stage[v.name] for v in prog.graph.inputs}
+        outs_so_far = []
+        for gp, fn, im in zip(prog.plan.groups, prog.group_fns,
+                              prog.group_impls):
+            gk = fn.__self__
+            a = [vals[r[1]] if r[0] == "input" else outs_so_far[r[1]][r[2]]
+                 for r in gp.inputs]
+            got = gk.batched(*a)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = _batched_dense_fn(im.fusion)(*a)
+            torch.cuda.synchronize()
+            plain = (time.perf_counter() - t0) * 1e3
+            rel = max(tensor_err(x, y)[0] for x, y in zip(got, want))
+            mabs = max(tensor_err(x, y)[1] for x, y in zip(got, want))
+            if not rel <= RTOL:
+                failures.append(f"engine kernel {gk.name}: norm-relative "
+                                f"error {rel:.3g} against its plain version")
+            raw, ws = gk.buffers(a[0].device, nb)
+            ms, how = graph_ms(lambda: gk.launch_into(a, raw, ws, nb))
+            lib = library_call(im, a, batched=True)
+            lib_ms = None
+            if lib is not None:
+                lib_err = tensor_err(lib(), got[0])[0]
+                if not lib_err <= RTOL:
+                    failures.append(f"library call for {gk.name} disagrees "
+                                    f"with the kernel: {lib_err:.3g}")
+                lib_ms = graph_ms(lib)[0]
+            b_ms, b_by = bound(im)
+            rec = {"name": gk.name, "route": "cuda", "source": SOURCE,
+                   "replaces": REPLACES,
+                   "launches": eng_launches.get(gk.name, 0),
+                   "max_abs_err": mabs, "ms": ms, "plain_ms": plain,
+                   "bound_ms": nb * b_ms, "bound_by": b_by,
+                   "library_ms": lib_ms}
+            path_records.append(rec)
+            emit({"phase": "time", "path": "engine", **rec,
+                  "program": f"{s_}/{b}", "batch": nb, "timed_by": how,
+                  "norm_rel_err": rel, "bound_share": nb * b_ms / ms,
+                  "units": [ph.units for ph in gk.layout.phases],
+                  "slices": [ph.S for ph in gk.layout.phases]})
+            outs_so_far.append(want)
+    if failures:
+        fail("; ".join(failures))
+
+    # -- 8. float16 through K1 ------------------------------------------------
+    inputs16 = {name: fp16_inputs(name, size(name), seed=0) for name in FP16}
+    dev16 = {k: progs16[k].prepare(**inputs16[k[0]]) for k in keys16}
+    LAUNCHES.reset()
+    outs16 = {k: progs16[k].fn(*dev16[k]) for k in keys16}
+    torch.cuda.synchronize()
+    launches16 = dict(LAUNCHES.by_kernel)
+    for k in keys16:
+        name, mode = k
+        prog = progs16[k]
+        ref64 = REGISTRY[name].reference(
+            **{n: np.asarray(x, np.float64) for n, x in
+               inputs16[name].items()})
+        ref64 = ref64 if isinstance(ref64, tuple) else (ref64,)
+        errs = [norm_rel(x.float().cpu().numpy(), r)
+                for x, r in zip(outs16[k], ref64)]
+        finite = all(bool(torch.isfinite(x).all()) for x in outs16[k])
+        counts = [launches16.get(fn.name, 0) for fn in prog.group_fns]
+        dev_ms, how = graph_ms(lambda p=prog, a=dev16[k]: p.fn(*a))
+        b_ms = sum(bound(im)[0] for im in prog.group_impls)
+        emit({"phase": "fp16", "program": name, "mode": mode,
+              "n": size(name), "groups": prog.n_groups, "launches": counts,
+              "norm_rel_err": max(errs), "finite": finite,
+              "device_us": dev_ms * 1e3, "timed_by": how,
+              "bound_us": b_ms * 1e3, "bound_share": b_ms / dev_ms})
+        if not (max(errs) <= FP16_RTOL and finite):
+            failures.append(f"fp16 {name}/{mode}: error {max(errs):.3g}, "
+                            f"finite {finite}")
+        if counts != [1] * prog.n_groups:
+            failures.append(f"fp16 {name}/{mode}: launch counts {counts}")
+        outs_so_far = []
+        for gp, fn, im in zip(prog.plan.groups, prog.group_fns,
+                              prog.group_impls):
+            a = group_args(prog, outs_so_far, gp, dev16[k])
+            got = fn.launch(*a)
+            torch.cuda.synchronize()
+            # the plain version computes in float32 and rounds to float16
+            # where the kernel stores, so the two differ only where an
+            # output's rounding flips
+            t0 = time.perf_counter()
+            want = tiled_reference(prog.graph, im, *a)
+            torch.cuda.synchronize()
+            plain = (time.perf_counter() - t0) * 1e3
+            rel = max(tensor_err(x, y)[0] for x, y in zip(got, want))
+            mabs = max(tensor_err(x, y)[1] for x, y in zip(got, want))
+            if not (rel <= FP16_KERNEL_RTOL
+                    and all(x.dtype == torch.float16 for x in got)):
+                failures.append(f"fp16 kernel {fn.name}: norm-relative "
+                                f"error {rel:.3g} against its plain version")
+            raw, ws = fn.buffers(a[0].device)
+            ms, how = graph_ms(lambda: fn.launch_into(a, raw, ws))
+            b_ms, b_by = bound(im)
+            rec = {"name": fn.name, "route": "cuda", "source": SOURCE,
+                   "replaces": REPLACES,
+                   "launches": launches16.get(fn.name, 0),
+                   "max_abs_err": mabs, "ms": ms, "plain_ms": plain,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            path_records.append(rec)
+            emit({"phase": "time", "path": "fp16", **rec, "timed_by": how,
+                  "norm_rel_err": rel, "bound_share": b_ms / ms,
+                  "units": [ph.units for ph in fn.layout.phases],
+                  "slices": [ph.S for ph in fn.layout.phases]})
+            outs_so_far.append(got)
+    if failures:
+        fail("; ".join(failures))
+
+    # -- 9. the series: compiler, hand, torch backend, library -------------
     series_bounds = {
         "GEMVER": {k: hand_bound(k, (n2, n2))[0]
                    for k in ("K3/gemver_k1", "K3/gemver_k2")},
@@ -977,12 +1465,16 @@ def main(argv=None):
             REGISTRY[name].script, REGISTRY[name].shapes(size(name)))
         t_in = tprog.prepare(**inputs[name])
         d = series_dev[name]
+        # the compiler's programs as their callers run them (a CUDA graph
+        # replay each), and `best` eager (a Python call a group) beside
         runs = {
             "compiler_best": lambda p=progs[(name, "best")],
+            a=dev_inputs[(name, "best")]: p.run(*a),
+            "compiler_best_eager": lambda p=progs[(name, "best")],
             a=dev_inputs[(name, "best")]: p.fn(*a),
             "compiler_unfused": lambda p=progs[(name, "unfused")],
-            a=dev_inputs[(name, "unfused")]: p.fn(*a),
-            "torch": lambda p=tprog, a=t_in: p.fn(*a),
+            a=dev_inputs[(name, "unfused")]: p.run(*a),
+            "torch": lambda p=tprog, a=t_in: p.run(*a),
         }
         if name in HANDED:
             runs["hand"] = hand_calls(name, d)
@@ -1004,7 +1496,10 @@ def main(argv=None):
                                 f"torch backend, {rel:.3g}")
         for key, fn in runs.items():
             rec[f"{key}_us"] = time_ms(fn) * 1e3
-            rec[f"{key}_device_us"] = device_ms(fn) * 1e3
+            ms, how = graph_ms(fn)
+            rec[f"{key}_device_us"] = ms * 1e3
+            if how != "graph":
+                rec[f"{key}_timed_by"] = how
         for key in ("hand", "library_seq"):
             if key not in runs:
                 rec[f"{key}_us"] = rec[f"{key}_device_us"] = None
@@ -1014,13 +1509,13 @@ def main(argv=None):
     if failures:
         fail("; ".join(failures))
 
-    # -- 8. times ------------------------------------------------------------
+    # -- 10. times -----------------------------------------------------------
     records = []
     for k in keys:
         for fn in progs[k].group_fns:
             prog, im, a = group_in[fn.name]
             raw, ws = fn.buffers(a[0].device)
-            ms = device_ms(lambda: fn.launch_into(a, raw, ws))
+            ms, how = graph_ms(lambda: fn.launch_into(a, raw, ws))
             wrapper_ms = time_ms(lambda: fn.launch(*a))
             plain_ms = time_ms(lambda: tiled_reference(prog.graph, im, *a),
                                max_reps=1, warmup=False)
@@ -1032,7 +1527,7 @@ def main(argv=None):
                 if not lib_err <= RTOL:
                     failures.append(f"library call for {fn.name} disagrees "
                                     f"with the kernel: {lib_err:.3g}")
-                lib_ms = device_ms(lib)
+                lib_ms = graph_ms(lib)[0]
             b_ms, b_by = bound(im)
             rec = {"name": fn.name, "route": "cuda", "source": SOURCE,
                    "replaces": REPLACES, "launches": launches.get(fn.name, 0),
@@ -1040,7 +1535,8 @@ def main(argv=None):
                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                    "library_ms": lib_ms}
             records.append(rec)
-            emit({"phase": "time", **rec, "wrapper_ms": wrapper_ms,
+            emit({"phase": "time", **rec, "timed_by": how,
+                  "wrapper_ms": wrapper_ms,
                   "library_norm_rel_err": lib_err, "grid": list(im.grid),
                   "blocks": list(im.blocks),
                   "units": [ph.units for ph in fn.layout.phases],
@@ -1053,10 +1549,11 @@ def main(argv=None):
 
     def time_hand(kernel, e):
         """The time record of one hand-kernel entry."""
-        ms = device_ms(e["wrapper"])
+        ms, how = graph_ms(e["wrapper"])
         wrapper_ms = time_ms(e["wrapper"])
         plain_ms = time_ms(e["plain"])
         lib_ms = lib_err = None
+        extra_how = {}
         if e["lib"] is not None:
             lib_err = max(tensor_err(x, y)[0] for x, y in
                           zip(tensors_of(e["lib"]()),
@@ -1064,7 +1561,9 @@ def main(argv=None):
             if not lib_err <= e["lib_tol"]:
                 failures.append(f"library call for {kernel} disagrees with "
                                 f"the kernel: {lib_err:.3g}")
-            lib_ms = device_ms(e["lib"])
+            lib_ms, lib_how = graph_ms(e["lib"])
+            extra_how = {} if lib_how == "graph" else {
+                "library_timed_by": lib_how}
         b_ms, b_by = e["bound"]
         source, replaces = HAND[kernel.split(" ")[0].replace(
             "split+combine", "split")]
@@ -1074,7 +1573,8 @@ def main(argv=None):
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
         extra = {k: e[k] for k in ("chunks", "chunk_len") if k in e}
         emit({"phase": "time", **rec, "shape": list(e["shape"]),
-              "dtype": e["dtype"], "wrapper_ms": wrapper_ms,
+              "dtype": e["dtype"], "timed_by": how, **extra_how,
+              "wrapper_ms": wrapper_ms,
               "library_norm_rel_err": lib_err, "bound_share": b_ms / ms,
               **extra})
         return rec
@@ -1086,7 +1586,7 @@ def main(argv=None):
     if failures:
         fail("; ".join(failures))
 
-    emit({"kernels": records})
+    emit({"kernels": records + path_records})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev_name,
                                  "count": torch.cuda.device_count()}})
 

@@ -13,6 +13,15 @@ compiler:
   combination search; codegen re-binds the plan to the fresh trace.  The
   disk layer survives process restarts: set ``REPRO_PLAN_CACHE_DIR`` or
   pass ``disk_dir``.
+* **packed-plan layer** (in-memory LRU + the same on-disk machinery,
+  ``*.pack.json``) — maps a pack key (sorted member-plan fingerprints +
+  config) to a serialized ``PackedPlan``, the member concatenation a
+  multi-graph program is built from.  The key's order-independence is
+  what makes a drain hitting the same sequence mix, in any order, a hit.
+
+``stats`` also carries the serving engine's telemetry: per-bucket
+compile hits and latencies (``BucketStats``) and a bounded window of
+request queue waits.
 
 The disk protocol is lock-free because keys are content addresses — two
 processes computing the same key computed the same plan, so writes are
@@ -29,11 +38,26 @@ import os
 import tempfile
 from typing import Any
 
-from .plan import ExecutionPlan
+from .plan import ExecutionPlan, PackedPlan
 
 log = logging.getLogger("repro_torch.cache")
 
 _ENV_DIR = "REPRO_PLAN_CACHE_DIR"
+
+#: window for queue-wait percentiles: big enough for a stable p99 over a
+#: serving pass, bounded so a long-lived engine never grows unboundedly
+_QUEUE_WAIT_WINDOW = 4096
+
+
+@dataclasses.dataclass
+class BucketStats:
+    """Per-shape-bucket serving telemetry (one bucket = one compiled
+    batched program, e.g. ``GEMVER/1024``)."""
+
+    hits: int = 0                 # compile requests served from cache
+    misses: int = 0               # compile requests that built the program
+    t_compile_s: float = 0.0      # cumulative miss (compile) latency
+    t_hit_s: float = 0.0          # cumulative hit (lookup) latency
 
 
 @dataclasses.dataclass
@@ -44,9 +68,49 @@ class CacheStats:
     plan_misses: int = 0
     disk_hits: int = 0
     disk_writes: int = 0
+    pack_hits: int = 0
+    pack_misses: int = 0
+    pack_disk_hits: int = 0
+    pack_writes: int = 0
+    buckets: dict[str, BucketStats] = dataclasses.field(default_factory=dict)
+    # submit -> dispatch wait per request (serving engine): a bounded
+    # window of recent samples for percentiles
+    queue_waits: list = dataclasses.field(default_factory=list)
+    queue_wait_count: int = 0
+    queue_wait_total_s: float = 0.0
+
+    def record_bucket(self, label: str, *, hit: bool, seconds: float = 0.0):
+        b = self.buckets.setdefault(label, BucketStats())
+        if hit:
+            b.hits += 1
+            b.t_hit_s += seconds
+        else:
+            b.misses += 1
+            b.t_compile_s += seconds
+
+    def record_queue_wait(self, seconds: float):
+        """One request's submit -> dispatch wait: a bounded window of
+        recent samples (percentiles) plus lifetime count and total."""
+        self.queue_wait_count += 1
+        self.queue_wait_total_s += seconds
+        self.queue_waits.append(seconds)
+        if len(self.queue_waits) > _QUEUE_WAIT_WINDOW:
+            del self.queue_waits[:len(self.queue_waits) - _QUEUE_WAIT_WINDOW]
+
+    def queue_wait_percentiles(self) -> dict[str, float]:
+        """p50/p99 of the recent queue-wait window, in milliseconds."""
+        if not self.queue_waits:
+            return {"count": 0, "p50_ms": 0.0, "p99_ms": 0.0}
+        w = sorted(self.queue_waits)
+        return {"count": self.queue_wait_count,
+                "p50_ms": w[len(w) // 2] * 1e3,
+                "p99_ms": w[min(len(w) - 1, int(len(w) * 0.99))] * 1e3}
 
     def as_dict(self) -> dict[str, Any]:
-        return dataclasses.asdict(self)
+        d = dataclasses.asdict(self)
+        del d["queue_waits"]               # summarize, don't dump the window
+        d["queue_wait"] = self.queue_wait_percentiles()
+        return d
 
 
 class _LRU:
@@ -66,12 +130,15 @@ class _LRU:
         while len(self._d) > self.capacity:
             self._d.popitem(last=False)
 
+    def pop(self, key: str):
+        return self._d.pop(key, None)
 
 
 class PlanCache:
     def __init__(self, capacity: int = 256, disk_dir: str | None = None):
         self._programs = _LRU(capacity)
         self._plans = _LRU(capacity)
+        self._packs = _LRU(capacity)
         self.disk_dir = disk_dir if disk_dir is not None else os.environ.get(_ENV_DIR)
         self.stats = CacheStats()
 
@@ -149,6 +216,57 @@ class PlanCache:
         path = self._disk_path(key)
         if path and self._publish(path, plan.to_json()):
             self.stats.disk_writes += 1
+
+    # -- packed-plan layer (multi-graph programs) ------------------------------
+    def _pack_path(self, key: str) -> str | None:
+        if not self.disk_dir:
+            return None
+        return os.path.join(self.disk_dir, f"{key}.pack.json")
+
+    def get_packed_plan(self, key: str) -> PackedPlan | None:
+        """Packed plans ride the plan layer's machinery (same LRU budget,
+        same atomic disk protocol, ``*.pack.json``).  A hit brings back
+        the member concatenation without consulting N plan entries."""
+        packed = self._packs.get(key)
+        if packed is not None:
+            self.stats.pack_hits += 1
+            return packed
+        path = self._pack_path(key)
+        if path and os.path.exists(path):
+            try:
+                with open(path) as f:
+                    packed = PackedPlan.from_json(f.read())
+            except Exception as e:  # noqa: BLE001 — any load failure heals
+                # a member with a missing field raises KeyError, a
+                # non-canonical member order raises in __post_init__:
+                # all of it reads as a corrupt entry, dropped so that
+                # put_packed_plan can republish
+                packed = None
+                log.warning("dropping corrupt pack cache entry %s: %s "
+                            "[RPL312]", path, e)
+                self._unlink(path)
+            if packed is not None:
+                self.stats.pack_hits += 1
+                self.stats.pack_disk_hits += 1
+                self._packs.put(key, packed)
+                return packed
+        self.stats.pack_misses += 1
+        return None
+
+    def put_packed_plan(self, key: str, packed: PackedPlan):
+        self._packs.put(key, packed)
+        path = self._pack_path(key)
+        if path and self._publish(path, packed.to_json()):
+            self.stats.pack_writes += 1
+
+    def drop_packed_plan(self, key: str):
+        """Remove a packed plan from memory and disk (the heal step when
+        a cache-served pack is rejected), so that first-writer-wins can
+        republish its key."""
+        self._packs.pop(key)
+        path = self._pack_path(key)
+        if path:
+            self._unlink(path)
 
 
 _default: PlanCache | None = None

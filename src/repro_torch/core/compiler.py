@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import time
 from typing import Callable, Sequence
 
 import numpy as np
@@ -32,12 +33,31 @@ import numpy as np
 from . import codegen, graph, scheduler
 from .cache import PlanCache, default_cache
 from .diagnostics import KNOWN_BACKENDS, VerificationError
-from .plan import build_plan, graph_signature
+from .plan import (build_packed_plan, build_plan, canonical_pack_order,
+                   graph_signature, pack_signature, plan_fingerprint)
 from .predictor import V5E, HardwareModel
 from .scheduler import Combination, OptimizationSpace
 
 #: search modes with names (integer ranks are also accepted)
 MODES = ("best", "unfused")
+
+
+@dataclasses.dataclass
+class CompileReport:
+    """What one full pipeline run found (``compile(report=True)``)."""
+
+    n_fusions: int
+    n_impls: int
+    n_combinations: int
+    t_trace_s: float
+    t_space_s: float
+    t_codegen_s: float
+    best: Combination
+    unfused: Combination
+
+    @property
+    def predicted_speedup(self) -> float:
+        return self.unfused.t_pred / self.best.t_pred
 
 
 class FusionCompiler:
@@ -241,10 +261,15 @@ class FusionCompiler:
                 cache.put_plan(plan_key, plan)
         return plan
 
-    # -- main entry point ----------------------------------------------------
+    @staticmethod
+    def _bucket_label(input_shapes: dict[str, Sequence[int]]) -> str:
+        dims = [d for v in input_shapes.values() for d in v]
+        return str(max(dims)) if dims else "scalar"
+
+    # -- main entry points ---------------------------------------------------
     def compile(self, script: Callable, input_shapes: dict[str, Sequence[int]],
                 mode="best", backend: str | None = None,
-                label: str = "") -> codegen.CompiledProgram:
+                label: str = "", report: bool = False):
         """Compile a sequence script into one whole-program function.
 
         Args:
@@ -258,6 +283,9 @@ class FusionCompiler:
           backend: ``'cuda'`` or ``'torch'`` (defaults to the
             compiler's).
           label: names the program's kernels in the launch counter.
+          report: diagnostic path — always runs the full pipeline
+            (bypassing both cache layers) and returns
+            ``(program, CompileReport)``.
 
         Returns:
           A ``CompiledProgram``; calling it with keyword inputs runs
@@ -277,6 +305,9 @@ class FusionCompiler:
         backend = backend or self.backend
         self._check_backend(backend)
         mode_key = self._mode_key(mode)
+        if report:
+            return self._compile_report(script, input_shapes, mode, backend,
+                                        label)
         cache = self.cache
         pkey = None
         if cache is not None:
@@ -293,3 +324,227 @@ class FusionCompiler:
         if cache is not None and pkey is not None:
             cache.put_program(pkey, prog)
         return prog
+
+    def compile_batched(self, script, input_shapes: dict[str, Sequence[int]],
+                        mode="best",
+                        backend: str | None = None,
+                        bucket: str | None = None
+                        ) -> codegen.BatchedProgram:
+        """Batched variant of :meth:`compile` for the serving engine.
+
+        Args:
+          script, input_shapes, mode, backend: as :meth:`compile`; the
+            shapes describe ONE request — the returned program adds a
+            leading batch axis to every input and output (scalars
+            become ``(b,)`` vectors), running a whole shape bucket of
+            requests as one dispatch, each group one launch; the
+            batch size is the inputs' leading dimension at call time.
+          bucket: label for this compile in ``cache.stats.buckets``;
+            defaults to the largest input dimension, e.g. ``"1024"``.
+
+        Returns:
+          A ``BatchedProgram``.  The plan layer is shared with the
+          unbatched path (same trace, same search, same key); the
+          program layer keys the batched program separately.
+
+        Example::
+
+            prog = cc.compile_batched(seq.script, seq.shapes(1024))
+            z, r = prog(w=W, v=V, u=U, alpha=np.ones(8, np.float32))
+            # W/V/U: (8, 1024); z: (8, 1024); r: (8,)
+        """
+        backend = backend or self.backend
+        self._check_backend(backend)
+        mode_key = self._mode_key(mode)
+        bucket = bucket or self._bucket_label(input_shapes)
+        t0 = time.perf_counter()
+        cache = self.cache
+        pkey = None
+        if cache is not None:
+            pkey = self._program_key(script, input_shapes, backend,
+                                     ("batched", mode_key))
+            if pkey is not None:
+                prog = cache.get_program(pkey)
+                if prog is not None:
+                    cache.stats.record_bucket(
+                        bucket, hit=True, seconds=time.perf_counter() - t0)
+                    return prog
+
+        g = self.trace(script, input_shapes)
+        plan = self._plan_for(g, mode, backend, mode_key)
+        prog = codegen.compile_plan_batched(g, plan, hw=self.hw,
+                                            device=self.device)
+        if cache is not None:
+            if pkey is not None:
+                cache.put_program(pkey, prog)
+            cache.stats.record_bucket(
+                bucket, hit=False, seconds=time.perf_counter() - t0)
+        return prog
+
+    def compile_packed(self, members, mode="best",
+                       backend: str | None = None, bucket: str | None = None
+                       ) -> codegen.PackedDispatch:
+        """Multi-graph packed compile: N member scripts become ONE
+        dispatch (one CUDA graph on the card) — the cross-sequence
+        horizontal fusion a mixed serving drain needs.
+
+        Args:
+          members: sequence of ``(script, input_shapes)`` pairs, one
+            per pack member.  Each member runs the normal per-graph
+            pipeline (trace → plan, sharing the plan cache with every
+            other entry point), so its fusion decisions are exactly
+            the unpacked ones; only the dispatch is merged.
+          mode, backend: as :meth:`compile_batched`; every
+            member input is batched, and members may carry different
+            batch sizes at call time.
+          bucket: label for ``cache.stats.buckets`` telemetry
+            (defaults to a ``pack/``-prefixed signature).
+
+        Returns:
+          A ``codegen.PackedDispatch`` — a thin caller-order view over
+          the cached canonical ``PackedProgram``.  Program and packed-
+          plan layers key on the *sorted* member plan fingerprints, so
+          any compile of the same member mix, in any order, is a hit.
+
+        Raises:
+          ValueError: empty member list, or as :meth:`compile` per
+            member.
+        """
+        if not members:
+            raise ValueError("compile_packed needs at least one member")
+        backend = backend or self.backend
+        self._check_backend(backend)
+        mode_key = self._mode_key(mode)
+        t0 = time.perf_counter()
+        cache = self.cache
+
+        graphs, plans = [], []
+        for script, input_shapes in members:
+            g = self.trace(script, input_shapes)
+            plans.append(self._plan_for(g, mode, backend, mode_key))
+            graphs.append(g)
+
+        perm = canonical_pack_order(plans)
+        sorted_graphs = [graphs[i] for i in perm]
+        sorted_plans = [plans[i] for i in perm]
+        psig = pack_signature([plan_fingerprint(p) for p in plans])
+        config = self._config_key(backend, mode_key)
+        bucket = bucket or f"pack/{psig[:12]}"
+
+        prog = pkey = None
+        if cache is not None:
+            pkey = hashlib.sha256(repr((psig, config, str(self.device),
+                                        "packed")).encode()
+                                  ).hexdigest()
+            prog = cache.get_program(pkey)
+            if prog is not None:
+                cache.stats.record_bucket(
+                    bucket, hit=True, seconds=time.perf_counter() - t0)
+                return codegen.PackedDispatch(program=prog, perm=perm)
+
+        packed = None
+        if cache is not None:
+            pack_plan_key = hashlib.sha256(
+                repr((psig, config, "pack-plan")).encode()).hexdigest()
+            packed = cache.get_packed_plan(pack_plan_key)
+            if packed is not None and [plan_fingerprint(p)
+                                       for p in packed.members] != \
+                    [plan_fingerprint(p) for p in sorted_plans]:
+                packed = None         # foreign entry under our key: rebuild
+        if packed is None:
+            packed = build_packed_plan(plans)
+            if cache is not None:
+                cache.put_packed_plan(pack_plan_key, packed)
+        prog = codegen.compile_plan_packed(sorted_graphs, packed, hw=self.hw,
+                                           device=self.device)
+        if cache is not None:
+            if pkey is not None:
+                cache.put_program(pkey, prog)
+            cache.stats.record_bucket(
+                bucket, hit=False, seconds=time.perf_counter() - t0)
+        return codegen.PackedDispatch(program=prog, perm=perm)
+
+    def _compile_report(self, script, input_shapes, mode, backend, label):
+        t0 = time.perf_counter()
+        g = self.trace(script, input_shapes)
+        t1 = time.perf_counter()
+        space = self.space(g)
+        combo = self.search(space, mode)
+        t2 = time.perf_counter()
+        plan = build_plan(g, combo, backend=backend)
+        prog = codegen.compile_plan(g, plan, hw=self.hw, device=self.device,
+                                    label=label)
+        t3 = time.perf_counter()
+        rep = CompileReport(
+            n_fusions=len(space.fusions), n_impls=space.n_impls,
+            n_combinations=len(scheduler.enumerate_combinations(space,
+                                                                limit=5000)),
+            t_trace_s=t1 - t0, t_space_s=t2 - t1, t_codegen_s=t3 - t2,
+            best=scheduler.best_combination(space),
+            unfused=scheduler.unfused_combination(space))
+        return prog, rep
+
+    def compile_all(self, script: Callable,
+                    input_shapes: dict[str, Sequence[int]],
+                    limit: int = 256, backend: str | None = None):
+        """Compile the ``limit`` best combinations (predicted order) —
+        the raw material of empirical search (paper §5.2).
+
+        Routed through the shared cache machinery: candidate ``i`` uses
+        the same program/plan keys as ``compile(..., mode=i)``, so a
+        repeat ``compile_all`` — or a prior integer-mode compile — is
+        served from cache, and the optimization space is only rebuilt
+        when some candidate misses both layers.
+
+        Returns:
+          ``[(Combination, CompiledProgram), ...]`` — at most ``limit``
+          entries, fewer when the space has fewer legal combinations.
+        """
+        backend = backend or self.backend
+        self._check_backend(backend)
+        cache = self.cache
+        g = self.trace(script, input_shapes)
+        combos = None
+        out = []
+        for i in range(limit):
+            mode_key = self._mode_key(i)
+            prog = pkey = None
+            if cache is not None:
+                pkey = self._program_key(script, input_shapes, backend,
+                                         mode_key)
+                if pkey is not None:
+                    prog = cache.get_program(pkey)
+            if prog is None:
+                plan = plan_key = None
+                if cache is not None:
+                    plan_key = self._plan_key(g, backend, mode_key)
+                    plan = cache.get_plan(plan_key)
+                if plan is None:
+                    if combos is None:
+                        combos = scheduler.enumerate_combinations(
+                            self.space(g), limit=limit)
+                    if i >= len(combos):
+                        break
+                    plan = build_plan(g, combos[i], backend=backend)
+                    if cache is not None:
+                        cache.put_plan(plan_key, plan)
+                prog = codegen.compile_plan(g, plan, hw=self.hw,
+                                            device=self.device)
+                if cache is not None and pkey is not None:
+                    cache.put_program(pkey, prog)
+            impls = tuple(prog.group_impls)
+            out.append((Combination(impls=impls,
+                                    t_pred=sum(im.t_pred for im in impls)),
+                        prog))
+        return out
+
+    def oracle(self, script: Callable, input_shapes: dict[str, Sequence[int]]
+               ) -> Callable:
+        """The whole graph call by call on the CPU (``execute_dense``):
+        the numerics every plan is held against."""
+        g = self.trace(script, input_shapes)
+
+        def run(**inputs):
+            return codegen.execute_dense(g, inputs)
+
+        return run

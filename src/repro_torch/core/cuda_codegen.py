@@ -64,6 +64,20 @@ in parallel and in no order, so the generator maps them as follows:
   fixed, so results do not change from run to run.
 * **No host synchronisation.**  Scalars — inputs and finished
   reductions alike — travel as one-element device tensors.
+* **Batches.**  Every kernel takes ``nb`` requests laid out one after
+  another in each buffer; its items are (request, unit, slice), taken
+  grid-stride, and the slice counts stay those of one request, so a
+  request's sums fold in the same order batched or alone.  Two
+  instances are built: one request (``kBatched`` false: the offsets fold
+  to 0) and a batch; a batched launch gives the bits of single ones.
+* **Types and depth.**  Buffers are float32 or float16 (``__half``,
+  converted on load, rounded once on store); every map and reduction
+  computes in float32, and the slices' partials stay float32.  Past
+  depth 2 the extra axes have a thread extent of 1.
+* **Launch.**  A cooperative group launches through
+  ``cudaLaunchKernelExC`` with ``cudaLaunchAttributeCooperative``, which
+  CUDA stream capture records, so a plan's launches replay as one CUDA
+  graph (``core.graphs``).
 
 Beside the kernel: ``tiled_reference``, the plain torch version that
 walks the plan's tiles with the reference's schedule, and ``LAUNCHES``,
@@ -109,6 +123,10 @@ MAX_MERGE = 16
 SMEM_LIMIT = 200 * 1024
 
 _MONOID_CUDA = {"sum": "k1::Sum", "max": "k1::Max", "min": "k1::Min"}
+#: element types the generated kernels load and store; every map and
+#: reduction computes in float32 (float16 is converted on load and
+#: rounded once on store)
+CTYPES = {np.dtype(np.float32): "float", np.dtype(np.float16): "__half"}
 
 
 # ---------------------------------------------------------------------------
@@ -177,16 +195,12 @@ class GroupLayout:
         self.consumed = {c.idx for c in consumed_reductions(f, g)}
         self.outputs = list(f.outputs)
 
-        if f.depth > 2:
-            raise UnsupportedGroupError.single(
-                "RPL214", loc, f"cuda backend cannot emit group [{names}]: "
-                f"depth {f.depth} > 2")
         for v in list(f.external_inputs) + list(f.outputs):
-            if np.dtype(v.dtype) != np.float32:
+            if np.dtype(v.dtype) not in CTYPES:
                 raise UnsupportedGroupError.single(
                     "RPL214", loc, f"cuda backend cannot emit group "
                     f"[{names}]: {v.name} has dtype {np.dtype(v.dtype)}, "
-                    f"the generated kernels take float32 only")
+                    f"the generated kernels take float32 and float16")
         for c in consumed_reductions(f, g):
             if not accumulable(c.out, f, g, self.order):
                 raise UnsupportedGroupError.single(
@@ -210,15 +224,30 @@ class GroupLayout:
             if not c.elem.is_reduction or c.idx in self.consumed:
                 resolvable.add(c.out)
 
-        # thread extent per axis; the lane axis is the contiguous one
-        if f.depth == 2:
-            mats = [v for v in list(f.external_inputs) + list(f.outputs)
-                    + list(f.internal_vars) if len(v.shape) == 2]
-            self.lane = (g.axis_root(mats[0].axis_ids[-1]) if mats
-                         else f.axis_roots[-1])
-            self.row = next(r for r in f.axis_roots if r != self.lane)
+        # thread extent per axis; the lane axis is the contiguous one.
+        # Past depth 2 the lane and row axes are the last two of the
+        # first highest-rank operand, and every other ("extra") axis
+        # has extent 1: its free tiles become items, its serial range a
+        # loop inside the item
+        self.extras: tuple = ()
+        if f.depth >= 2:
+            vs = list(f.external_inputs) + list(f.outputs) + list(
+                f.internal_vars)
+            rank = 2 if f.depth == 2 else max(len(v.shape) for v in vs)
+            mats = [v for v in vs if len(v.shape) == rank]
+            if f.depth == 2:
+                self.lane = (g.axis_root(mats[0].axis_ids[-1]) if mats
+                             else f.axis_roots[-1])
+                self.row = next(r for r in f.axis_roots if r != self.lane)
+            else:
+                self.lane = g.axis_root(mats[0].axis_ids[-1])
+                self.row = g.axis_root(mats[0].axis_ids[-2])
+                self.extras = tuple(r for r in f.axis_roots
+                                    if r not in (self.lane, self.row))
             self.coord = {self.row: "ci", self.lane: "cj"}
             self.extent = {self.row: ROWS, self.lane: LANES}
+            for k, r in enumerate(self.extras):
+                self.coord[r], self.extent[r] = f"ck{k}", 1
         else:
             self.lane, self.row = f.axis_roots[0], None
             self.coord = {self.lane: "ca"}
@@ -267,6 +296,16 @@ class GroupLayout:
                         f"{r.call.out.name} reduces over an axis that "
                         f"another reduction of its phase walks serially")
                 tiled |= set(r.rr)
+        walked = serial | tiled
+        for r in reds:
+            kept = set(f.axis_roots) - set(r.rr)
+            if self.extras and (kept & set(self.extras) & walked
+                                or {self.row, self.lane} <= kept):
+                raise UnsupportedGroupError.single(
+                    "RPL214", loc, f"cuda backend cannot emit group "
+                    f"[{self.names}]: reduction {r.call.out.name} keeps "
+                    f"an axis that its phase walks, or reduces over extra "
+                    f"axes alone")
         span = {}
         for r in self.order:
             if r in serial:
@@ -366,8 +405,21 @@ class GroupLayout:
                  if c.idx in self.consumed]
                 + [(r.cut, r.size) for r in self.cut_reds])
 
+    def workspace_dtypes(self) -> list[np.dtype]:
+        """Their dtypes: a consumed reduction's own (as the reference's
+        scratch), float32 for the slices' partials."""
+        return ([np.dtype(c.out.dtype) for c in self.f.calls
+                 if c.idx in self.consumed]
+                + [np.dtype(np.float32)] * len(self.cut_reds))
+
+    def raw_shape(self, v: Var) -> tuple[int, ...]:
+        """Shape the kernel writes output ``v`` in: ``partial`` outputs
+        keep one partial per plan tile along their reduce axes."""
+        lead = self.lead_shape(v) if self.out_mode[v] == "partial" else ()
+        return lead + tuple(v.shape)
+
     def red_kind(self, red: _Red) -> str:
-        kept = set(self.f.axis_roots) - set(red.rr)
+        kept = set(self.f.axis_roots) - set(red.rr) - set(self.extras)
         if not kept:
             return "scalar"
         return "rowsum" if kept == {self.row} else "colsum"
@@ -386,7 +438,17 @@ def _offset(lay: GroupLayout, v: Var, coord: dict) -> str:
     return " + ".join(reversed(terms)) if terms else "0"
 
 
+def _ctype(v: Var) -> str:
+    return CTYPES[np.dtype(v.dtype)]
+
+
 class _Emitter:
+    """The source of one group's kernel.  Every buffer is batched: the
+    kernel takes ``nb`` requests laid out one after another in each
+    buffer, and an item is one (request, unit, slice); a request's
+    items do exactly what a one-request launch does, so a batched
+    launch gives the same bits as ``nb`` single ones."""
+
     def __init__(self, lay: GroupLayout, name: str):
         self.lay, self.name = lay, name
         f = lay.f
@@ -394,11 +456,43 @@ class _Emitter:
         self.outs = {v: k for k, v in enumerate(lay.outputs)}
         self.ws = {c.idx: k for k, c in enumerate(
             c for c in f.calls if c.idx in lay.consumed)}
+        self.ws_var = {self.ws[c.idx]: c.out for c in f.calls
+                       if c.idx in lay.consumed}
         self.lines: list[str] = []
         self.smem_floats = 0
 
     def emit(self, s: str = "", ind: int = 0):
         self.lines.append("  " * ind + s if s else "")
+
+    # -- buffers: (name, element type, elements a request, const) ------------
+    def buffers(self):
+        lay = self.lay
+        out = [(f"in{k}", _ctype(v), math.prod(v.shape), True)
+               for v, k in self.ins.items()]
+        out += [(f"out{k}", _ctype(v), math.prod(lay.raw_shape(v)), False)
+                for v, k in self.outs.items()]
+        out += [(f"ws{k}", _ctype(v), math.prod(v.shape), False)
+                for k, v in self.ws_var.items()]
+        out += [(f"pt{r.pt}", "float", r.cut * r.size, False)
+                for r in lay.cut_reds]
+        return out
+
+    def bind_batch(self, ind: int, names=None):
+        """The offset of request ``bi``'s part of every buffer.  Every
+        access indexes the kernel's ``__restrict__`` parameter itself
+        (``at``): a local pointer derived from it would lose the
+        no-alias promise, and with it the read-only loads."""
+        for nm, _, n, _ in self.buffers():
+            if names is None or nm in names:
+                self.emit(f"const long long o_{nm} = bi * {n}LL;", ind)
+
+    @staticmethod
+    def at(nm: str, index: str) -> str:
+        """Element ``index`` of buffer ``nm`` for request ``bi``."""
+        return f"g_{nm}[o_{nm} + {index}]"
+
+    def store(self, v: Var, dst: str, val: str) -> str:
+        return f"{dst} = k1::st<{_ctype(v)}>({val});"
 
     # -- per-point value of an argument --------------------------------------
     def arg(self, a: Var) -> str:
@@ -434,7 +528,6 @@ class _Emitter:
     # -- one phase -------------------------------------------------------------
     def phase(self, p: int, ph: _Phase):
         lay, e = self.lay, self.emit
-        depth2 = lay.row is not None
         calls = self.needed(p, ph)
         kinds = {id(r): lay.red_kind(r) for r in ph.reds}
 
@@ -455,10 +548,14 @@ class _Emitter:
 
         e(f"// phase {p}: {ph.units} work unit(s) x {ph.S} slice(s); serial "
           f"axes {sorted(lay.f.axis_roots.index(r) for r in ph.serial)}", 1)
-        e(f"for (long long u = blockIdx.x; u < {ph.items}LL; "
-          f"u += gridDim.x) {{", 1)
-        if ph.unit_axes or ph.S > 1:
-            e("long long rest = u;", 2)
+        e(f"for (long long u = blockIdx.x; u < (kBatched ? nb : 1LL) * "
+          f"{ph.items}LL; u += gridDim.x) {{", 1)
+        e(f"const long long bi = kBatched ? u / {ph.items}LL : 0LL;", 2)
+        e(f"long long rest = kBatched ? u % {ph.items}LL : u;", 2)
+        self.bind_batch(2)
+        for v, k in self.ins.items():
+            if v.shape == ():
+                e(f"const float s{k} = k1::ld({self.at(f'in{k}', '0')});", 2)
         for r in ph.cut_axes:                 # slices vary fastest
             s = ph.slices[r]
             e(f"const long long s_{lay.coord[r]} = rest % {s}LL; "
@@ -498,13 +595,19 @@ class _Emitter:
         e("__syncthreads();", 2)
 
         # the sub-tile loops, in plan order
-        if depth2:
-            step = {lay.row: ("rb", "ci", ROWS, "ti"),
-                    lay.lane: ("cb", "cj", LANES, "tj")}
+        if lay.row is not None:
             ind = 2
             for r in lay.order:
-                b, c, s, _ = step[r]
-                e(f"for (long long {b} = {c}0; {b} < {c}1; {b} += {s}) {{", ind)
+                c = lay.coord[r]
+                if r == lay.row:
+                    e(f"for (long long rb = ci0; rb < ci1; rb += {ROWS}) {{",
+                      ind)
+                elif r == lay.lane:
+                    e(f"for (long long cb = cj0; cb < cj1; cb += {LANES}) {{",
+                      ind)
+                else:                         # an extra axis, extent 1
+                    e(f"for (long long {c} = {c}0; {c} < {c}1; ++{c}) {{",
+                      ind)
                 ind += 1
             e("const long long ci = rb + ti, cj = cb + tj;", ind)
             e("const bool ok = ci < ci1 && cj < cj1;", ind)
@@ -514,10 +617,12 @@ class _Emitter:
             e("const long long ca = ab + tid;", ind)
             e("const bool ok = ca < ca1;", ind)
         self.body(p, ph, calls, kinds, acc_at, ind)
-        n_loops = 2 if depth2 else 1
-        for k in range(n_loops):
+        for k in range(ind - 2):
             e("}", ind - 1 - k)
         e("__syncthreads();", 2)
+        for r in lay.extras if ph.reds else ():   # free: one index an item
+            if r not in ph.serial and r not in ph.tiled:
+                e(f"const long long {lay.coord[r]} = {lay.coord[r]}0;", 2)
         for r in ph.reds:
             self.finalize(r, kinds[id(r)], acc_at, red_at, ph)
         e("__syncthreads();", 2)
@@ -537,23 +642,35 @@ class _Emitter:
         e("k1::grid_barrier();", 1)
         e(f"// phase {p}: fold the partials of {len(cut)} cut reduction(s)", 1)
         e(f"for (long long w = (long long)blockIdx.x * {warps} + (tid >> 5); "
-          f"w < {total}LL; w += (long long)gridDim.x * {warps}) {{", 1)
+          f"w < (kBatched ? nb : 1LL) * {total}LL; "
+          f"w += (long long)gridDim.x * {warps}) {{", 1)
         e("const int ln = tid & 31;", 2)
+        e(f"const long long bi = kBatched ? w / {total}LL : 0LL;", 2)
+        e(f"const long long wi = kBatched ? w % {total}LL : w;", 2)
+        names = ({f"pt{r.pt}" for r in cut}
+                 | {f"ws{self.ws[r.call.idx]}" for r in cut if r.consumed}
+                 | {f"out{self.outs[r.call.out]}" for r in cut
+                    if r.out_mode is not None})
+        self.bind_batch(2, names)
         base = 0
         for k, r in enumerate(cut):
             mon = _MONOID_CUDA[r.call.elem.monoid.value]
-            e(f"{'if' if k == 0 else '} else if'} (w < {base + r.size}LL) {{",
+            e(f"{'if' if k == 0 else '} else if'} (wi < {base + r.size}LL) {{",
               2)
-            e(f"const long long e = w - {base}LL;", 3)
+            e(f"const long long e = wi - {base}LL;", 3)
             e(f"float val = {mon}::id();", 3)
             e(f"for (int q = ln; q < {r.cut}; q += 32) val = {mon}::op(val, "
-              f"pt{r.pt}[q * {r.size}LL + e]);", 3)
+              f"{self.at(f'pt{r.pt}', f'q * {r.size}LL + e')});", 3)
             e(f"val = k1::warp_reduce<{mon}>(val);", 3)
             e("if (ln == 0) {", 3)
             if r.consumed:
-                e(f"ws{self.ws[r.call.idx]}[e] = val;", 4)
+                e(self.store(r.call.out,
+                             self.at(f"ws{self.ws[r.call.idx]}", "e"), "val"),
+                  4)
             if r.out_mode is not None:
-                e(f"out{self.outs[r.call.out]}[e] = val;", 4)
+                e(self.store(r.call.out,
+                             self.at(f"out{self.outs[r.call.out]}", "e"),
+                             "val"), 4)
             e("}", 3)
             base += r.size
         e("}", 2)
@@ -573,14 +690,16 @@ class _Emitter:
         for c in calls:
             if c.elem.is_reduction and lay.phase_of[c.idx] < p:
                 w = self.ws[c.idx]
-                e(f"v{c.idx} = ws{w}[{_offset(lay, c.out, lay.coord)}];",
+                e(f"v{c.idx} = k1::ld("
+                  f"{self.at(f'ws{w}', _offset(lay, c.out, lay.coord))});",
                   ind + 1)
                 continue
             for a in c.args:
                 if a in self.ins and a.shape != () and a not in loaded:
                     loaded.add(a)
                     k = self.ins[a]
-                    e(f"const float x{k} = in{k}[{_offset(lay, a, lay.coord)}];",
+                    e(f"const float x{k} = k1::ld("
+                      f"{self.at(f'in{k}', _offset(lay, a, lay.coord))});",
                       ind + 1)
             expr = c.elem.cuda_expr(*(self.arg(a) for a in c.args))
             if c.elem.is_reduction:
@@ -589,8 +708,9 @@ class _Emitter:
                 e(f"v{c.idx} = {expr};", ind + 1)
                 if c.out in self.outs and lay.phase_of[c.idx] == p:
                     o = self.outs[c.out]
-                    e(f"out{o}[{_offset(lay, c.out, lay.coord)}] = v{c.idx};",
-                      ind + 1)
+                    e(self.store(c.out, self.at(
+                        f"out{o}", _offset(lay, c.out, lay.coord)),
+                        f"v{c.idx}"), ind + 1)
         e("}", ind)
         for r in ph.reds:
             kind, k = kinds[id(r)], r.call.idx
@@ -627,15 +747,14 @@ class _Emitter:
                     if ph.slices[rt] > 1:
                         q.append(f"s_{lay.coord[rt]} * {stride}LL")
                         stride *= ph.slices[rt]
-                e(f"pt{r.pt}[({' + '.join(q)}) * {r.size}LL + {off}] = val;",
-                  ind)
+                idx = f"({' + '.join(q)}) * {r.size}LL + {off}"
+                e(f"{self.at(f'pt{r.pt}', idx)} = val;", ind)
                 return
             if r.consumed:
-                e(f"ws{self.ws[k]}[{off}] = val;", ind)
-            if r.out_mode == "acc":
-                e(f"out{self.outs[v]}[{off}] = val;", ind)
-            elif r.out_mode == "partial":
-                e(f"out{self.outs[v]}[{off}] = val;", ind)
+                e(self.store(v, self.at(f"ws{self.ws[k]}", off), "val"), ind)
+            if r.out_mode is not None:
+                e(self.store(v, self.at(f"out{self.outs[v]}", off), "val"),
+                  ind)
 
         if kind == "scalar":
             e(f"{{ const float val = k1::block_reduce<{mon}, {NT}>("
@@ -663,11 +782,9 @@ class _Emitter:
     # -- the kernel and its launcher ---------------------------------------------
     def source(self) -> str:
         lay, e = self.lay, self.emit
-        f = lay.f
-        params = ([f"const float* __restrict__ in{k}" for k in self.ins.values()]
-                  + [f"float* __restrict__ out{k}" for k in self.outs.values()]
-                  + [f"float* __restrict__ ws{k}" for k in self.ws.values()]
-                  + [f"float* __restrict__ pt{r.pt}" for r in lay.cut_reds])
+        bufs = self.buffers()
+        params = [f"{'const ' if const else ''}{ct}* __restrict__ g_{nm}"
+                  for nm, ct, _, const in bufs] + ["const long long nb"]
         body = _Emitter(lay, self.name)
         for p, ph in enumerate(lay.phases):
             if p:
@@ -683,30 +800,36 @@ class _Emitter:
         e(f"// group [{lay.names}]: order {self.order_desc()}, blocks "
           f"{lay.impl.blocks}, grid {lay.impl.grid}, {lay.n_phases} phase(s), "
           f"slices {[ph.S for ph in lay.phases]}")
-        e(f"extern \"C\" __global__ void __launch_bounds__({NT}) {self.name}(")
+        # two instances: kBatched = false for one request, whose offsets
+        # fold to 0 (no registers spent on them), and true for a batch;
+        # a request's items run the same code in both, so a batched
+        # launch gives the bits of single ones
+        e("template <bool kBatched>")
+        e(f"__global__ void __launch_bounds__({NT}) {self.name}(")
         e("    " + ",\n    ".join(params) + ") {")
         e("extern __shared__ float smem[];", 1)
         e("const int tid = threadIdx.x;", 1)
         if lay.row is not None:
             e("const int ti = tid >> 5, tj = tid & 31;", 1)
-        for v, k in self.ins.items():
-            if v.shape == ():
-                e(f"const float s{k} = in{k}[0];", 1)
         self.lines += body.lines
         e("}")
         e()
-        n = len(params)
+        n = len(bufs)
         args = ", ".join(f"void* p{k}" for k in range(n))
-        casts = [f"({p.rsplit(' ', 1)[0].replace(' __restrict__', '')})p{k}"
-                 for k, p in enumerate(params)]
-        e(f"extern \"C\" int {self.name}_launch({args}, void* stream) {{")
-        e("static int grid = 0;", 1)
+        e(f"extern \"C\" int {self.name}_launch({args}, long long nb, "
+          f"void* stream) {{")
+        e("static long long caps[2] = {0, 0};", 1)
         e(f"const int smem = {smem};", 1)
-        e("if (grid == 0) {", 1)
+        e("if (nb < 1) return (int)cudaErrorInvalidValue;", 1)
+        e("const bool batched = nb > 1;", 1)
+        e(f"const void* kernel = batched ? (const void*){self.name}<true> : "
+          f"(const void*){self.name}<false>;", 1)
+        e("long long& cap = caps[batched];", 1)
+        e("if (cap == 0) {", 1)
         e("cudaError_t err;", 2)
         e("if (smem > 48 * 1024) {", 2)
-        e(f"err = cudaFuncSetAttribute({self.name}, "
-          f"cudaFuncAttributeMaxDynamicSharedMemorySize, smem);", 3)
+        e("err = cudaFuncSetAttribute(kernel, "
+          "cudaFuncAttributeMaxDynamicSharedMemorySize, smem);", 3)
         e("if (err != cudaSuccess) return (int)err;", 3)
         e("}", 2)
         e("int dev = 0, sms = 0, per_sm = 0;", 2)
@@ -715,25 +838,37 @@ class _Emitter:
           "cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;",
           2)
         e(f"if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, "
-          f"{self.name}, {NT}, smem)) != cudaSuccess) return (int)err;", 2)
+          f"kernel, {NT}, smem)) != cudaSuccess) return (int)err;", 2)
         e("if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;", 2)
-        e("const long long cap = (long long)per_sm * sms;", 2)
-        e(f"grid = (int)({lay.items}LL < cap ? {lay.items}LL : cap);", 2)
+        e("cap = (long long)per_sm * sms;", 2)
         e("}", 1)
-        for k, (p, c) in enumerate(zip(params, casts)):
-            decl = p.replace(" __restrict__", "")
-            e(f"{decl} = {c};", 1)
+        e(f"const long long items = nb * {lay.items}LL;", 1)
+        e("const int grid = (int)(items < cap ? items : cap);", 1)
+        names = []
+        for k, (nm, ct, _, const) in enumerate(bufs):
+            q = "const " if const else ""
+            e(f"{q}{ct}* g_{nm} = ({q}{ct}*)p{k};", 1)
+            names.append(f"g_{nm}")
+        names.append("nb")
         e("cudaStream_t s = (cudaStream_t)stream;", 1)
-        names = [p.rsplit(" ", 1)[1] for p in params]
         if lay.cooperative:
+            # cudaLaunchKernelExC with the cooperative attribute: every CTA
+            # co-resident (the grid is capped by occupancy above), and a
+            # launch that stream capture records as one graph node
             e("void* args[] = {" + ", ".join(f"(void*)&{a}" for a in names)
               + "};", 1)
-            e(f"cudaError_t err = cudaLaunchCooperativeKernel((const void*)"
-              f"{self.name}, dim3(grid), dim3({NT}), args, (size_t)smem, s);",
-              1)
+            e("cudaLaunchAttribute attr[1];", 1)
+            e("attr[0].id = cudaLaunchAttributeCooperative;", 1)
+            e("attr[0].val.cooperative = 1;", 1)
+            e("// grid, block, dynamic shared memory, stream, attributes", 1)
+            e(f"cudaLaunchConfig_t cfg = {{dim3(grid), dim3({NT}), "
+              f"(size_t)smem, s, attr, 1}};", 1)
+            e("cudaError_t err = cudaLaunchKernelExC(&cfg, kernel, args);", 1)
             e("if (err != cudaSuccess) return (int)err;", 1)
         else:
-            e(f"{self.name}<<<grid, {NT}, smem, s>>>({', '.join(names)});", 1)
+            call = f"<<<grid, {NT}, smem, s>>>({', '.join(names)});"
+            e(f"if (batched) {self.name}<true>{call}", 1)
+            e(f"else {self.name}<false>{call}", 1)
         e("return (int)cudaGetLastError();", 1)
         e("}")
         return "\n".join(self.lines) + "\n"
@@ -789,7 +924,10 @@ def tiled_reference(g: Graph, impl: Impl, *ext_vals: torch.Tensor):
     outputs write one partial per plan tile (combined at the end, as the
     reference does), consumed reductions accumulate into a full-size
     scratch read back by later phases, and phases run in turn.  Accepts
-    any dtype (it is the reference the kernel is held against)."""
+    any dtype (it is the reference the kernel is held against).  A
+    16-bit group computes as the kernel does: in float32, rounded to the
+    group's dtype where the kernel stores (outputs, each plan tile's
+    ``partial``, consumed reductions before a later phase reads them)."""
     f = impl.fusion
     phase_of, n_phases = call_phases(f, g)
     consumed = {c.idx for c in consumed_reductions(f, g)}
@@ -801,21 +939,26 @@ def tiled_reference(g: Graph, impl: Impl, *ext_vals: torch.Tensor):
     def roots(v):
         return tuple(g.axis_root(a) for a in v.axis_ids)
 
-    ext = dict(zip(f.external_inputs, ext_vals))
+    def wide(dt):
+        """The dtype the kernel computes ``dt`` in."""
+        return torch.float32 if dt in (torch.float16, torch.bfloat16) else dt
+
+    ext = {a: x.to(wide(x.dtype)) for a, x in zip(f.external_inputs, ext_vals)}
     mode, out = {}, {}
     for v in f.outputs:
+        dt = torch_dtype(v.dtype)
         if not v.producer.elem.is_reduction:
             mode[v] = "map"
-            out[v] = torch.empty(v.shape, dtype=torch_dtype(v.dtype), device=dev)
+            out[v] = torch.empty(v.shape, dtype=wide(dt), device=dev)
         elif accumulable(v, f, g, impl.order):
             mode[v] = "acc"
-            out[v] = torch.empty(v.shape, dtype=torch_dtype(v.dtype), device=dev)
+            out[v] = torch.empty(v.shape, dtype=wide(dt), device=dev)
         else:
             mode[v] = "partial"
             lead = tuple(grid[r] for r in reduce_roots_of(v, f, g))
-            out[v] = torch.empty(lead + v.shape, dtype=torch_dtype(v.dtype),
-                                 device=dev)
-    scratch = {c.idx: torch.empty(c.out.shape, dtype=torch_dtype(c.out.dtype),
+            out[v] = torch.empty(lead + v.shape, dtype=dt, device=dev)
+    scratch = {c.idx: torch.empty(c.out.shape,
+                                  dtype=wide(torch_dtype(c.out.dtype)),
                                   device=dev)
                for c in f.calls if c.idx in consumed}
 
@@ -863,13 +1006,17 @@ def tiled_reference(g: Graph, impl: Impl, *ext_vals: torch.Tensor):
                 elif mode.get(c.out) == "partial":
                     lead = tuple(tile[r] for r in rr)
                     out[c.out][lead + (at if at is not ... else ())] = v
+        for c in reds:                  # the kernel's workspace dtype
+            if c.idx in consumed:
+                s = scratch[c.idx]
+                s.copy_(s.to(torch_dtype(c.out.dtype)))
     res = []
     for v in f.outputs:
         r = out[v]
         if mode[v] == "partial":
             lead = len(reduce_roots_of(v, f, g))
             r = v.producer.elem.monoid.reduce(r, dims=range(lead))
-        res.append(r)
+        res.append(r.to(torch_dtype(v.dtype)))
     return tuple(res)
 
 
@@ -891,15 +1038,34 @@ class PlanModule:
         return _build.build(self.source)
 
     def function(self, gi: int):
-        """The C launcher of group ``gi`` (builds and loads on first
-        use; a failed build raises ``BuildError``)."""
+        """The C launcher of group ``gi``, ``(pointers..., nb, stream)``
+        (builds and loads on first use; a failed build raises
+        ``BuildError``)."""
         if self._lib is None:
             self._lib = _build.load(self.source)
         lay = self.layouts[gi]
         n = (len(lay.f.external_inputs) + len(lay.outputs)
              + len(lay.workspace()))
-        return _build.c_function(self._lib, kernel_name(gi) + "_launch",
-                                 [ctypes.c_void_p] * (n + 1))
+        return _build.c_function(
+            self._lib, kernel_name(gi) + "_launch",
+            [ctypes.c_void_p] * n + [ctypes.c_longlong, ctypes.c_void_p])
+
+
+def fold_partials(monoid, raw: torch.Tensor, n_lead: int,
+                  start: int = 0) -> torch.Tensor:
+    """Combine the per-tile partials of a ``partial`` output: the
+    ``n_lead`` dims of ``raw`` from ``start`` on, folded one tile after
+    another with elementwise ``monoid.combine``.  Each element sees the
+    same operations in the same order whatever the leading (batch)
+    dims, so a batched fold gives the bits of the single ones; one tile
+    is a view, no launch."""
+    lead = raw.shape[start:start + n_lead]
+    r = raw.reshape(raw.shape[:start] + (math.prod(lead),)
+                    + raw.shape[start + n_lead:])
+    out = r.select(start, 0)
+    for t in range(1, r.shape[start]):
+        out = monoid.combine(out, r.select(start, t))
+    return out
 
 
 class GroupKernel:
@@ -908,7 +1074,9 @@ class GroupKernel:
     Tensors on the CPU run the plain tiled version; tensors on a CUDA
     device launch the generated kernel, and anything that stops the
     launch (a build failure, a refused launch, a wrong device, dtype,
-    shape or layout) raises — there is no fallback."""
+    shape or layout) raises — there is no fallback.  ``batched`` runs a
+    batch of requests (every input and output with a leading batch
+    axis) as one launch."""
 
     def __init__(self, module: PlanModule, gi: int, label: str = ""):
         self.module, self.gi = module, gi
@@ -921,52 +1089,67 @@ class GroupKernel:
             return tiled_reference(self.layout.g, self.layout.impl, *ext_vals)
         return self.launch(*ext_vals)
 
-    def _check(self, ext_vals):
+    def batched(self, *ext_vals: torch.Tensor):
+        """One batch of requests: on the CPU the plain version request by
+        request, on CUDA one launch over the whole batch."""
+        if ext_vals and all(t.device.type == "cpu" for t in ext_vals):
+            per = [tiled_reference(self.layout.g, self.layout.impl,
+                                   *(t[b] for t in ext_vals))
+                   for b in range(ext_vals[0].shape[0])]
+            return tuple(torch.stack(o) for o in zip(*per))
+        nb = ext_vals[0].shape[0] if ext_vals else 0
+        self._check(ext_vals, (nb,))
+        return self._launch(ext_vals, nb)
+
+    def _check(self, ext_vals, batch: tuple = ()):
         lay = self.layout
         if len(ext_vals) != len(lay.f.external_inputs):
             raise TypeError(f"{self.name}: expects "
                             f"{len(lay.f.external_inputs)} inputs, got "
                             f"{len(ext_vals)}")
         for v, t in zip(lay.f.external_inputs, ext_vals):
-            _launch.check(self.name, f"input {v.name}", t, tuple(v.shape),
+            _launch.check(self.name, f"input {v.name}", t,
+                          batch + tuple(v.shape),
+                          dtypes=(torch_dtype(v.dtype),),
                           device=ext_vals[0].device)
 
     def launch(self, *ext_vals: torch.Tensor):
         self._check(ext_vals)
         return self._launch(ext_vals)
 
-    def buffers(self, dev: torch.device):
+    def buffers(self, dev: torch.device, nb: int | None = None):
         """The kernel's raw outputs (``partial`` outputs with their lead
         axes) and its workspace (consumed reductions, then the slices'
-        partials), allocated on ``dev``; the kernel writes every element
-        before it reads it."""
+        partials), allocated on ``dev`` (with a leading batch axis of
+        ``nb`` when given); the kernel writes every element before it
+        reads it."""
         lay = self.layout
-        raw = []
-        for v in lay.outputs:
-            shape = (lay.lead_shape(v) if lay.out_mode[v] == "partial"
-                     else ()) + tuple(v.shape)
-            raw.append(torch.empty(shape, dtype=torch.float32, device=dev))
-        ws = [torch.empty(shape, dtype=torch.float32, device=dev)
-              for shape in lay.workspace()]
+        batch = () if nb is None else (nb,)
+        raw = [torch.empty(batch + lay.raw_shape(v),
+                           dtype=torch_dtype(v.dtype), device=dev)
+               for v in lay.outputs]
+        ws = [torch.empty(batch + shape, dtype=torch_dtype(dt), device=dev)
+              for shape, dt in zip(lay.workspace(), lay.workspace_dtypes())]
         return raw, ws
 
-    def launch_into(self, ext_vals, raw, ws):
+    def launch_into(self, ext_vals, raw, ws, nb: int = 1):
         """Launch the kernel on checked inputs into buffers from
         ``buffers``; the ``partial`` outputs are left uncombined."""
         if self._fn is None:
             self._fn = self.module.function(self.gi)
         ptrs = [t.data_ptr() for t in list(ext_vals) + raw + ws]
-        _launch.launch(self.name, self._fn, *ptrs,
+        _launch.launch(self.name, self._fn, *ptrs, nb,
                        device=ext_vals[0].device)
 
-    def _launch(self, ext_vals):
+    def _launch(self, ext_vals, nb: int | None = None):
         lay = self.layout
-        raw, ws = self.buffers(ext_vals[0].device)
-        self.launch_into(ext_vals, raw, ws)
+        raw, ws = self.buffers(ext_vals[0].device, nb)
+        self.launch_into(ext_vals, raw, ws, 1 if nb is None else nb)
         outs = []
         for v, r in zip(lay.outputs, raw):
             if lay.out_mode[v] == "partial":
-                r = v.producer.elem.monoid.reduce(
-                    r, dims=range(len(lay.lead_shape(v))))
+                r = fold_partials(v.producer.elem.monoid, r,
+                                  len(lay.lead_shape(v)),
+                                  start=0 if nb is None else 1)
             outs.append(r)
         return tuple(outs)

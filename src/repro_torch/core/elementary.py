@@ -34,6 +34,7 @@ import enum
 import math
 from typing import Any, Callable, Sequence
 
+import numpy as np
 import torch
 
 
@@ -48,6 +49,31 @@ class Monoid(enum.Enum):
     SUM = "sum"
     MAX = "max"
     MIN = "min"
+
+    @property
+    def identity(self) -> float:
+        """Float identity (dtype-blind: ``-inf`` is wrong for integer
+        MAX/MIN).  Prefer :meth:`identity_for`."""
+        return {"sum": 0.0, "max": -np.inf, "min": np.inf}[self.value]
+
+    def identity_for(self, dtype):
+        """The monoid identity as a numpy scalar of ``dtype``.
+
+        Floats keep 0 / -inf / +inf; integer MAX/MIN use the dtype's
+        ``iinfo`` bounds (there is no integer infinity)."""
+        dtype = np.dtype(dtype)
+        if self is Monoid.SUM:
+            return dtype.type(0)
+        if dtype.kind in "iu":
+            info = np.iinfo(dtype)
+            return dtype.type(info.min if self is Monoid.MAX else info.max)
+        return dtype.type(-np.inf if self is Monoid.MAX else np.inf)
+
+    @property
+    def cuda_identity(self) -> str:
+        """The float identity as a CUDA C expression."""
+        return {"sum": "0.0f", "max": "-CUDART_INF_F",
+                "min": "CUDART_INF_F"}[self.value]
 
     def combine(self, a, b):
         if self is Monoid.SUM:
@@ -103,6 +129,12 @@ class Elementary:
     monoid: Monoid = Monoid.SUM
     flops_per_point: float = 1.0       # arithmetic ops per iteration-space point
     cuda: str = ""
+    #: True when all-zero lanes of the array arguments yield zero output
+    #: lanes (multilinear maps).  Zero-padding a serving batch is only
+    #: reduction-safe through chains of pad_safe calls; ``exp`` and
+    #: ``rsqrt`` (zero maps to 1 / inf) set False, so the engine masks
+    #: padded lanes instead (``core.masking``)
+    pad_safe: bool = True
 
     def __post_init__(self):
         depth = len(self.formal_axes)
@@ -136,7 +168,8 @@ class Elementary:
 # ---------------------------------------------------------------------------
 
 def make_map(name: str, fn: Callable, arity: int, *, scalar_args: Sequence[int] = (),
-             flops_per_point: float = 1.0, cuda: str = "") -> Elementary:
+             flops_per_point: float = 1.0, cuda: str = "",
+             pad_safe: bool = True) -> Elementary:
     """Depth-1 map over lists; ``scalar_args`` are broadcast () arguments."""
     specs = tuple(
         ArgSpec(() if i in set(scalar_args) else (0,)) for i in range(arity)
@@ -144,6 +177,7 @@ def make_map(name: str, fn: Callable, arity: int, *, scalar_args: Sequence[int] 
     return Elementary(
         name=name, kind=Kind.MAP, formal_axes=("i",), in_specs=specs,
         out_axes=(0,), fn=fn, flops_per_point=flops_per_point, cuda=cuda,
+        pad_safe=pad_safe,
     )
 
 
@@ -157,12 +191,29 @@ def make_reduce(name: str, monoid: Monoid = Monoid.SUM, *,
 
 
 def make_nested_map(name: str, fn: Callable, in_axes: Sequence[Sequence[int]], *,
-                    flops_per_point: float = 1.0, cuda: str = "") -> Elementary:
+                    flops_per_point: float = 1.0, cuda: str = "",
+                    pad_safe: bool = True) -> Elementary:
     """Depth-2 map producing a matrix indexed (i, j)."""
     return Elementary(
         name=name, kind=Kind.NESTED_MAP, formal_axes=("i", "j"),
         in_specs=tuple(ArgSpec(tuple(a)) for a in in_axes), out_axes=(0, 1),
-        fn=fn, flops_per_point=flops_per_point, cuda=cuda,
+        fn=fn, flops_per_point=flops_per_point, cuda=cuda, pad_safe=pad_safe,
+    )
+
+
+def make_tensor_map(name: str, fn: Callable, in_axes: Sequence[Sequence[int]],
+                    depth: int, *, flops_per_point: float = 1.0,
+                    cuda: str = "", pad_safe: bool = True) -> Elementary:
+    """Depth-``depth`` map producing a rank-``depth`` tensor.
+
+    Extension past the paper's depth-2 taxonomy (batched matrix maps
+    etc.); ``in_axes`` follows the ``make_nested_map`` convention."""
+    return Elementary(
+        name=name, kind=Kind.NESTED_MAP,
+        formal_axes=tuple(f"a{k}" for k in range(depth)),
+        in_specs=tuple(ArgSpec(tuple(a)) for a in in_axes),
+        out_axes=tuple(range(depth)), fn=fn,
+        flops_per_point=flops_per_point, cuda=cuda, pad_safe=pad_safe,
     )
 
 
@@ -189,13 +240,18 @@ def make_nested_map_reduce(name: str, fn: Callable,
 
 # ---------------------------------------------------------------------------
 # Non-multilinear map primitives (the ops an LM decode step needs).
+#
+# ``pad_safe=False``: a zero lane maps to 1.0 (exp) or inf (rsqrt), so a
+# graph routing them into a reduction is served through per-lane masking
+# (``core.masking``), not zero padding.
 # ---------------------------------------------------------------------------
 
 exp_map = make_map("exp", torch.exp, arity=1, flops_per_point=1,
-                   cuda="expf({0})")
+                   cuda="expf({0})", pad_safe=False)
 rsqrt_map = make_map("rsqrt", torch.rsqrt, arity=1, flops_per_point=1,
-                     cuda="rsqrtf({0})")
-# exp(x - m) with a broadcast (reduce-finished) max — the softmax core
+                     cuda="rsqrtf({0})", pad_safe=False)
+# exp(x - m) with a broadcast (reduce-finished) max — the softmax core; a
+# zero lane maps to exp(-m), not zero
 exp_sub = make_map("exp_sub", lambda x, m: torch.exp(x - m), arity=2,
                    scalar_args=(1,), flops_per_point=2,
-                   cuda="expf({0} - {1})")
+                   cuda="expf({0} - {1})", pad_safe=False)

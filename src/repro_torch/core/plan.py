@@ -21,6 +21,13 @@ artifact:
 program's structure (elementaries, dataflow, shapes, dtypes).  Two
 scripts tracing to the same graph share plans.
 
+``PackedPlan`` is the multi-graph generalization: the concatenation of
+several members' ``ExecutionPlan``s into one whole-program contract.
+Member routing tables are disjoint, so merging is pure offset rebasing.
+The pack signature content-addresses the *sorted* member plan
+fingerprints, so two compiles of the same member mix, in any order,
+share one cache entry.
+
 ``plan_from_reference`` reads a plan written by the JAX reference
 package and maps its backend name onto this package's (``jnp`` ->
 ``torch``, ``pallas`` -> ``cuda``): plans and inputs are this system's
@@ -39,6 +46,7 @@ from .predictor import HardwareModel, Impl, cost_impl
 from .scheduler import Combination
 
 PLAN_VERSION = 1
+PACK_VERSION = 1
 
 #: reference backend name -> this package's counterpart
 REFERENCE_BACKENDS = {"jnp": "torch", "pallas": "cuda"}
@@ -46,6 +54,8 @@ REFERENCE_BACKENDS = {"jnp": "torch", "pallas": "cuda"}
 # A ValueRef routes one runtime value:  ("input", name) reads a graph
 # input, ("group", gi, oi) reads output ``oi`` of plan group ``gi``.
 ValueRef = tuple
+# In a PackedPlan's merged table the input form is rebased to
+# ("input", position) — an index into the concatenated input list.
 
 
 @dataclasses.dataclass(frozen=True)
@@ -302,3 +312,162 @@ def plan_from_reference(json_text: str) -> ExecutionPlan:
             f"reference plan backend {plan.backend!r} is not one of "
             f"{', '.join(REFERENCE_BACKENDS)}")
     return dataclasses.replace(plan, backend=REFERENCE_BACKENDS[plan.backend])
+
+
+# ---------------------------------------------------------------------------
+# PackedPlan — N graphs, one program
+# ---------------------------------------------------------------------------
+
+def plan_fingerprint(plan: ExecutionPlan) -> str:
+    """Content address of one plan — hashes the full plan (groups,
+    blocks, routing, backend, dtype), not just the graph signature, so
+    two different plans for the same graph (different search modes)
+    never alias inside a pack key."""
+    return hashlib.sha256(plan.to_json().encode()).hexdigest()
+
+
+@dataclasses.dataclass
+class PackedPlan:
+    """The concatenation of several ``ExecutionPlan``s into one
+    whole-program contract (DESIGN.md §9).
+
+    Members are stored in *canonical* order — sorted by
+    ``plan_fingerprint`` — so the pack built from ``[A, B]`` and the
+    pack built from ``[B, A]`` are the same object with the same
+    ``signature``; callers that care about their own member order keep
+    a permutation (``codegen.PackedDispatch``).
+
+    Each member keeps its own groups (its fusion decisions are not
+    re-searched); ``merged_groups``/``merged_outputs`` present the pack
+    as ONE flat routing table with offsets rebased into concatenated
+    input/group index spaces — what ``codegen.compile_plan_packed``
+    consumes to emit a single dispatch (one CUDA graph on the card).
+    """
+
+    members: tuple[ExecutionPlan, ...]
+    version: int = PACK_VERSION
+
+    def __post_init__(self):
+        fps = [plan_fingerprint(p) for p in self.members]
+        if list(fps) != sorted(fps):
+            raise VerificationError.single(
+                "RPL301", "pack.members",
+                "PackedPlan members must be in canonical "
+                "(sorted-fingerprint) order — use build_packed_plan")
+
+    # -- offsets ------------------------------------------------------------
+    @property
+    def n_members(self) -> int:
+        return len(self.members)
+
+    @property
+    def input_offsets(self) -> tuple[int, ...]:
+        offs, off = [], 0
+        for p in self.members:
+            offs.append(off)
+            off += len(p.input_names)
+        return tuple(offs)
+
+    @property
+    def group_offsets(self) -> tuple[int, ...]:
+        offs, off = [], 0
+        for p in self.members:
+            offs.append(off)
+            off += len(p.groups)
+        return tuple(offs)
+
+    @property
+    def output_offsets(self) -> tuple[int, ...]:
+        offs, off = [], 0
+        for p in self.members:
+            offs.append(off)
+            off += len(p.outputs)
+        return tuple(offs)
+
+    @property
+    def n_inputs(self) -> int:
+        return sum(len(p.input_names) for p in self.members)
+
+    @property
+    def n_outputs(self) -> int:
+        return sum(len(p.outputs) for p in self.members)
+
+    # -- merged routing (offset rebasing) -----------------------------------
+    def _rebase(self, ref: ValueRef, m: int) -> ValueRef:
+        if ref[0] == "input":
+            p = self.members[m]
+            return ("input", self.input_offsets[m]
+                    + p.input_names.index(ref[1]))
+        return ("group", self.group_offsets[m] + ref[1], ref[2])
+
+    def merged_groups(self) -> list[tuple[int, GroupPlan]]:
+        """The pack as one flat topo-ordered group list:
+        ``(member index, GroupPlan with rebased input refs)`` per
+        group.  Member routing tables are disjoint, so concatenation in
+        member order is a valid topological order of the union."""
+        out = []
+        for m, p in enumerate(self.members):
+            for gp in p.groups:
+                out.append((m, dataclasses.replace(
+                    gp, inputs=tuple(self._rebase(r, m) for r in gp.inputs))))
+        return out
+
+    def merged_outputs(self) -> tuple[ValueRef, ...]:
+        """Concatenated output routing, rebased like the groups."""
+        return tuple(self._rebase(r, m)
+                     for m, p in enumerate(self.members) for r in p.outputs)
+
+    @property
+    def signature(self) -> str:
+        """Content address of the pack: hash of the (already sorted)
+        member fingerprints."""
+        return pack_signature([plan_fingerprint(p) for p in self.members])
+
+    # -- serialization ------------------------------------------------------
+    def to_json(self) -> str:
+        return json.dumps({
+            "version": self.version,
+            "members": [json.loads(p.to_json()) for p in self.members],
+        })
+
+    @classmethod
+    def from_json(cls, s: str) -> "PackedPlan":
+        d = json.loads(s)
+        if d.get("version") != PACK_VERSION:
+            raise VerificationError.single(
+                "RPL302", "pack.version",
+                f"pack version {d.get('version')} != {PACK_VERSION}")
+        return cls(members=tuple(ExecutionPlan.from_json(json.dumps(m))
+                                 for m in d["members"]),
+                   version=d["version"])
+
+    def describe(self) -> str:
+        lines = [f"pack {self.signature[:12]} members={self.n_members} "
+                 f"groups={sum(len(p.groups) for p in self.members)}"]
+        for m, p in enumerate(self.members):
+            lines.append(f"  m{m}: {p.signature[:12]} "
+                         f"groups={len(p.groups)} inputs={len(p.input_names)}")
+        return "\n".join(lines)
+
+
+def pack_signature(fingerprints) -> str:
+    """Hash of *sorted* member plan fingerprints: the pack cache key
+    component.  Sorting makes the address order-independent, so a drain
+    cycle hitting the same sequence mix in any arrival order is a cache
+    hit."""
+    blob = json.dumps(sorted(fingerprints), separators=(",", ":")).encode()
+    return hashlib.sha256(blob).hexdigest()
+
+
+def canonical_pack_order(plans) -> tuple[int, ...]:
+    """Stable permutation sorting ``plans`` into canonical (fingerprint)
+    order: ``perm[k]`` is the caller index of canonical member ``k``."""
+    return tuple(sorted(range(len(plans)),
+                        key=lambda i: (plan_fingerprint(plans[i]), i)))
+
+
+def build_packed_plan(plans) -> "PackedPlan":
+    """Concatenate member plans into a ``PackedPlan`` (canonicalizes
+    the order; use ``canonical_pack_order`` for the permutation)."""
+    order = canonical_pack_order(plans)
+    return PackedPlan(members=tuple(plans[i] for i in order))

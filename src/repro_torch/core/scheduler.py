@@ -337,3 +337,42 @@ def unfused_combination(space: OptimizationSpace) -> Combination:
         impls.append(space.impls_by_fusion[f.key][0])
     return Combination(impls=tuple(impls),
                        t_pred=sum(i.t_pred for i in impls))
+
+
+# ---------------------------------------------------------------------------
+# seed reference implementation (kept for equivalence testing)
+# ---------------------------------------------------------------------------
+
+def _partitions(space: OptimizationSpace):
+    """Yield all partitions of the call set into legal fusions (as tuples
+    of Fusion).  DFS always extends the lowest-index uncovered call."""
+    n = len(space.graph.calls)
+    by_lowest: dict[int, list[Fusion]] = {}
+    for f in space.fusions:
+        by_lowest.setdefault(min(f.key), []).append(f)
+
+    def rec(covered: frozenset, acc: tuple):
+        if len(covered) == n:
+            yield acc
+            return
+        lowest = min(i for i in range(n) if i not in covered)
+        for f in by_lowest.get(lowest, []):
+            if f.key & covered:
+                continue
+            yield from rec(covered | f.key, acc + (f,))
+
+    yield from rec(frozenset(), ())
+
+
+def exhaustive_best_combination(space: OptimizationSpace) -> Combination:
+    """The seed's exponential DFS — reference oracle for the DP."""
+    best: Combination | None = None
+    for part in _partitions(space):
+        impls = tuple(space.impls_by_fusion[f.key][0] for f in part)
+        t = sum(i.t_pred for i in impls)
+        if best is None or t < best.t_pred:
+            best = Combination(impls=impls, t_pred=t)
+    if best is None:
+        raise VerificationError.single(
+            "RPL220", "scheduler", "no legal combination covers the graph")
+    return best

@@ -10,14 +10,27 @@
 // consumed reduction finished before its consumers read it), and
 // between the items of a phase whose reduce axes were cut into slices
 // and the fold of their partials (every slice's partial written before
-// any CTA combines them).
+// any CTA combines them).  Loads and stores convert between a buffer's
+// element type (float or __half) and the float32 every map and
+// reduction computes in.
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace k1 {
+
+// A loaded element as float32, and a float32 value rounded once to a
+// buffer's element type.
+__device__ __forceinline__ float ld(float x) { return x; }
+__device__ __forceinline__ float ld(__half x) { return __half2float(x); }
+template <class T> __device__ __forceinline__ T st(float x);
+template <> __device__ __forceinline__ float st<float>(float x) { return x; }
+template <> __device__ __forceinline__ __half st<__half>(float x) {
+  return __float2half_rn(x);
+}
 
 // Monoids: identity and combine.  Every reduction of a group combines
 // with one of these, in a fixed order that depends on the plan alone
@@ -66,8 +79,9 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
 // Every block of the grid has finished what came before, and its
 // global-memory writes (the consumed reductions' workspace, the slices'
 // partials) are visible to all blocks: a phase boundary, or the step
-// from the slices to their combine.  Valid only under
-// cudaLaunchCooperativeKernel with every block co-resident.
+// from the slices to their combine.  Valid only in a cooperative launch
+// (cudaLaunchKernelExC with cudaLaunchAttributeCooperative, which stream
+// capture records as a graph node) with every block co-resident.
 __device__ __forceinline__ void grid_barrier() {
   cooperative_groups::this_grid().sync();
 }

@@ -5,6 +5,7 @@ raise on a non-zero ``cudaError_t``."""
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 
 import torch
@@ -16,17 +17,35 @@ class CudaLaunchError(RuntimeError):
 
 
 class LaunchCounter:
-    """Kernel launches, by kernel name.  Only ``launch`` adds to it."""
+    """Kernel launches, by kernel name.  ``launch`` adds to it where it
+    launches a kernel, and the replay of a CUDA graph adds the kernels
+    the graph holds (``core.graphs``).  While a graph is being captured,
+    ``launch`` records the kernel's name for the graph instead: the
+    capture runs nothing."""
 
     def __init__(self):
         self.by_kernel: collections.Counter = collections.Counter()
+        self._captured: list[str] | None = None
 
     @property
     def total(self) -> int:
         return sum(self.by_kernel.values())
 
     def add(self, name: str):
-        self.by_kernel[name] += 1
+        if self._captured is not None:
+            self._captured.append(name)
+        else:
+            self.by_kernel[name] += 1
+
+    @contextlib.contextmanager
+    def capturing(self):
+        """Within the block, launches are recorded in the list it yields
+        (the kernels of a graph being captured), not counted."""
+        prev, self._captured = self._captured, []
+        try:
+            yield self._captured
+        finally:
+            self._captured = prev
 
     def reset(self):
         self.by_kernel.clear()

@@ -1,11 +1,21 @@
-"""BLAS-sequence serving: compile one paper sequence through the plan
-cache, then serve a request loop where each request runs every group of
-the plan — on the ``cuda`` backend one generated kernel per group.
+"""BLAS-sequence serving through the fusion compiler.
+
+One sequence, one size: compile through the plan cache, then a request
+loop where each request runs every group of the plan — on the ``cuda``
+backend one generated kernel per group, replayed as one CUDA graph per
+request (and, beside it, the eager path that calls each group from
+Python):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --blas GEMVER \
         --n 4096 --requests 100
 
-Runs on the GPU by default; ``--device cpu`` runs the same path on the
+Mixed sequences and sizes through the batched ``ServingEngine`` (shape
+buckets, padding or masking, batched and packed dispatches):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --blas GEMVER,BiCGK \
+        --engine --sizes 1000,4096 --requests 64
+
+Runs on the GPU by default; ``--device cpu`` runs the same paths on the
 CPU (K1's plain tiled version stands in for the kernels there).
 Requests on the GPU are timed with CUDA events around the whole loop.
 """
@@ -13,6 +23,8 @@ from __future__ import annotations
 
 import argparse
 import time
+
+import numpy as np
 
 
 def _mode(text: str):
@@ -47,44 +59,144 @@ def serve_blas(args) -> dict:
     t_recompile = time.perf_counter() - t0
 
     inputs = prog.prepare(**make_inputs(seq, args.n, seed=args.seed))
-    prog.fn(*inputs)                              # warm-up
+    prog.run(*inputs)             # first call: eager, builds the kernels
+    prog.run(*inputs)             # second: captures the plan's graph
     prog.synchronize()
 
-    launches0 = LAUNCHES.total
-    if prog.device.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(args.requests):
-            prog.fn(*inputs)
-        end.record()
-        torch.cuda.synchronize(prog.device)
-        t_serve = start.elapsed_time(end) / 1e3
-    else:
-        t0 = time.perf_counter()
-        for _ in range(args.requests):
-            prog.fn(*inputs)
-        t_serve = time.perf_counter() - t0
-    launches = LAUNCHES.total - launches0
+    def loop(fn) -> tuple[float, int]:
+        """Seconds for ``args.requests`` calls, and the launches made."""
+        launches0 = LAUNCHES.total
+        if prog.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(args.requests):
+                fn(*inputs)
+            end.record()
+            torch.cuda.synchronize(prog.device)
+            t = start.elapsed_time(end) / 1e3
+        else:
+            t0 = time.perf_counter()
+            for _ in range(args.requests):
+                fn(*inputs)
+            t = time.perf_counter() - t0
+        return t, LAUNCHES.total - launches0
 
-    us_per_req = t_serve / max(args.requests, 1) * 1e6
+    t_graph, launches = loop(prog.run)
+    t_eager, eager_launches = loop(prog.fn)
+    n = max(args.requests, 1)
+    us_per_req, eager_us = t_graph / n * 1e6, t_eager / n * 1e6
     stats = cache.stats.as_dict()
     print(f"serve {args.blas} n={args.n} mode={args.mode} "
           f"backend={args.backend} device={prog.device}: compile "
           f"{t_compile*1e3:.1f} ms, recompile {t_recompile*1e6:.0f} us "
           f"(cache hit), {args.requests} requests at {us_per_req:.1f} "
-          f"us/req ({prog.n_groups} groups, {launches} kernel launches)")
+          f"us/req replayed, {eager_us:.1f} us/req eager ({prog.n_groups} "
+          f"groups, {launches} kernel launches)")
     print(f"cache stats: {stats}")
     return {"t_compile_s": t_compile, "t_recompile_s": t_recompile,
-            "us_per_request": us_per_req, "n_groups": prog.n_groups,
-            "kernel_launches": launches, "device": str(prog.device),
-            "cache": stats}
+            "us_per_request": us_per_req, "eager_us_per_request": eager_us,
+            "n_groups": prog.n_groups, "kernel_launches": launches,
+            "eager_kernel_launches": eager_launches,
+            "device": str(prog.device), "cache": stats}
+
+
+def engine_stream(ranges, requests: int, seed: int = 0) -> list:
+    """A mixed-size request stream: ``(sequence, n)`` pairs, the
+    sequences of ``ranges`` (``{name: (lo, hi)}``) in turn.  Each request
+    draws, from ``seed``, its power-of-two bucket uniformly among those
+    its sequence's range reaches, then n uniformly inside that bucket
+    and the range, so every bucket of a range is served and most sizes
+    fall off the bucket grid."""
+    rng = np.random.default_rng(seed)
+    names = list(ranges)
+    out = []
+    for i in range(requests):
+        name = names[i % len(names)]
+        lo, hi = ranges[name]
+        buckets = [1 << k for k in range((lo - 1).bit_length(),
+                                         (hi - 1).bit_length() + 1)]
+        b = int(buckets[rng.integers(len(buckets))])
+        out.append((name, int(rng.integers(max(lo, b // 2 + 1),
+                                           min(hi, b) + 1))))
+    return out
+
+
+def engine_workload(stream, seed: int = 0) -> list:
+    """``(sequence, n, inputs)`` tuples for an ``engine_stream``, numpy
+    inputs made from ``seed + i`` (host arrays, as users send them)."""
+    from repro_torch.programs import REGISTRY, make_inputs
+    return [(nm, n, make_inputs(REGISTRY[nm], n, seed=seed + i))
+            for i, (nm, n) in enumerate(stream)]
+
+
+def serve_engine(args) -> dict:
+    """A mixed-size workload through the batched ``ServingEngine``."""
+    from repro_torch.core import FusionCompiler
+    from repro_torch.programs import REGISTRY
+    from repro_torch.serving import ServingEngine
+
+    names = [s.strip() for s in args.blas.split(",")]
+    for nm in names:
+        if nm not in REGISTRY:
+            raise SystemExit(f"unknown sequence {nm!r}; "
+                             f"choose from {', '.join(REGISTRY)}")
+    sizes = [int(s) for s in args.sizes.split(",")]
+    lo, hi = min(sizes), max(sizes)
+    stream = engine_stream({nm: (lo, hi) for nm in names}, args.requests,
+                           args.seed)
+    cc = FusionCompiler(backend=args.backend, device=args.device)
+    engine = ServingEngine(compiler=cc, max_batch=args.max_batch,
+                           min_bucket=1 << (min(64, lo).bit_length() - 1),
+                           registry=REGISTRY, max_pack=args.max_pack)
+    t0 = time.perf_counter()
+    # warm packs once over the full key set, not per sequence
+    buckets = {nm: engine.warm(nm, [n for s, n in stream if s == nm],
+                               trace_packs=False)
+               for nm in names if any(s == nm for s, _ in stream)}
+    engine.warm_packs()
+    t_warm = time.perf_counter() - t0
+
+    workload = engine_workload(stream, args.seed)
+    t0 = time.perf_counter()
+    results = engine.serve(workload, rate_hz=args.rate or None)
+    t_serve = time.perf_counter() - t0
+
+    lat = np.sort([r.latency_s for r in results])
+    p50 = float(lat[len(lat) // 2]) if len(lat) else 0.0
+    p99 = float(lat[min(len(lat) - 1, int(len(lat) * 0.99))]) if len(lat) \
+        else 0.0
+    rps = len(results) / max(t_serve, 1e-9)
+    st = engine.stats()
+    print(f"engine {','.join(names)} sizes={lo}..{hi} buckets={buckets} "
+          f"device={engine.device}: warm {t_warm*1e3:.1f} ms, "
+          f"{len(results)} requests in {t_serve*1e3:.1f} ms "
+          f"({t_serve / max(len(results), 1) * 1e6:.1f} us/req)")
+    print(f"  throughput {rps:.1f} req/s | latency p50 {p50*1e3:.2f} ms "
+          f"p99 {p99*1e3:.2f} ms | {st['n_dispatches']} dispatches, "
+          f"batch occupancy {st['batch_occupancy']:.2f}")
+    qw = st["queue_wait"]
+    if qw and qw["count"]:
+        print(f"  queue wait p50 {qw['p50_ms']:.2f} ms "
+              f"p99 {qw['p99_ms']:.2f} ms ({qw['count']} waits)")
+    if st["n_packed_dispatches"]:
+        print(f"  packed dispatches: {st['n_packed_dispatches']} carrying "
+              f"{st['n_packed_members']} member batches "
+              f"(max_pack {st['max_pack']})")
+    print(f"  bucket stats: {st['cache']['buckets']}")
+    return {"throughput_rps": rps, "p50_s": p50, "p99_s": p99,
+            "t_warm_s": t_warm, "t_serve_s": t_serve,
+            "n_results": len(results), "stats": st}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--blas", required=True,
-                    help="BLAS sequence to serve (e.g. GEMVER)")
+                    help="BLAS sequence to serve (e.g. GEMVER), or with "
+                    "--engine a comma-separated list (GEMVER,BiCGK)")
+    ap.add_argument("--engine", action="store_true",
+                    help="batched ServingEngine (shape buckets, batched "
+                    "and packed dispatches) over a mixed-size workload")
     ap.add_argument("--backend", default="cuda",
                     help="'cuda' (generated kernels) or 'torch' (plain "
                     "tensor code per group)")
@@ -94,6 +206,18 @@ def main(argv=None):
                     help="'best', 'unfused' or an integer rank")
     ap.add_argument("--requests", type=int, default=100)
     ap.add_argument("--n", type=int, default=1024)
+    ap.add_argument("--sizes", default="256,2048",
+                    help="with --engine: request sizes; each request's n "
+                    "is drawn from the smallest to the largest of them, "
+                    "its power-of-two bucket first (default 256,2048)")
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--max-pack", type=int, default=8,
+                    help="with --engine: most (sequence, bucket) batches "
+                    "merged into one packed dispatch per drain round (1 "
+                    "disables packing)")
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="open-loop arrival rate in req/s for --engine "
+                    "(0 = closed loop)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -103,7 +227,7 @@ def main(argv=None):
             "RPL401", "cli.--backend",
             f"unknown backend {args.backend!r}",
             f"valid backends: {', '.join(KNOWN_BACKENDS)}")
-    return serve_blas(args)
+    return serve_engine(args) if args.engine else serve_blas(args)
 
 
 if __name__ == "__main__":

@@ -210,7 +210,7 @@ def test_generator_emits_every_enumerated_impl(n):
                 cut = sum(ph.S > 1 for ph in lay.phases)
                 assert src.count("k1::grid_barrier();") == \
                     lay.n_phases - 1 + cut
-                assert ("cudaLaunchCooperativeKernel" in src) == \
+                assert ("cudaLaunchAttributeCooperative" in src) == \
                     lay.cooperative
                 emitted += 1
     assert emitted >= 120

@@ -359,3 +359,262 @@ def test_fused_adamw_update_on_gpu_matches_ref(mode, cuda):
     assert LAUNCHES.total == (1 if mode == "best" else 4)
     for o, w in zip(got, ref.adamw(p, g, m, v, **kw)):
         assert _rel(o, w) <= RTOL
+
+
+# ---------------------------------------------------------------------------
+# one CUDA graph per plan, batched and packed K1, float16, the engine
+# ---------------------------------------------------------------------------
+
+def _run_eager_then_graph(cp, ins):
+    """(eager outputs, graph-replayed outputs) of one program on the same
+    input tensors: the first call runs eagerly, the second captures and
+    replays the plan's graph."""
+    eager = tuple(o.clone() for o in cp.run(*ins))
+    return eager, cp.run(*ins)
+
+
+#: a cooperative multi-phase group (LM_DECODE_ATTN's softmax), groups cut
+#: into slices (AXPYDOT at 2**20, BiCGK at 3000 with a ``partial``
+#: output), and plain one-pass groups (GEMVER)
+GRAPH_CASES = [("LM_DECODE_ATTN", 4096), ("AXPYDOT", 1 << 20),
+               ("BiCGK", 3000), ("GEMVER", 512)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,n", GRAPH_CASES)
+def test_graph_replay_is_bitwise_equal_to_eager(name, n, cuda):
+    prog = REGISTRY[name]
+    cc = FusionCompiler(backend="cuda", device="cuda", cache=PlanCache())
+    coop = []
+    for mode in ("best", "unfused"):
+        cp = cc.compile(prog.script, prog.shapes(n), mode=mode)
+        ins = cp.prepare(**make_inputs(prog, n, seed=3))
+        eager, replayed = _run_eager_then_graph(cp, ins)
+        assert cp.replays.n_captures == 1
+        for a, b in zip(eager, replayed):
+            assert torch.equal(_bits(a), _bits(b)), (name, mode)
+        coop += [fn for fn in cp.group_fns if fn.layout.cooperative]
+    assert coop or name == "GEMVER"
+
+
+@pytest.mark.gpu
+def test_held_results_are_not_overwritten_and_replays_count(cuda):
+    prog = REGISTRY["GEMVER"]
+    n = 512
+    cc = FusionCompiler(backend="cuda", device="cuda", cache=PlanCache())
+    cp = cc.compile(prog.script, prog.shapes(n), label="held")
+    ins = cp.prepare(**make_inputs(prog, n, seed=1))
+    cp.run(*ins)                                  # eager, builds
+    first = cp.run(*ins)                          # captured, replayed
+    kept = tuple(o.clone() for o in first)
+    view = first[0][:7]                           # a view keeps it too
+    del first
+    # new values at the same addresses: the same graph, but a replay
+    # into another slot while the caller holds the first result
+    for t, x in zip(ins, cp.prepare(**make_inputs(prog, n, seed=2))):
+        t.copy_(x)
+    LAUNCHES.reset()
+    second = cp.run(*ins)
+    torch.cuda.synchronize()
+    assert cp.replays.n_captures == 2
+    assert torch.equal(view, kept[0][:7])
+    assert not torch.equal(second[0][:7], view)
+    assert dict(LAUNCHES.by_kernel) == {fn.name: 1 for fn in cp.group_fns}
+    del view, second
+    third = cp.run(*ins)                          # a free slot: no capture
+    assert cp.replays.n_captures == 2
+    assert LAUNCHES.total == 2 * cp.n_groups
+    del third
+
+
+#: programs whose batched launches are held bitwise to single ones: a
+#: ``partial`` output and 2-D slices (BiCGK), slices (AXPYDOT), phases
+#: (LM_DECODE_ATTN, LM_RMSNORM), several groups (GEMVER)
+BATCH_CASES = [("BiCGK", 3000), ("AXPYDOT", 1 << 20), ("LM_DECODE_ATTN", 4096),
+               ("LM_RMSNORM", 4096), ("GEMVER", 512), ("ATAX", 300)]
+
+
+def _batch_inputs(prog, n, B, seed):
+    per = [make_inputs(prog, n, seed=seed + b) for b in range(B)]
+    return per, {k: np.stack([np.asarray(p[k]) for p in per])
+                 for k in per[0]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,n", BATCH_CASES)
+def test_batched_launches_equal_single_launches_bitwise(name, n, cuda):
+    prog = REGISTRY[name]
+    B = 5
+    cc = FusionCompiler(backend="cuda", device="cuda", cache=PlanCache())
+    for mode in ("best", "unfused"):
+        single = cc.compile(prog.script, prog.shapes(n), mode=mode)
+        batched = cc.compile_batched(prog.script, prog.shapes(n), mode=mode)
+        per, stacked = _batch_inputs(prog, n, B, seed=20)
+        ins = batched.prepare(**stacked)
+        got = batched.run(*ins)                   # eager
+        again = batched.run(*ins)                 # captured and replayed
+        assert batched.replays.n_captures == 1
+        for b in range(B):
+            want = single.fn(*single.prepare(**per[b]))
+            for o, a, w in zip(got, again, want):
+                assert torch.equal(_bits(o[b]), _bits(w)), (name, mode, b)
+                assert torch.equal(_bits(a[b]), _bits(w)), (name, mode, b)
+
+
+@pytest.mark.gpu
+def test_packed_dispatch_equals_its_members_bitwise(cuda):
+    cc = FusionCompiler(backend="cuda", device="cuda", cache=PlanCache())
+    members = [("GEMVER", 512), ("BiCGK", 3000), ("AXPYDOT", 1 << 20),
+               ("LM_DECODE_ATTN", 4096)]
+    pack = cc.compile_packed([(REGISTRY[s].script, REGISTRY[s].shapes(n))
+                              for s, n in members])
+    inputs = [{k: torch.from_numpy(v).cuda() for k, v in
+               _batch_inputs(REGISTRY[s], n, 2 + k % 2, seed=30 + k)[1]
+               .items()} for k, (s, n) in enumerate(members)]
+    LAUNCHES.reset()
+    first = pack(inputs)                          # eager
+    again = pack(inputs)                          # the pack's graph
+    torch.cuda.synchronize()
+    n_groups = pack.program.n_groups
+    assert LAUNCHES.total == 2 * n_groups
+    assert pack.program.replays.n_captures == 1
+    for (s, n), ins, outs, outs2 in zip(members, inputs, first, again):
+        b = cc.compile_batched(REGISTRY[s].script, REGISTRY[s].shapes(n))
+        want = b.fn(*b.prepare(**ins))
+        for o, o2, w in zip(outs, outs2, want):
+            assert torch.equal(_bits(o), _bits(w)), s
+            assert torch.equal(_bits(o2), _bits(w)), s
+
+
+def fp16_inputs(name, n, seed):
+    """float16 inputs: ``make_inputs``, with GEMVER's A, u1, v1, u2 and v2
+    scaled by n**-0.5 so that B = A + u1 v1ᵀ + u2 v2ᵀ has a norm of O(1)
+    and w = α B x stays inside float16's ±65504 at every n (unscaled,
+    (v1·x) grows as n and w overflows from n = 1024 on)."""
+    env = make_inputs(REGISTRY[name], n, seed=seed, dtype=np.float32)
+    if name == "GEMVER":
+        for k in ("A", "u1", "v1", "u2", "v2"):
+            env[k] = env[k] / np.float32(np.sqrt(n))
+    return {k: np.asarray(v).astype(np.float16) for k, v in env.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,n", [("AXPYDOT", 4096), ("AXPYDOT", 1 << 20),
+                                    ("GEMVER", 256), ("GEMVER", 1024),
+                                    ("BiCGK", 3000)])
+def test_float16_groups_match_their_plain_version(name, n, cuda):
+    """float16 loads and stores, float32 maps and sums: held to 1e-2
+    norm-relative against the plain version (which rounds every op to
+    float16) and against float64 numpy."""
+    prog = REGISTRY[name]
+    cc = FusionCompiler(backend="cuda", device="cuda", cache=PlanCache(),
+                        dtype=np.float16)
+    for mode in ("best", "unfused"):
+        cp = cc.compile(prog.script, prog.shapes(n), mode=mode)
+        env = fp16_inputs(name, n, seed=9)
+        vals = dict(zip(cp.plan.input_names, cp.prepare(**env)))
+        outs = []
+        for gp, fn, im in zip(cp.plan.groups, cp.group_fns, cp.group_impls):
+            args = [vals[r[1]] if r[0] == "input" else outs[r[1]][r[2]]
+                    for r in gp.inputs]
+            got = fn.launch(*args)
+            want = tiled_reference(cp.graph, im, *args)
+            for o, w in zip(got, want):
+                assert o.dtype == torch.float16 and o.shape == w.shape
+                assert _rel(o, w) <= 1e-2, fn.name
+            outs.append(want)
+        got = cp(**env)
+        got = got if isinstance(got, tuple) else (got,)
+        ref64 = prog.reference(**{k: np.asarray(v, np.float64)
+                                  for k, v in env.items()})
+        ref64 = ref64 if isinstance(ref64, tuple) else (ref64,)
+        for o, r in zip(got, ref64):
+            assert _rel(o, torch.from_numpy(np.asarray(r)).cuda()) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_depth3_group_runs_as_one_kernel(cuda):
+    from repro_torch.core.elementary import make_tensor_map
+    t3 = make_tensor_map("mul3", lambda x, y: x * y,
+                         in_axes=[(0, 1, 2), (0, 1, 2)], depth=3,
+                         cuda="{0} * {1}")
+
+    def script(g, a, b):
+        t = g.apply(t3, a, b, name="t")
+        return (g.apply(t3, t, a, name="o"),)
+    shape = (6, 40, 300)
+    cc = FusionCompiler(backend="cuda", device="cuda", cache=PlanCache())
+    cp = cc.compile(script, {"a": shape, "b": shape})
+    assert cp.n_groups == 1
+    rng = np.random.default_rng(0)
+    a, b = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    got = cp(a=a, b=b)
+    torch.testing.assert_close(got.cpu(), torch.from_numpy(a * b * a),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_engine_on_a_small_mixed_stream(cuda):
+    from repro_torch.serving import ServingEngine
+    cc = FusionCompiler(backend="cuda", device="cuda", cache=PlanCache())
+    engine = ServingEngine(cc, max_batch=4, min_bucket=64, registry=REGISTRY,
+                           max_pack=4)
+    stream = [("GEMVER", 200), ("BiCGK", 300), ("AXPYDOT", 1000),
+              ("LM_DECODE_ATTN", 900), ("GEMVER", 256), ("BiCGK", 500),
+              ("AXPYDOT", 1024), ("LM_DECODE_ATTN", 1000)] * 2
+    for s in sorted({s for s, _ in stream}):
+        engine.warm(s, [n for t, n in stream if t == s], trace_packs=False)
+    engine.warm_packs()
+    reqs = [(s, n, make_inputs(REGISTRY[s], n, seed=40 + i))
+            for i, (s, n) in enumerate(stream)]
+    first = engine.serve(reqs)
+    kept = [tuple(o.clone() for o in r.outputs) for r in first]
+    second = engine.serve(reqs[::-1])            # while `first` is held
+    for r, k in zip(first, kept):
+        for o, c in zip(r.outputs, k):
+            assert torch.equal(_bits(o), _bits(c))
+    for res in (first, second):
+        by_rid = {r.rid: r for r in res}
+        assert len(by_rid) == len(stream)
+    for r in first:
+        s, n, env = reqs[r.rid]
+        ref64 = REGISTRY[s].reference(**{k: np.asarray(v, np.float64)
+                                         for k, v in env.items()})
+        ref64 = ref64 if isinstance(ref64, tuple) else (ref64,)
+        for o, w in zip(r.outputs, ref64):
+            assert tuple(o.shape) == np.shape(w)
+            assert _rel(o, torch.from_numpy(np.asarray(w)).cuda()) <= RTOL
+    st = engine.stats()
+    assert st["n_packed_dispatches"] >= 1
+    assert st["n_dispatches"] < len(stream)
+
+
+@pytest.mark.gpu
+def test_engine_open_loop_keeps_one_graph_per_input_set(cuda):
+    """Open loop, every drain's results kept to the end: the results are
+    copies, so no drain finds its graph held, and no input set is
+    captured twice however many drains the run takes."""
+    from repro_torch.launch.serve import engine_stream
+    from repro_torch.serving import ServingEngine
+    cc = FusionCompiler(backend="cuda", device="cuda", cache=PlanCache())
+    engine = ServingEngine(cc, max_batch=4, min_bucket=64, registry=REGISTRY,
+                           max_pack=4)
+    stream = engine_stream({"GEMVER": (200, 512), "AXPYDOT": (1000, 4096)},
+                           96, seed=5)
+    for s in ("AXPYDOT", "GEMVER"):
+        engine.warm(s, [n for t, n in stream if t == s], trace_packs=False)
+    engine.warm_packs()
+    reqs = [(s, n, make_inputs(REGISTRY[s], n, seed=60 + i))
+            for i, (s, n) in enumerate(stream)]
+    b0 = engine._rid
+    closed = {r.rid - b0: r for r in engine.serve(reqs)}
+    b1, drains0 = engine._rid, engine.n_dispatches
+    opened = engine.serve(reqs, rate_hz=3000.0)
+    torch.cuda.synchronize()
+    assert engine.n_dispatches - drains0 > 4
+    st = engine.stats()
+    assert st["graph_held_calls"] == 0 and st["graphs_per_input_set"] == 1
+    assert len(opened) == len(reqs)
+    for r in opened:
+        for o, k in zip(r.outputs, closed[r.rid - b1].outputs):
+            assert torch.equal(_bits(o), _bits(k))
