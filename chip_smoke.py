@@ -102,18 +102,44 @@ Phases, each printed as JSON lines:
    version's time, and one PyTorch call computing the same function
    where there is one (checked against the kernel once, timed here
    only, never used by the port).  ``ms`` and ``library_ms`` are device
-   times by CUDA graph replay (``graph_ms``: about 1 ms of back-to-back
-   calls captured in one graph, so no host path lies between them; a
-   call that cannot be captured is queued behind a spinning kernel
-   instead, ``"timed_by": "spin"``).  For K1 ``ms`` excludes the fold of
-   ``partial`` outputs after the kernel; for K2-K4 it is the wrapper's
+   times by CUDA graph replay (``core.timing.graph_ms``: about 1 ms of
+   back-to-back calls captured in one graph, so no host path lies
+   between them, the least of 3 replays; a call that cannot be captured
+   is queued behind a spinning kernel instead, ``"timed_by": "spin"``).
+   For K1 ``ms`` excludes the fold of ``partial`` outputs after the
+   kernel; for K2-K4 it is the wrapper's
    whole device work (the kernel and the sum of its partials); K5's
    split and combine kernels are timed one by one, and K5 as a whole
    (both, with ``F.scaled_dot_product_attention`` as its library call)
    on a line of its own, and the three again at ``LM_DECODE_ATTN``'s
    shape.  ``wrapper_ms`` is the wrapper's whole path per
    call, launched back to back (checks, output allocation, the ctypes
-   call, the combine): where it exceeds ``ms``, the host is the limit.
+   call, the combine): where it exceeds ``ms``, the host is the limit;
+11. calibrate: ``autotune.calibrate_hardware`` on the card — the
+   streaming rate fitted over 256 MiB to 1 GiB arrays, the per-kernel
+   cost of tiny kernels replayed in one CUDA graph and the f32 matmul
+   rate (8192³, TF32 off), rounded and unrounded, with the per-size
+   sweep and the card's ``nvidia-smi`` line;
+12. autotune: every program compiled with ``mode="autotune"`` under
+   ``hw="calibrate"`` at the main widths, ``--budget`` candidates each
+   (every candidate group built first, one ``nvcc`` a distinct source,
+   in parallel), each group timed by graph replay on the card: each
+   candidate's ``t_pred`` and ``t_meas``, the winner's rank (never
+   slower than candidate 0, ``best``), groups measured and the pass's
+   build seconds and peak memory; counts set to 0 before the passes
+   (the measured groups must launch) and again before one run of the
+   winners (one launch a group); the winner's outputs against float64
+   and its whole-program time by graph replay beside ``best``'s and
+   beside its summed group times (all three by ``core.timing.replay_s``
+   at the autotune's discipline: 8 calls a graph, least of 3); each winner group against its plain
+   version and timed, as in phase 10; a second pass over the same
+   cache must measure nothing (group hit rate 1.00); then ``refit``
+   over the measured groups, the constants before and after;
+13. verify: the full static verifier (``repro_torch.analysis``) over
+   the 30 ``best``/``unfused`` plans and the 15 autotune winners, 0
+   errors; and a plan entry corrupted on disk on purpose (two input refs
+   swapped) that the compile path rejects, drops, recompiles and
+   republishes, with outputs within 1e-4 of float64.
 
 Tolerances: float32 sums over 4096 to 2**24 terms run in another order
 in the kernels, the plain versions and numpy, so float32 results are
@@ -132,8 +158,9 @@ against its plain version.  Bitwise checks compare the bits of the
 outputs.
 
 The last lines are the ``{"kernels": [...]}`` record (the main path's
-K1 groups and hand kernels, then the engine's and the float16 path's K1
-groups, each with the launches of its own counted run) and
+K1 groups and hand kernels, then the engine's, the float16 path's and
+the autotune winners' K1 groups, each with the launches of its own
+counted run) and
 ``{"ok": true, "device": {...}}``; the card's ``nvidia-smi`` line is in
 the first (``device``) record.  Any failed
 phase ends the run with exit code 1 and no result line; so does a
@@ -144,11 +171,13 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import json
+import math
 import os
 import subprocess
 import sys
 import time
 
+T0 = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
@@ -225,6 +254,8 @@ ENGINE_REQUESTS, ENGINE_BATCH, ENGINE_PACK = 64, 8, 8
 OPEN_LOOP_HZ = 2000.0
 #: float16 through K1: AXPYDOT over 2**24, GEMVER at 4096
 FP16 = ("AXPYDOT", "GEMVER")
+#: candidates the autotune phase measures for each program
+AUTOTUNE_BUDGET = 8
 #: float16 output against float64: 11 bits of mantissa
 FP16_RTOL = 1e-2
 #: float16 kernel against its plain version (one rounding each)
@@ -274,6 +305,10 @@ def fail(msg: str):
 
 
 def emit(obj):
+    """One JSON line; a phase's line also carries ``t_s``, the seconds
+    since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -286,116 +321,24 @@ def norm_rel(got, want) -> float:
     return num / den if den > 0 else num
 
 
-def time_ms(fn, budget_ms: float = 300.0, max_reps: int = 50,
-            warmup: bool = True) -> float:
-    """Mean time per call of ``fn`` called back to back (CUDA events),
-    after one warm-up call (``warmup``); ``max_reps=1`` times one call.
-    Calls whose host path outlasts their device work are timed at the
-    host's pace."""
-    import torch
-    if warmup:
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    torch.cuda.synchronize()
-    first = start.elapsed_time(end)
-    if max_reps == 1:
-        return first
-    reps = max(1, min(max_reps, int(budget_ms / max(first, 1e-3))))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, budget_ms: float = 200.0):
-    """(Mean device time per call of ``fn``, "graph"), by CUDA graph
-    replay: ``k`` calls (about 1 ms of work, at most 64) captured back
-    to back into one graph, replayed until ``budget_ms``; a replay's
-    host path is a few µs against ~1 ms of device work, so the host
-    never holds the device back.  A ``fn`` that cannot be captured (a
-    library call that synchronises) is timed by ``device_ms`` instead:
-    (time, "spin")."""
-    import torch
-    from repro_torch.core import LAUNCHES
-    fn()
-    torch.cuda.synchronize()
-    first = time_ms(fn, max_reps=1, warmup=False)
-    k = max(1, min(64, int(1.0 / max(first, 1e-3))))
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with LAUNCHES.capturing():      # a capture launches nothing
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                for _ in range(k):
-                    fn()
-    except RuntimeError:
-        del graph
-        torch.cuda.synchronize()
-        return device_ms(fn, budget_ms), "spin"
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    reps = max(3, min(200, int(budget_ms / max(start.elapsed_time(end),
-                                               1e-3))))
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / (reps * k)
-    del graph
-    return ms, "graph"
-
-
-def device_ms(fn, budget_ms: float = 300.0, max_reps: int = 100) -> float:
-    """Mean device time per call of ``fn``: the calls are queued behind a
-    spinning kernel that lasts twice their measured host path, so the
-    events see the device run them back to back (while the host keeps
-    ahead of the queue: ``graph_ms`` is the robust measure, this one is
-    for what cannot be captured)."""
-    import torch
-    fn()
-    first = time_ms(fn, max_reps=1, warmup=False)
-    reps = max(3, min(max_reps, int(budget_ms / max(first, 1e-3))))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        fn()                    # enqueue only: the host path of one call
-    host_s = (time.perf_counter() - t0) / 3
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    # the spin counts cycles; 2e9 a second is above the H100's clock
-    torch.cuda._sleep(int(reps * max(50e-6, 2 * host_s) * 2e9))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def library_call(im, args, batched: bool = False):
-    """One PyTorch call computing a lone group's function, or None; with
+    """One PyTorch call computing a lone group's (or the RMSNorm
+    group's, ``F.rms_norm``) function, or None; with
     ``batched``, over a leading batch axis of every argument (matrix
     products as ``matmul``, scalars broadcast along the batch)."""
     import torch
     calls = im.fusion.calls
+    ext = list(im.fusion.external_inputs)     # x*x reads x once
+    if [c.elem.name for c in calls] == ["ew_mul", "sum_reduce",
+                                        "rms_scale"] and not batched \
+            and hasattr(torch.nn.functional, "rms_norm"):
+        # x * rsqrt(sum(x^2) / n + eps) * gamma, with inv_d = 1 / n
+        x, gamma = (args[ext.index(v)] for v in calls[2].args[2:])
+        return lambda: torch.nn.functional.rms_norm(
+            x[None], (x.shape[0],), gamma, eps=1e-6)[0]
     if len(calls) != 1:
         return None
     name = calls[0].elem.name
-    ext = list(im.fusion.external_inputs)     # x*x reads x once
     args = [args[ext.index(v)] for v in calls[0].args]
     if batched:
         if name in ("gemv", "attn_score"):
@@ -593,6 +536,63 @@ def library_sequence(name, d):
     return lambda: (F.rms_norm(d["x"][None], (n,), d["gamma"], eps=1e-6)[0],)
 
 
+def heal_corrupt_plan(FusionCompiler, PlanCache, REGISTRY, make_inputs,
+                      n: int) -> dict:
+    """Compile AXPYDOT at ``n`` against a disk cache, swap two input refs
+    of its plan entry on disk (a plan that still resolves but routes the
+    wrong values), compile again under the full verifier: the served
+    entry must be rejected, dropped and republished, and the outputs
+    right."""
+    import logging
+    import tempfile
+
+    import numpy as np
+    seq = REGISTRY["AXPYDOT"]
+    shapes = seq.shapes(n)
+    warnings = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            warnings.append(record.getMessage())
+
+    log = logging.getLogger("repro_torch.compiler")
+    handler = Catch(level=logging.WARNING)
+    log.addHandler(handler)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            FusionCompiler(cache=PlanCache(disk_dir=d), verify=False).compile(
+                seq.script, shapes)
+            (entry,) = [os.path.join(d, f) for f in os.listdir(d)
+                        if f.endswith(".plan.json")]
+            with open(entry) as f:
+                plan = json.load(f)
+            refs = plan["groups"][0]["inputs"]
+            a, b = (i for i, r in enumerate(refs)
+                    if r[0] == "input" and r[1] in ("w", "v"))
+            refs[a], refs[b] = refs[b], refs[a]
+            with open(entry, "w") as f:
+                json.dump(plan, f)
+            cache = PlanCache(disk_dir=d)
+            prog = FusionCompiler(cache=cache, verify=True).compile(
+                seq.script, shapes)
+            inputs = make_inputs(seq, n, seed=1)
+            got = prog(**inputs)
+            want = seq.reference(**{k: np.asarray(x, np.float64)
+                                    for k, x in inputs.items()})
+            err = max(norm_rel(x.cpu().numpy(), y) for x, y in zip(got, want))
+            with open(entry) as f:
+                republished = json.load(f)
+    finally:
+        log.removeHandler(handler)
+    rejected = any("rejected by static verification" in w for w in warnings)
+    return {"corrupted": "AXPYDOT: two input refs swapped",
+            "rejected": rejected, "disk_writes": cache.stats.disk_writes,
+            "republished_fixed": republished != plan,
+            "heal_norm_rel_err": err,
+            "healed": rejected and cache.stats.disk_writes == 1
+            and republished != plan and err <= RTOL}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="port smoke run on one GPU")
     ap.add_argument("--n2", type=int, default=4096,
@@ -607,6 +607,8 @@ def main(argv=None):
                     help="requests in the engine phase's stream")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the engine phase's stream and inputs")
+    ap.add_argument("--budget", type=int, default=AUTOTUNE_BUDGET,
+                    help="candidates the autotune phase measures a program")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -626,6 +628,11 @@ def main(argv=None):
         from repro_torch.core.codegen import _batched_dense_fn
         from repro_torch.core.cuda_codegen import torch_dtype
         from repro_torch.core.masking import MASK_INPUT, mask_row
+        from repro_torch.core.timing import (device_ms, graph_ms, replay_s,
+                                             time_ms)
+        from repro_torch.analysis import verify_plan
+        from repro_torch.core import autotune, scheduler
+        from repro_torch.kernels import _build
         from repro_torch.launch.serve import engine_stream, serve_blas
         from repro_torch.optim import fused_adamw_update
         from repro_torch.programs import BLAS, REGISTRY, make_inputs
@@ -1117,7 +1124,8 @@ def main(argv=None):
     for mode in MODES:
         res = serve_blas(argparse.Namespace(
             blas="GEMVER", n=n2, requests=args.requests, mode=mode,
-            backend="cuda", device="cuda", seed=0))
+            backend="cuda", device="cuda", seed=0, autotune=False,
+            refit=False, budget=args.budget))
         p, a = progs[("GEMVER", mode)], dev_inputs[("GEMVER", mode)]
         replay_ms = device_ms(lambda: p.run(*a))
         eager_ms = device_ms(lambda: p.fn(*a))
@@ -1510,38 +1518,41 @@ def main(argv=None):
         fail("; ".join(failures))
 
     # -- 10. times -----------------------------------------------------------
+    def time_k1(fn, graph, im, a, out, err, launches, **extra):
+        """The time record of one K1 group (``out``: its outputs on
+        ``a``), emitted as a ``time`` line with ``extra``."""
+        raw, ws = fn.buffers(a[0].device)
+        ms, how = graph_ms(lambda: fn.launch_into(a, raw, ws))
+        wrapper_ms = time_ms(lambda: fn.launch(*a))
+        plain_ms = time_ms(lambda: tiled_reference(graph, im, *a),
+                           max_reps=1, warmup=False)
+        lib = library_call(im, a)
+        lib_ms = lib_err = None
+        if lib is not None:
+            lib_err = norm_rel(lib().cpu().numpy(), out[0].cpu().numpy())
+            if not lib_err <= RTOL:
+                failures.append(f"library call for {fn.name} disagrees "
+                                f"with the kernel: {lib_err:.3g}")
+            lib_ms = graph_ms(lib)[0]
+        b_ms, b_by = bound(im)
+        rec = {"name": fn.name, "route": "cuda", "source": SOURCE,
+               "replaces": REPLACES, "launches": launches.get(fn.name, 0),
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        emit({"phase": "time", **extra, **rec, "timed_by": how,
+              "wrapper_ms": wrapper_ms, "library_norm_rel_err": lib_err,
+              "grid": list(im.grid), "blocks": list(im.blocks),
+              "units": [ph.units for ph in fn.layout.phases],
+              "slices": [ph.S for ph in fn.layout.phases],
+              "bound_share": b_ms / ms})
+        return rec
+
     records = []
     for k in keys:
         for fn in progs[k].group_fns:
             prog, im, a = group_in[fn.name]
-            raw, ws = fn.buffers(a[0].device)
-            ms, how = graph_ms(lambda: fn.launch_into(a, raw, ws))
-            wrapper_ms = time_ms(lambda: fn.launch(*a))
-            plain_ms = time_ms(lambda: tiled_reference(prog.graph, im, *a),
-                               max_reps=1, warmup=False)
-            lib = library_call(im, a)
-            lib_ms = lib_err = None
-            if lib is not None:
-                lib_err = norm_rel(lib().cpu().numpy(),
-                                   kernel_out[fn.name][0].cpu().numpy())
-                if not lib_err <= RTOL:
-                    failures.append(f"library call for {fn.name} disagrees "
-                                    f"with the kernel: {lib_err:.3g}")
-                lib_ms = graph_ms(lib)[0]
-            b_ms, b_by = bound(im)
-            rec = {"name": fn.name, "route": "cuda", "source": SOURCE,
-                   "replaces": REPLACES, "launches": launches.get(fn.name, 0),
-                   "max_abs_err": kernel_err[fn.name], "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                   "library_ms": lib_ms}
-            records.append(rec)
-            emit({"phase": "time", **rec, "timed_by": how,
-                  "wrapper_ms": wrapper_ms,
-                  "library_norm_rel_err": lib_err, "grid": list(im.grid),
-                  "blocks": list(im.blocks),
-                  "units": [ph.units for ph in fn.layout.phases],
-                  "slices": [ph.S for ph in fn.layout.phases],
-                  "bound_share": b_ms / ms})
+            records.append(time_k1(fn, prog.graph, im, a, kernel_out[fn.name],
+                                   kernel_err[fn.name], launches))
 
     def tensors_of(x):
         return tuple(t for t in (x if isinstance(x, tuple) else (x,))
@@ -1585,6 +1596,171 @@ def main(argv=None):
         time_hand(kernel, e)
     if failures:
         fail("; ".join(failures))
+
+    # -- 11. calibrate: the card's constants for the cost model -------------
+    cal_cache = PlanCache()
+    t0 = time.perf_counter()
+    hw_cal = autotune.calibrate_hardware("cuda", cache=cal_cache)
+    cal_rec = cal_cache.get_measurement(autotune.calibration_key("cuda"))
+    emit({"phase": "calibrate", "nvidia_smi": smi_line, "name": hw_cal.name,
+          "hbm_bw": hw_cal.hbm_bw,
+          "launch_overhead_s": hw_cal.launch_overhead_s,
+          "peak_flops": hw_cal.peak_flops,
+          "unrounded": cal_rec.get("unrounded"),
+          "bw_sweep": cal_rec.get("bw_sweep"),
+          "seconds": time.perf_counter() - t0})
+    if not all(math.isfinite(x) and x > 0 for x in
+               (hw_cal.hbm_bw, hw_cal.launch_overhead_s, hw_cal.peak_flops)):
+        fail(f"calibrate: constants not finite and positive: {hw_cal}")
+
+    # -- 12. autotune: every program, measured on the card -------------------
+    at_cache = PlanCache()
+    cc_at = FusionCompiler(hw="calibrate", backend="cuda", device="cuda",
+                           cache=at_cache, autotune_budget=args.budget)
+    # build every candidate group of every program at once, one nvcc a
+    # distinct source, so each pass finds its kernels built
+    traces = {name: cc_at.trace(REGISTRY[name].script,
+                                REGISTRY[name].shapes(size(name)))
+              for name in names}
+    t0 = time.perf_counter()
+    sources = set()
+    for name, g in traces.items():
+        for combo in scheduler.enumerate_combinations(cc_at.space(g),
+                                                      limit=args.budget):
+            sources |= {autotune.group_source(g, im) for im in combo.impls}
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        for fut in [pool.submit(_build.build, src) for src in sources]:
+            fut.result()
+    emit({"phase": "autotune_build", "sources": len(sources),
+          "build_s": time.perf_counter() - t0})
+    winners, at_lines = {}, {}
+    LAUNCHES.reset()
+    for name in names:
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        winners[name] = cc_at.compile(REGISTRY[name].script,
+                                      REGISTRY[name].shapes(size(name)),
+                                      mode="autotune",
+                                      label=f"autotune/{name}")
+        rep_ = cc_at.last_autotune
+        at_lines[name] = {
+            "phase": "autotune", "program": name, "n": size(name),
+            "budget": args.budget, "winner_rank": rep_.winner_index,
+            "candidates": [{"rank_pred": c.rank_pred, "t_pred": c.t_pred,
+                            "t_meas": c.t_meas, "groups": c.n_groups}
+                           for c in rep_.candidates],
+            "n_groups_measured": rep_.n_groups_measured,
+            "n_groups_cached": rep_.n_groups_cached,
+            "build_s": rep_.build_s, "pass_s": time.perf_counter() - t0,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "memory_allocated_before": held}
+        if rep_.winner.t_meas > rep_.candidates[0].t_meas:
+            failures.append(f"autotune {name}: the winner's t_meas is above "
+                            f"candidate 0's")
+    measure_launches = dict(LAUNCHES.by_kernel)
+    if not any(k.startswith("autotune[") and v > 0
+               for k, v in measure_launches.items()):
+        failures.append("autotune: no group was launched to be measured")
+    # the winners' kernels (most are best's, built in phase 1)
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        for fut in [pool.submit(p.module.build) for p in winners.values()]:
+            fut.result()
+    at_inputs = {name: winners[name].prepare(**inputs[name])
+                 for name in names}
+    LAUNCHES.reset()
+    at_outs = {name: winners[name].fn(*at_inputs[name]) for name in names}
+    torch.cuda.synchronize()
+    at_launches = dict(LAUNCHES.by_kernel)
+    for name in names:
+        prog = winners[name]
+        ref64 = REGISTRY[name].reference(
+            **{n: np.asarray(x, np.float64) for n, x in inputs[name].items()})
+        ref64 = ref64 if isinstance(ref64, tuple) else (ref64,)
+        err = max(norm_rel(x.cpu().numpy(), r)
+                  for x, r in zip(at_outs[name], ref64))
+        counts = [at_launches.get(fn.name, 0) for fn in prog.group_fns]
+        # both replays and the summed group times by one timer at one
+        # discipline (``replay_s``, ``GROUP_INNER`` calls a graph)
+        win_ms = replay_s(lambda p=prog, a=at_inputs[name]: p.fn(*a),
+                          inner=autotune.GROUP_INNER,
+                          reps=autotune.MEAS_REPS) * 1e3
+        best_ms = replay_s(lambda p=progs[(name, "best")],
+                           a=dev_inputs[(name, "best")]: p.fn(*a),
+                           inner=autotune.GROUP_INNER,
+                           reps=autotune.MEAS_REPS) * 1e3
+        sum_ms = at_lines[name]["candidates"][
+            at_lines[name]["winner_rank"]]["t_meas"] * 1e3
+        emit({**at_lines[name], "winner_groups": prog.n_groups,
+              "launches": counts, "norm_rel_err": err,
+              "winner_replay_ms": win_ms, "best_replay_ms": best_ms,
+              "winner_vs_best": win_ms / best_ms,
+              "winner_sum_group_ms": sum_ms,
+              "sum_vs_replay": sum_ms / win_ms})
+        if not err <= RTOL:
+            failures.append(f"autotune {name}: winner's error {err:.3g}")
+        if counts != [1] * prog.n_groups:
+            failures.append(f"autotune {name}: launch counts {counts}")
+    # the winners' groups on the kernels line
+    for name in names:
+        prog = winners[name]
+        outs_so_far = []
+        for gp, fn, im in zip(prog.plan.groups, prog.group_fns,
+                              prog.group_impls):
+            a = group_args(prog, outs_so_far, gp, at_inputs[name])
+            got = fn.launch(*a)
+            want = tiled_reference(prog.graph, im, *a)
+            torch.cuda.synchronize()
+            rel = max(tensor_err(x, y)[0] for x, y in zip(got, want))
+            mabs = max(float((x - y).abs().max()) for x, y in zip(got, want))
+            if not rel <= RTOL:
+                failures.append(f"autotune kernel {fn.name}: error {rel:.3g} "
+                                f"against its plain version")
+            path_records.append(time_k1(fn, prog.graph, im, a, got, mabs,
+                                        at_launches, path="autotune",
+                                        norm_rel_err=rel))
+            outs_so_far.append(want)
+    # a second pass against the same cache measures nothing
+    for name in names:
+        cc_at.search(cc_at.space(traces[name]), "autotune")
+        rep_ = cc_at.last_autotune
+        emit({"phase": "autotune_warm", "program": name,
+              "n_groups_measured": rep_.n_groups_measured,
+              "n_measured": rep_.n_measured,
+              "group_table_hit_rate": rep_.group_table_hit_rate,
+              "winner_rank": rep_.winner_index})
+        if rep_.n_groups_measured or rep_.group_table_hit_rate != 1.0 \
+                or rep_.winner_index != at_lines[name]["winner_rank"]:
+            failures.append(f"autotune_warm {name}: measured "
+                            f"{rep_.n_groups_measured} groups, hit rate "
+                            f"{rep_.group_table_hit_rate:.2f}")
+    hw_before = cc_at.hw
+    cc_at.refit_hardware()
+    constants = ("name", "hbm_bw", "peak_flops", "f32_scale",
+                 "launch_overhead_s")
+    emit({"phase": "refit", "records": len(at_cache.group_records()),
+          "before": {k: getattr(hw_before, k) for k in constants},
+          "after": {k: getattr(cc_at.hw, k) for k in constants}})
+    if failures:
+        fail("; ".join(failures))
+    winner_plans = {name: (p.plan, p.graph) for name, p in winners.items()}
+    del winners, at_inputs, at_outs
+
+    # -- 13. verify: the full verifier over every plan, and one heal -------
+    n_plans = n_err = 0
+    for k in keys:
+        diags = verify_plan(progs[k].plan, progs[k].graph, hw=cc.hw)
+        n_plans += 1
+        n_err += sum(d.is_error for d in diags)
+    for plan, g in winner_plans.values():
+        diags = verify_plan(plan, g, hw=hw_before)
+        n_plans += 1
+        n_err += sum(d.is_error for d in diags)
+    heal = heal_corrupt_plan(FusionCompiler, PlanCache, REGISTRY, make_inputs,
+                             args.n1)
+    emit({"phase": "verify", "plans": n_plans, "errors": n_err, **heal})
+    if n_err or not heal["healed"]:
+        fail(f"verify: {n_err} errors over {n_plans} plans, heal {heal}")
 
     emit({"kernels": records + path_records})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

@@ -1,6 +1,7 @@
-"""Plan/program cache: the program layer and the plan layer.
+"""Plan/program cache: the program, plan, packed-plan and measurement
+layers.
 
-Two content-addressed layers, both keyed on hex digests computed by the
+Content-addressed layers, all keyed on hex digests computed by the
 compiler:
 
 * **program layer** (in-memory LRU only) — maps a *pre-trace* key
@@ -18,6 +19,14 @@ compiler:
   config) to a serialized ``PackedPlan``, the member concatenation a
   multi-graph program is built from.  The key's order-independence is
   what makes a drain hitting the same sequence mix, in any order, a hit.
+* **measurement layer** (in-memory LRU + the same on-disk machinery,
+  ``*.meas.json``) — maps a measured-cost key (computed by
+  ``core.autotune``: a group's signature, grid order and blocks and the
+  hardware/backend fingerprint) to one timing record.  A hit lets
+  ``mode="autotune"`` skip re-measuring a group; shared through the
+  disk dir, processes measure each group once.  The key pins the
+  fingerprint, so first-writer-wins keeps the protocol lock-free at the
+  cost of accepting one process's (min-of-reps) sample.
 
 ``stats`` also carries the serving engine's telemetry: per-bucket
 compile hits and latencies (``BucketStats``) and a bounded window of
@@ -33,6 +42,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import json
 import logging
 import os
 import tempfile
@@ -72,6 +82,10 @@ class CacheStats:
     pack_misses: int = 0
     pack_disk_hits: int = 0
     pack_writes: int = 0
+    meas_hits: int = 0
+    meas_misses: int = 0
+    meas_disk_hits: int = 0
+    meas_writes: int = 0
     buckets: dict[str, BucketStats] = dataclasses.field(default_factory=dict)
     # submit -> dispatch wait per request (serving engine): a bounded
     # window of recent samples for percentiles
@@ -133,12 +147,19 @@ class _LRU:
     def pop(self, key: str):
         return self._d.pop(key, None)
 
+    def items(self):
+        """Snapshot of (key, value) pairs, LRU order (no touch)."""
+        return list(self._d.items())
+
 
 class PlanCache:
     def __init__(self, capacity: int = 256, disk_dir: str | None = None):
         self._programs = _LRU(capacity)
         self._plans = _LRU(capacity)
         self._packs = _LRU(capacity)
+        # measurement records are tiny and an autotune pass produces
+        # `budget` of them per graph — give the layer headroom
+        self._measurements = _LRU(capacity * 8)
         self.disk_dir = disk_dir if disk_dir is not None else os.environ.get(_ENV_DIR)
         self.stats = CacheStats()
 
@@ -259,12 +280,110 @@ class PlanCache:
         if path and self._publish(path, packed.to_json()):
             self.stats.pack_writes += 1
 
+    def drop_plan(self, key: str):
+        """Remove a plan from memory and disk — the heal step when the
+        verifier rejects a cache-served plan; without the unlink,
+        first-writer-wins would keep the bad file and poison the key
+        for every process sharing the dir."""
+        self._plans.pop(key)
+        path = self._disk_path(key)
+        if path:
+            self._unlink(path)
+
     def drop_packed_plan(self, key: str):
         """Remove a packed plan from memory and disk (the heal step when
         a cache-served pack is rejected), so that first-writer-wins can
         republish its key."""
         self._packs.pop(key)
         path = self._pack_path(key)
+        if path:
+            self._unlink(path)
+
+    # -- measurement layer (autotune measured costs) --------------------------
+    def _meas_path(self, key: str) -> str | None:
+        if not self.disk_dir:
+            return None
+        return os.path.join(self.disk_dir, f"{key}.meas.json")
+
+    def get_measurement(self, key: str) -> dict | None:
+        rec = self._measurements.get(key)
+        if rec is not None:
+            self.stats.meas_hits += 1
+            return rec
+        path = self._meas_path(key)
+        if path and os.path.exists(path):
+            try:
+                with open(path) as f:
+                    rec = json.load(f)
+            except (OSError, ValueError) as e:
+                rec = None
+                log.warning("unreadable measurement cache entry %s: %s "
+                            "[RPL313]", path, e)
+            if not isinstance(rec, dict):
+                # stale/corrupt/wrong-shape entry: drop it so the
+                # first-writer-wins put_measurement can republish —
+                # otherwise a bad file poisons its key fleet-wide
+                rec = None
+                self._unlink(path)
+            if rec is not None:
+                self.stats.meas_hits += 1
+                self.stats.meas_disk_hits += 1
+                self._measurements.put(key, rec)
+                return rec
+        self.stats.meas_misses += 1
+        return None
+
+    def put_measurement(self, key: str, rec: dict):
+        self._measurements.put(key, rec)
+        path = self._meas_path(key)
+        if path and self._publish(path, json.dumps(rec)):
+            self.stats.meas_writes += 1
+
+    def forget_measurement(self, key: str):
+        """Drop the in-memory copy only (the disk record, if any,
+        stands).  Lets a caller re-read the store's first-written
+        record after publishing its own — the convergence step of the
+        calibration protocol."""
+        self._measurements.pop(key)
+
+    def group_records(self) -> list[dict]:
+        """Every per-group measurement record visible to this cache —
+        the in-memory layer plus (when a disk dir is set) all
+        ``*.meas.json`` entries — deduplicated by key.  This is the
+        store ``HardwareModel.refit`` regresses over; records of other
+        kinds sharing the measurement namespace (whole-program timings,
+        calibration) are filtered here AND re-checked by ``refit``, so
+        a mixed-generation cache dir never poisons the regression.
+        Unreadable disk entries are skipped, not healed: enumeration
+        must stay read-only so concurrent writers are undisturbed."""
+        recs: dict[str, dict] = {}
+        for key, rec in self._measurements.items():
+            if isinstance(rec, dict) and rec.get("kind") == "group":
+                recs[key] = rec
+        if self.disk_dir and os.path.isdir(self.disk_dir):
+            suffix = ".meas.json"
+            for name in sorted(os.listdir(self.disk_dir)):
+                if not name.endswith(suffix):
+                    continue
+                key = name[:-len(suffix)]
+                if key in recs:
+                    continue
+                try:
+                    with open(os.path.join(self.disk_dir, name)) as f:
+                        rec = json.load(f)
+                except (OSError, ValueError):
+                    continue
+                if isinstance(rec, dict) and rec.get("kind") == "group":
+                    recs[key] = rec
+        return list(recs.values())
+
+    def drop_measurement(self, key: str):
+        """Remove a measurement from memory AND disk.  For callers that
+        found the record invalid for their schema: without the unlink,
+        first-writer-wins would keep the bad file and poison the key
+        for every cache-sharing process."""
+        self._measurements.pop(key)
+        path = self._meas_path(key)
         if path:
             self._unlink(path)
 

@@ -229,17 +229,6 @@ def _program_fn(plan: ExecutionPlan, fns: list[Callable]) -> Callable:
     return program
 
 
-def _check_groups(plan: ExecutionPlan):
-    """Every group must produce an output.  A dead call (one whose
-    output nothing reads) forms a zero-output group; this raises RPL204
-    as the reference does under full verification."""
-    for gi, gp in enumerate(plan.groups):
-        if gp.n_outputs < 1:
-            raise VerificationError.single(
-                "RPL204", f"plan.groups[{gi}].n_outputs",
-                f"group must produce >= 1 outputs, has {gp.n_outputs!r}")
-
-
 def compile_plan(g: Graph, plan: ExecutionPlan, hw: HardwareModel = V5E,
                  device="cuda", label: str = "") -> CompiledProgram:
     """ExecutionPlan -> executable on ``device``.  On the ``cuda``
@@ -249,7 +238,6 @@ def compile_plan(g: Graph, plan: ExecutionPlan, hw: HardwareModel = V5E,
     kernels in ``LAUNCHES`` (default: the plan signature's head)."""
     dev = resolve_device(device)
     impls = plan.bind(g, hw)
-    _check_groups(plan)
     fns, module = _group_fns(g, plan, impls, label, batched=False)
     return CompiledProgram(graph=g, plan=plan, group_impls=impls,
                            fn=_program_fn(plan, fns), device=dev,
@@ -264,7 +252,6 @@ def compile_plan_batched(g: Graph, plan: ExecutionPlan,
     ``ctypes`` launch; K1 takes the batch as its items' outer factor)."""
     dev = resolve_device(device)
     impls = plan.bind(g, hw)
-    _check_groups(plan)
     fns, module = _group_fns(g, plan, impls, label, batched=True)
     program = _program_fn(plan, fns)
     program.__name__ = "batched_" + plan.signature[:8]
@@ -393,7 +380,6 @@ def compile_plan_packed(graphs: Sequence[Graph], packed: PackedPlan,
     member_impls, fns, modules = [], [], []
     for g, plan in zip(graphs, packed.members):
         impls = plan.bind(g, hw)
-        _check_groups(plan)
         member_impls.append(tuple(impls))
         member_fns, module = _group_fns(g, plan, impls, "", batched=True)
         fns.extend(member_fns)
@@ -407,6 +393,9 @@ def compile_plan_packed(graphs: Sequence[Graph], packed: PackedPlan,
 def compile_combination(g: Graph, combo: Combination, backend: str = "torch",
                         device="cuda", hw: HardwareModel = V5E
                         ) -> CompiledProgram:
-    """A Combination straight to an executable (no cache, no search)."""
+    """A Combination straight to an executable (no cache, no search);
+    the plan passes ``compiler.check_plan`` first."""
+    from .compiler import check_plan
     plan = build_plan(g, combo, backend=backend)
+    check_plan(plan, g, hw)
     return compile_plan(g, plan, hw=hw, device=device)

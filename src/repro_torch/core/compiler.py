@@ -18,28 +18,67 @@ with two cache layers short-circuiting repeat work:
   processes) skips space generation and search, the expensive stages.
 
 The search runs under the reference's ``V5E`` cost-model constants, so
-it picks exactly the plans the JAX reference picks.  Entry points run on
+it picks exactly the plans the JAX reference picks, unless the caller
+passes ``hw="calibrate"`` (constants measured on this machine) or a
+model of its own.  ``mode="autotune"`` measures the top candidates
+(``core.autotune``).  Every cache-served plan is checked by the static
+verifier before it runs (``repro_torch.analysis``).  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import logging
+import os
 import time
 from typing import Callable, Sequence
 
 import numpy as np
 
-from . import codegen, graph, scheduler
+from . import autotune, codegen, graph, scheduler
 from .cache import PlanCache, default_cache
-from .diagnostics import KNOWN_BACKENDS, VerificationError
+from .diagnostics import (KNOWN_BACKENDS, UnsupportedGroupError,
+                          VerificationError, raise_if_errors)
 from .plan import (build_packed_plan, build_plan, canonical_pack_order,
                    graph_signature, pack_signature, plan_fingerprint)
 from .predictor import V5E, HardwareModel
 from .scheduler import Combination, OptimizationSpace
 
+log = logging.getLogger("repro_torch.compiler")
+
 #: search modes with names (integer ranks are also accepted)
-MODES = ("best", "unfused")
+MODES = ("best", "unfused", "autotune")
+
+#: the verifier's codes for a group the backend cannot emit
+UNSUPPORTED_CODES = {"RPL214", "RPL215"}
+
+#: env var switching every compiler to the FULL verification pass
+#: (graph-bound plan checks on every compile) — the test suite sets it;
+#: the same variable as the reference's
+VERIFY_ENV = "REPRO_VERIFY"
+
+
+def _env_verify() -> bool:
+    return os.environ.get(VERIFY_ENV, "").strip().lower() not in (
+        "", "0", "false", "no")
+
+
+def check_plan(plan, g: graph.Graph, hw: HardwareModel = V5E,
+               full: bool = False):
+    """Raise on a freshly built plan the static verifier rejects: the
+    structural pass (a dead call's zero-output group is RPL204), or
+    with ``full`` the graph-bound pass.  Such a plan is a compiler bug,
+    not a stale cache entry — it is surfaced, never published.  Raises
+    ``UnsupportedGroupError`` where only RPL214/215 fire (a group the
+    backend cannot emit, as codegen would), else ``VerificationError``."""
+    from ..analysis.checks import verify_plan, verify_plan_structural
+    errors = [d for d in (verify_plan(plan, g, hw=hw) if full
+                          else verify_plan_structural(plan)) if d.is_error]
+    if errors:
+        unsupported = {d.code for d in errors} <= UNSUPPORTED_CODES
+        raise (UnsupportedGroupError if unsupported
+               else VerificationError)(errors)
 
 
 @dataclasses.dataclass
@@ -61,23 +100,57 @@ class CompileReport:
 
 
 class FusionCompiler:
-    def __init__(self, hw: HardwareModel = V5E, backend: str = "cuda",
+    def __init__(self, hw: HardwareModel | str = V5E, backend: str = "cuda",
                  device="cuda", max_impls_per_fusion: int = 64,
-                 dtype=np.float32, cache: PlanCache | bool | None = True):
+                 dtype=np.float32, cache: PlanCache | bool | None = True,
+                 autotune_budget: int = 8,
+                 autotune_reps: int = autotune.MEAS_REPS,
+                 autotune_warmup: int = autotune.MEAS_WARMUP,
+                 verify: bool | None = None):
         """``backend`` is ``"cuda"`` (one generated kernel per fused
         group) or ``"torch"`` (plain tensor code per group); ``device``
         is where programs run — asking for ``"cuda"`` on a machine
-        without a CUDA device raises."""
+        without a CUDA device raises.
+
+        ``hw`` takes a HardwareModel or the string ``"calibrate"``
+        (micro-benchmark ``device`` against this compiler's cache,
+        ``autotune.calibrate_hardware``).  ``autotune_budget`` is how
+        many predicted-best candidates ``mode="autotune"`` measures; it
+        is part of the autotune cache keys (a bigger budget is a deeper
+        search), while reps/warmup are measurement discipline only.
+
+        ``verify`` selects the static-verification depth.  ``False``:
+        the cheap always-on subset still runs on every cache-served plan
+        (structural + signature — a corrupt entry is dropped and
+        recompiled, never executed).  ``True`` (or env ``REPRO_VERIFY=1``
+        when ``None``): every compile additionally runs the full
+        graph-bound pass — fusion re-analysis, routing reconstruction,
+        K1's layout and shared-memory contracts on the ``cuda`` backend
+        — and raises ``VerificationError`` on any error diagnostic."""
         self._check_backend(backend)
+        self.verify = _env_verify() if verify is None else bool(verify)
         self.device = codegen.resolve_device(device)
         if cache is True:
             self.cache: PlanCache | None = default_cache()
         else:
             self.cache = cache or None
+        if isinstance(hw, str):
+            if hw != "calibrate":
+                raise ValueError(f"unknown hw {hw!r}: pass a HardwareModel "
+                                 "or the string 'calibrate'")
+            # calibrate against THIS compiler's cache, so processes
+            # sharing plans through it share the constants too
+            hw = autotune.calibrate_hardware(self.device, cache=self.cache)
         self.hw = hw
         self.backend = backend
         self.max_impls = max_impls_per_fusion
         self.dtype = np.dtype(dtype)
+        self.autotune_budget = autotune_budget
+        self.autotune_reps = autotune_reps
+        self.autotune_warmup = autotune_warmup
+        #: report of the most recent autotune *search* this compiler ran
+        #: (None until one runs; cache-served compiles don't update it)
+        self.last_autotune: autotune.AutotuneReport | None = None
 
     @staticmethod
     def _check_backend(backend: str):
@@ -96,10 +169,16 @@ class FusionCompiler:
     def space(self, g: graph.Graph) -> OptimizationSpace:
         return scheduler.build_space(g, self.hw, self.max_impls)
 
-    def search(self, space: OptimizationSpace, mode) -> Combination:
+    def search(self, space: OptimizationSpace, mode,
+               backend: str | None = None) -> Combination:
         """Pick a combination: ``'best'`` / ``'unfused'`` / an integer
-        rank into the predicted-order stream."""
+        rank into the predicted-order stream / ``'autotune'`` (measure
+        the top ``autotune_budget`` candidates and take the measured
+        winner)."""
         self._mode_key(mode)            # validate (bools, unknown strings)
+        if mode == "autotune":
+            combo, _ = self._autotune(space, backend or self.backend)
+            return combo
         if mode == "best":
             return scheduler.best_combination(space)
         if mode == "unfused":
@@ -122,10 +201,39 @@ class FusionCompiler:
                 f"only {len(combos)} legal combination(s)")
         return combos[mode]
 
+    def _autotune(self, space: OptimizationSpace, backend: str):
+        """One call site for the measured-cost search (used by both
+        ``search`` and ``_plan_for``); records ``last_autotune``."""
+        combo, plan, report = autotune.autotune_combination(
+            space, hw=self.hw, backend=backend, device=self.device,
+            cache=self.cache, budget=self.autotune_budget,
+            reps=self.autotune_reps, warmup=self.autotune_warmup)
+        self.last_autotune = report
+        return combo, plan
+
+    def refit_hardware(self) -> HardwareModel:
+        """Recalibrate this compiler's cost model from the cache's
+        accumulated per-group measurement records
+        (``HardwareModel.refit``) and adopt the result.
+
+        With no cache or an empty/too-small group table this is a
+        strict no-op (``self.hw`` unchanged, later compiles produce
+        bit-identical plans).  When the refit *does* change the
+        constants, the model's repr — a component of every plan and
+        program cache key — changes with it, so subsequent compiles
+        search fresh plans under the better predictor."""
+        if self.cache is not None:
+            self.hw = self.hw.refit(self.cache.group_records())
+        return self.hw
+
     # -- cache keys --------------------------------------------------------
     def _mode_key(self, mode):
-        """Validate ``mode`` and return its cache-key form.  Bools are
-        rejected explicitly: ``isinstance(True, int)`` holds."""
+        """Validate ``mode`` and return its cache-key form.
+
+        ``'autotune'`` keys as ``('autotune', budget)`` — a bigger
+        budget is a deeper search, so it must not alias a shallower
+        one.  Bools are rejected explicitly: ``isinstance(True, int)``
+        holds."""
         if isinstance(mode, bool) or not isinstance(mode, (str, int)) or \
                 (isinstance(mode, str) and mode not in MODES):
             raise VerificationError.single(
@@ -133,6 +241,8 @@ class FusionCompiler:
                 f"unknown mode {mode!r}: valid modes are "
                 f"{', '.join(repr(m) for m in MODES)}, or an integer "
                 f"rank into the predicted-order combination stream")
+        if mode == "autotune":
+            return ("autotune", self.autotune_budget)
         return mode
 
     def _config_key(self, backend: str, mode_key) -> str:
@@ -244,22 +354,73 @@ class FusionCompiler:
                         self._config_key(backend, mode_key)))
         return hashlib.sha256(payload.encode()).hexdigest()
 
-    def _plan_for(self, g: graph.Graph, mode, backend: str, mode_key):
-        """Plan-cache-consulting search."""
-        cache = self.cache
-        plan = plan_key = None
+    # -- shared plan resolution ---------------------------------------------
+    def _verify_served_plan(self, plan, g: graph.Graph,
+                            plan_key: str | None, backend: str) -> bool:
+        """The always-on safety net: every cache-served plan — in-memory
+        or disk-deserialized, possibly written by another process — is
+        verified BEFORE codegen can execute it.  Default depth is the
+        quick subset (structural + signature + coverage, microseconds);
+        under ``verify`` it is the full graph-bound pass.  A rejected
+        plan (or one for another backend under our key) is *healed*:
+        dropped from memory and disk (so first-writer-wins can
+        republish) and the caller recompiles — never raises, never
+        executes the bad plan."""
+        from ..analysis.checks import verify_plan, verify_plan_quick
+        diags = (verify_plan(plan, g, hw=self.hw) if self.verify
+                 else verify_plan_quick(plan, g))
+        errors = [d.format() for d in diags if d.is_error]
+        if plan.backend != backend:
+            errors.append(f"plan backend {plan.backend!r} under a "
+                          f"{backend!r} key")
+        if not errors:
+            return True
+        log.warning(
+            "cache-served plan rejected by static verification; healing "
+            "(drop + recompile): %s", "; ".join(errors))
+        if self.cache is not None and plan_key is not None:
+            self.cache.drop_plan(plan_key)
+        return False
+
+    def _resolved_plan(self, g: graph.Graph, backend: str,
+                       plan_key: str | None, make: Callable):
+        """The one way a plan reaches codegen.  A plan the cache serves
+        under ``plan_key`` passes ``_verify_served_plan`` (rejected:
+        healed, and rebuilt here); else ``make()`` builds one, which
+        passes ``check_plan`` (structural, or the full pass under
+        ``verify``) and is published under ``plan_key``.  ``plan_key``
+        None: no cache.  Returns None where ``make()`` does."""
+        cache = self.cache if plan_key is not None else None
         if cache is not None:
-            plan_key = self._plan_key(g, backend, mode_key)
             plan = cache.get_plan(plan_key)
-            if plan is not None and (plan.signature != graph_signature(g)
-                                     or plan.backend != backend):
-                plan = None              # foreign entry under our key
+            if plan is not None and \
+                    self._verify_served_plan(plan, g, plan_key, backend):
+                return plan
+        plan = make()
         if plan is None:
-            combo = self.search(self.space(g), mode)
-            plan = build_plan(g, combo, backend=backend)
-            if cache is not None:
-                cache.put_plan(plan_key, plan)
+            return None
+        check_plan(plan, g, self.hw, full=self.verify)
+        if cache is not None:
+            cache.put_plan(plan_key, plan)
         return plan
+
+    def _plan_for(self, g: graph.Graph, mode, backend: str, mode_key):
+        """Plan-cache-consulting search shared by every entry point
+        (unbatched / batched / packed — they key plans identically, so a
+        plan found by one is a hit for all).  A plan-layer hit for
+        ``mode='autotune'`` performs zero measurements — the winner was
+        already decided (possibly by another process via the disk
+        layer)."""
+        def search():
+            space = self.space(g)
+            if mode == "autotune":
+                return self._autotune(space, backend)[1]
+            return build_plan(g, self.search(space, mode, backend=backend),
+                              backend=backend)
+
+        plan_key = (self._plan_key(g, backend, mode_key)
+                    if self.cache is not None else None)
+        return self._resolved_plan(g, backend, plan_key, search)
 
     @staticmethod
     def _bucket_label(input_shapes: dict[str, Sequence[int]]) -> str:
@@ -278,8 +439,12 @@ class FusionCompiler:
           input_shapes: ``{input name: shape tuple}`` — the trace is
             shape-specialized, like the paper's generated CUDA.
           mode: ``'best'`` (predicted-best combination), ``'unfused'``
-            (one kernel per call), or an integer rank into the
-            ``t_pred``-sorted combination stream.
+            (one kernel per call), ``'autotune'`` (measure the top
+            ``autotune_budget`` predicted candidates and take the
+            measured winner — the paper's §5.2 empirical search;
+            measurements persist in the cache's measured-cost table,
+            so a repeat compile measures nothing), or an integer rank
+            into the ``t_pred``-sorted combination stream.
           backend: ``'cuda'`` or ``'torch'`` (defaults to the
             compiler's).
           label: names the program's kernels in the launch counter.
@@ -293,7 +458,9 @@ class FusionCompiler:
 
         Raises:
           VerificationError: unknown backend (RPL401), unknown or bool
-            ``mode`` or a rank past the last combination (RPL402).
+            ``mode`` or a rank past the last combination (RPL402), a
+            plan the verifier rejects (a dead call's zero-output group
+            is RPL204).
 
         Example::
 
@@ -442,17 +609,35 @@ class FusionCompiler:
                     bucket, hit=True, seconds=time.perf_counter() - t0)
                 return codegen.PackedDispatch(program=prog, perm=perm)
 
+        from ..analysis.checks import verify_pack
         packed = None
         if cache is not None:
             pack_plan_key = hashlib.sha256(
                 repr((psig, config, "pack-plan")).encode()).hexdigest()
             packed = cache.get_packed_plan(pack_plan_key)
-            if packed is not None and [plan_fingerprint(p)
-                                       for p in packed.members] != \
-                    [plan_fingerprint(p) for p in sorted_plans]:
-                packed = None         # foreign entry under our key: rebuild
+            if packed is not None:
+                # always-on pack verification: member structure + offset
+                # rebasing; under ``verify`` also the full per-member
+                # graph-bound pass.  A rejected entry, or one whose
+                # members are not this compile's plans, is healed
+                errors = [d.format() for d in verify_pack(
+                    packed, sorted_graphs if self.verify else None,
+                    hw=self.hw) if d.is_error]
+                if [plan_fingerprint(p) for p in packed.members] != \
+                        [plan_fingerprint(p) for p in sorted_plans]:
+                    errors.append("members are not this compile's plans")
+                if errors:
+                    log.warning(
+                        "cache-served packed plan rejected by static "
+                        "verification; healing (drop + rebuild): %s",
+                        "; ".join(errors))
+                    cache.drop_packed_plan(pack_plan_key)
+                    packed = None
         if packed is None:
             packed = build_packed_plan(plans)
+            if self.verify:
+                raise_if_errors([d for d in verify_pack(
+                    packed, sorted_graphs, hw=self.hw) if d.is_error])
             if cache is not None:
                 cache.put_packed_plan(pack_plan_key, packed)
         prog = codegen.compile_plan_packed(sorted_graphs, packed, hw=self.hw,
@@ -469,9 +654,10 @@ class FusionCompiler:
         g = self.trace(script, input_shapes)
         t1 = time.perf_counter()
         space = self.space(g)
-        combo = self.search(space, mode)
+        combo = self.search(space, mode, backend=backend)
         t2 = time.perf_counter()
         plan = build_plan(g, combo, backend=backend)
+        check_plan(plan, g, self.hw, full=self.verify)
         prog = codegen.compile_plan(g, plan, hw=self.hw, device=self.device,
                                     label=label)
         t3 = time.perf_counter()
@@ -488,7 +674,8 @@ class FusionCompiler:
                     input_shapes: dict[str, Sequence[int]],
                     limit: int = 256, backend: str | None = None):
         """Compile the ``limit`` best combinations (predicted order) —
-        the raw material of empirical search (paper §5.2).
+        the raw material of empirical search (paper §5.2; the managed
+        version is ``mode="autotune"``).
 
         Routed through the shared cache machinery: candidate ``i`` uses
         the same program/plan keys as ``compile(..., mode=i)``, so a
@@ -515,19 +702,19 @@ class FusionCompiler:
                 if pkey is not None:
                     prog = cache.get_program(pkey)
             if prog is None:
-                plan = plan_key = None
-                if cache is not None:
-                    plan_key = self._plan_key(g, backend, mode_key)
-                    plan = cache.get_plan(plan_key)
-                if plan is None:
+                def candidate(i=i):
+                    nonlocal combos
                     if combos is None:
                         combos = scheduler.enumerate_combinations(
                             self.space(g), limit=limit)
-                    if i >= len(combos):
-                        break
-                    plan = build_plan(g, combos[i], backend=backend)
-                    if cache is not None:
-                        cache.put_plan(plan_key, plan)
+                    return (build_plan(g, combos[i], backend=backend)
+                            if i < len(combos) else None)
+
+                plan = self._resolved_plan(
+                    g, backend, self._plan_key(g, backend, mode_key)
+                    if cache is not None else None, candidate)
+                if plan is None:
+                    break
                 prog = codegen.compile_plan(g, plan, hw=self.hw,
                                             device=self.device)
                 if cache is not None and pkey is not None:

@@ -780,23 +780,26 @@ class _Emitter:
             e("}", 2)
 
     # -- the kernel and its launcher ---------------------------------------------
+    def kernel_body(self) -> "_Emitter":
+        """The kernel's body: every phase, grid barriers between them."""
+        body = _Emitter(self.lay, self.name)
+        for p, ph in enumerate(self.lay.phases):
+            if p:
+                body.emit("k1::grid_barrier();", 1)
+            body.phase(p, ph)
+        return body
+
     def source(self) -> str:
         lay, e = self.lay, self.emit
         bufs = self.buffers()
         params = [f"{'const ' if const else ''}{ct}* __restrict__ g_{nm}"
                   for nm, ct, _, const in bufs] + ["const long long nb"]
-        body = _Emitter(lay, self.name)
-        for p, ph in enumerate(lay.phases):
-            if p:
-                body.emit("k1::grid_barrier();", 1)
-            body.phase(p, ph)
+        body = self.kernel_body()
         smem = body.smem_floats * 4
         if smem > SMEM_LIMIT:
             raise UnsupportedGroupError.single(
-                "RPL214", f"plan.group[{lay.names}]",
-                f"cuda backend cannot emit group [{lay.names}]: its "
-                f"accumulators need {smem} bytes of shared memory, more "
-                f"than {SMEM_LIMIT}")
+                "RPL215", f"plan.group[{lay.names}]",
+                smem_message(lay, smem, SMEM_LIMIT))
         e(f"// group [{lay.names}]: order {self.order_desc()}, blocks "
           f"{lay.impl.blocks}, grid {lay.impl.grid}, {lay.n_phases} phase(s), "
           f"slices {[ph.S for ph in lay.phases]}")
@@ -875,6 +878,18 @@ class _Emitter:
 
     def order_desc(self) -> str:
         return str(tuple(self.lay.f.axis_roots.index(r) for r in self.lay.order))
+
+
+def smem_bytes(lay: GroupLayout) -> int:
+    """Shared memory one CTA of the group's kernel takes for its
+    accumulators, as the generator lays them out."""
+    return _Emitter(lay, kernel_name(0)).kernel_body().smem_floats * 4
+
+
+def smem_message(lay: GroupLayout, smem: int, budget: int) -> str:
+    return (f"cuda backend cannot emit group [{lay.names}]: its "
+            f"accumulators need {smem} bytes of shared memory, more "
+            f"than {budget}")
 
 
 def group_source(g: Graph, impl: Impl, name: str) -> str:

@@ -68,10 +68,11 @@ CODES: dict[str, tuple[str, str]] = {
     "RPL211": ("error", "plan group is not a legal fusion of this graph"),
     "RPL212": ("error", "grid order invalid for the bound fusion"),
     "RPL213": ("error", "block size illegal for the bound fusion axis"),
-    "RPL214": ("error", "consumed reduction not accumulable under the "
-                        "plan's grid order (pallas phase contract)"),
-    "RPL215": ("error", "group VMEM footprint (blocks + consumed-reduction "
-                        "scratch) exceeds the budget"),
+    "RPL214": ("error", "group the backend cannot emit (cuda: K1's layout "
+                        "refuses it, e.g. a consumed reduction not "
+                        "accumulable under the plan's grid order)"),
+    "RPL215": ("error", "group on-chip memory exceeds the budget (cuda: "
+                        "K1's shared memory per CTA)"),
     "RPL216": ("error", "group input routing disagrees with the graph's "
                         "dataflow"),
     "RPL217": ("error", "plan output routing disagrees with the graph's "

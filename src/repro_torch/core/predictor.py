@@ -30,14 +30,30 @@ import numpy as np
 from .fusion import Fusion, call_phases, consumed_reductions
 from .graph import Graph, Var
 
+#: a refit needs at least this many group records before the regression
+#: is better-determined than the analytic constants it would replace
+REFIT_MIN_RECORDS = 3
+
+
+def _round_sig(x: float, sig: int = 2) -> float:
+    """Round to ``sig`` significant figures.  Measured constants enter
+    cache keys (via ``repr(HardwareModel)``); coarse rounding keeps the
+    keys stable across the run-to-run jitter of micro-benchmarks."""
+    if x == 0 or not math.isfinite(x):
+        return x
+    return round(x, -int(math.floor(math.log10(abs(x)))) + (sig - 1))
+
+
 @dataclasses.dataclass(frozen=True)
 class HardwareModel:
     """Machine constants feeding ``t_pred`` (defaults: one TPU v5e core).
 
-    The constants are the reference's ``V5E`` values, copied verbatim so
+    The defaults are the reference's ``V5E`` values, copied verbatim so
     that the search here picks exactly the plans the reference picks.
-    Calibrated constants for the H100 (``calibrate``/``refit``) come
-    with the autotune slice of the port."""
+    :meth:`calibrate` measures the machine actually running (on a GPU:
+    its streaming rate, the per-kernel cost inside a CUDA graph and the
+    f32 matmul rate; ``core.autotune.calibrate_hardware``), and
+    :meth:`refit` regresses the constants over measured group times."""
 
     name: str = "tpu_v5e"
     peak_flops: float = 197e12          # bf16; f32 ~ 98 TF/s, see scale below
@@ -73,10 +89,100 @@ class HardwareModel:
                    dtype=np.float32) -> float:
         """Predicted seconds for one fused group given its §5 features
         — the paper's roofline: ``max(traffic/bw, flops/rate) +
-        launch``."""
+        launch``.  This is the formula ``cost_impl`` charges per group
+        and the feature map ``refit`` regresses against, kept in one
+        place so the two can never drift."""
         t_transfer = traffic_bytes / self.hbm_bw
         t_compute = flops / (self.peak_flops * self.flops_scale(dtype))
         return max(t_transfer, t_compute) + self.launch_overhead_s
+
+    @classmethod
+    def calibrate(cls, device=None, force: bool = False) -> "HardwareModel":
+        """Micro-benchmark ``device`` (default: the GPU when there is
+        one, else the CPU) into a HardwareModel: streaming bandwidth,
+        per-kernel overhead and f32 flop rate replace the hardcoded v5e
+        constants (memoized per device; see
+        ``core.autotune.calibrate_hardware``)."""
+        from .autotune import calibrate_hardware
+        return calibrate_hardware(device=device, force=force)
+
+    def refit(self, records,
+              min_records: int = REFIT_MIN_RECORDS) -> "HardwareModel":
+        """Recalibrate the roofline coefficients from a per-group
+        measured-cost store (DESIGN.md §8).
+
+        Least-squares over the group feature vector ``[traffic_bytes,
+        flops, 1]`` against measured seconds: the slopes invert to an
+        *effective* bandwidth and flop rate (what the machine actually
+        sustained on fused groups — micro-benchmark peaks never are),
+        the intercept is the per-dispatch overhead.
+
+        Strict fallback semantics, so the result is always a usable
+        model:
+
+        * an empty / too-small store (< ``min_records`` valid group
+          records) is a **no-op returning ``self``** — plans compiled
+          against the refit model are bit-identical to analytic ones;
+        * any coefficient that regresses non-finite or non-positive
+          (collinear features, noise-dominated store) individually
+          falls back to this model's analytic value — the returned
+          constants are finite and positive whatever the store holds.
+
+        Only records with ``kind == "group"`` and finite positive
+        ``t_meas`` / finite non-negative features participate; foreign
+        schemas (whole-program records, calibration records) are
+        skipped, which is what lets old and new cache generations
+        coexist in one store.
+        """
+        rows = []
+        for rec in records:
+            if not isinstance(rec, dict) or rec.get("kind") != "group":
+                continue
+            try:
+                t = float(rec["t_meas"])
+                tr = float(rec.get("traffic_bytes", math.nan))
+                fl = float(rec.get("flops", math.nan))
+            except (KeyError, TypeError, ValueError):
+                continue
+            if not (math.isfinite(t) and t > 0 and math.isfinite(tr)
+                    and tr >= 0 and math.isfinite(fl) and fl >= 0):
+                continue
+            rows.append((tr, fl, t))
+        if len(rows) < max(min_records, 2):
+            return self
+
+        X = np.array([[r[0], r[1], 1.0] for r in rows], dtype=np.float64)
+        y = np.array([r[2] for r in rows], dtype=np.float64)
+        try:
+            coef, *_ = np.linalg.lstsq(X, y, rcond=None)
+        except np.linalg.LinAlgError:
+            return self
+        inv_bw, inv_rate, overhead = (float(v) for v in coef)
+
+        def usable(v: float) -> bool:
+            return math.isfinite(v) and v > 0
+
+        hbm_bw = self.hbm_bw
+        if usable(inv_bw) and usable(1.0 / inv_bw):
+            hbm_bw = _round_sig(1.0 / inv_bw, 3)
+        peak_flops, f32_scale = self.peak_flops, self.f32_scale
+        if usable(inv_rate) and usable(1.0 / inv_rate):
+            # the regression measured the *charged* rate directly, so
+            # the refit model carries it at scale 1.0
+            peak_flops, f32_scale = _round_sig(1.0 / inv_rate, 3), 1.0
+        launch = self.launch_overhead_s
+        if usable(overhead) and usable(_round_sig(overhead, 3)):
+            launch = _round_sig(overhead, 3)
+
+        if (hbm_bw, peak_flops, f32_scale, launch) == (
+                self.hbm_bw, self.peak_flops, self.f32_scale,
+                self.launch_overhead_s):
+            return self
+        name = self.name if self.name.endswith("+refit") \
+            else self.name + "+refit"
+        return dataclasses.replace(
+            self, name=name, hbm_bw=hbm_bw, peak_flops=peak_flops,
+            f32_scale=f32_scale, launch_overhead_s=launch)
 
 
 V5E = HardwareModel()

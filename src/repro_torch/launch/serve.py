@@ -15,6 +15,15 @@ buckets, padding or masking, batched and packed dispatches):
     PYTHONPATH=src python -m repro_torch.launch.serve --blas GEMVER,BiCGK \
         --engine --sizes 1000,4096 --requests 64
 
+Empirical search: ``--autotune`` compiles under constants calibrated on
+the device (``hw="calibrate"``) and measures the ``--budget`` best
+predicted candidates, timing each group of each one on the card; with
+``--refit`` the cost model is then regressed over those timings and the
+sequence recompiled with ``best`` under the refit model:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --blas GEMVER \
+        --autotune --refit --budget 4 --n 4096
+
 Runs on the GPU by default; ``--device cpu`` runs the same paths on the
 CPU (K1's plain tiled version stands in for the kernels there).
 Requests on the GPU are timed with CUDA events around the whole loop.
@@ -28,6 +37,12 @@ import numpy as np
 
 
 def _mode(text: str):
+    """``--mode``: 'best', 'unfused' or an integer rank.  The measured
+    search is ``--autotune`` alone: it also calibrates the cost model
+    it ranks the candidates with."""
+    if text == "autotune":
+        raise argparse.ArgumentTypeError(
+            "use --autotune for the measured search")
     return int(text) if text.lstrip("-").isdigit() else text
 
 
@@ -40,22 +55,43 @@ def serve_blas(args) -> dict:
     import torch
 
     from repro_torch.blas import REGISTRY, make_inputs
-    from repro_torch.core import LAUNCHES, FusionCompiler, PlanCache
+    from repro_torch.core import V5E, LAUNCHES, FusionCompiler, PlanCache
 
     if args.blas not in REGISTRY:
         raise SystemExit(f"unknown sequence {args.blas!r}; "
                          f"choose from {', '.join(REGISTRY)}")
     seq = REGISTRY[args.blas]
     cache = PlanCache()
-    cc = FusionCompiler(cache=cache, backend=args.backend, device=args.device)
-    label = f"serve/{args.blas}/{args.mode}"
+    mode = "autotune" if args.autotune else args.mode
+    # calibrated constants make the predicted candidate ordering (which
+    # the autotune budget is spent on) rank for this device
+    hw = "calibrate" if args.autotune else V5E
+    cc = FusionCompiler(cache=cache, hw=hw, backend=args.backend,
+                        device=args.device, autotune_budget=args.budget)
+    label = f"serve/{args.blas}/{mode}"
 
     t0 = time.perf_counter()
-    prog = cc.compile(seq.script, seq.shapes(args.n), mode=args.mode,
-                      label=label)
+    prog = cc.compile(seq.script, seq.shapes(args.n), mode=mode, label=label)
     t_compile = time.perf_counter() - t0
+    if args.autotune and cc.last_autotune is not None:
+        print(cc.last_autotune.describe())
+    if args.refit:
+        # two-phase flow: the autotune pass populated the per-group
+        # measured-cost table; regress the predictor over it and
+        # recompile mode="best" under the refit model — the hw repr is
+        # a cache-key component, so this searches a fresh plan
+        hw_before = cc.hw
+        cc.refit_hardware()
+        print(f"refit: {hw_before.name} -> {cc.hw.name} "
+              f"(bw {hw_before.hbm_bw:.3g} -> {cc.hw.hbm_bw:.3g} B/s, "
+              f"launch {hw_before.launch_overhead_s:.3g} -> "
+              f"{cc.hw.launch_overhead_s:.3g} s, "
+              f"{len(cache.group_records())} group records)")
+        mode, label = "best", f"serve/{args.blas}/refit"
+        prog = cc.compile(seq.script, seq.shapes(args.n), mode=mode,
+                          label=label)
     t0 = time.perf_counter()
-    cc.compile(seq.script, seq.shapes(args.n), mode=args.mode, label=label)
+    cc.compile(seq.script, seq.shapes(args.n), mode=mode, label=label)
     t_recompile = time.perf_counter() - t0
 
     inputs = prog.prepare(**make_inputs(seq, args.n, seed=args.seed))
@@ -87,7 +123,7 @@ def serve_blas(args) -> dict:
     n = max(args.requests, 1)
     us_per_req, eager_us = t_graph / n * 1e6, t_eager / n * 1e6
     stats = cache.stats.as_dict()
-    print(f"serve {args.blas} n={args.n} mode={args.mode} "
+    print(f"serve {args.blas} n={args.n} mode={mode} "
           f"backend={args.backend} device={prog.device}: compile "
           f"{t_compile*1e3:.1f} ms, recompile {t_recompile*1e6:.0f} us "
           f"(cache hit), {args.requests} requests at {us_per_req:.1f} "
@@ -98,7 +134,7 @@ def serve_blas(args) -> dict:
             "us_per_request": us_per_req, "eager_us_per_request": eager_us,
             "n_groups": prog.n_groups, "kernel_launches": launches,
             "eager_kernel_launches": eager_launches,
-            "device": str(prog.device), "cache": stats}
+            "device": str(prog.device), "hw": cc.hw.name, "cache": stats}
 
 
 def engine_stream(ranges, requests: int, seed: int = 0) -> list:
@@ -132,7 +168,7 @@ def engine_workload(stream, seed: int = 0) -> list:
 
 def serve_engine(args) -> dict:
     """A mixed-size workload through the batched ``ServingEngine``."""
-    from repro_torch.core import FusionCompiler
+    from repro_torch.core import V5E, FusionCompiler
     from repro_torch.programs import REGISTRY
     from repro_torch.serving import ServingEngine
 
@@ -145,10 +181,14 @@ def serve_engine(args) -> dict:
     lo, hi = min(sizes), max(sizes)
     stream = engine_stream({nm: (lo, hi) for nm in names}, args.requests,
                            args.seed)
-    cc = FusionCompiler(backend=args.backend, device=args.device)
+    mode = "autotune" if args.autotune else args.mode
+    cc = FusionCompiler(backend=args.backend, device=args.device,
+                        hw="calibrate" if args.autotune else V5E,
+                        autotune_budget=args.budget)
     engine = ServingEngine(compiler=cc, max_batch=args.max_batch,
                            min_bucket=1 << (min(64, lo).bit_length() - 1),
-                           registry=REGISTRY, max_pack=args.max_pack)
+                           registry=REGISTRY, max_pack=args.max_pack,
+                           mode=mode)
     t0 = time.perf_counter()
     # warm packs once over the full key set, not per sequence
     buckets = {nm: engine.warm(nm, [n for s, n in stream if s == nm],
@@ -204,6 +244,15 @@ def main(argv=None):
                     help="'cuda' or 'cpu'")
     ap.add_argument("--mode", type=_mode, default="best",
                     help="'best', 'unfused' or an integer rank")
+    ap.add_argument("--autotune", action="store_true",
+                    help="calibrate the cost model on the device and "
+                    "measure the --budget best predicted candidates "
+                    "(mode 'autotune')")
+    ap.add_argument("--refit", action="store_true",
+                    help="after --autotune: refit the cost model to the "
+                    "measured groups and recompile with 'best' under it")
+    ap.add_argument("--budget", type=int, default=8,
+                    help="candidates --autotune measures (default 8)")
     ap.add_argument("--requests", type=int, default=100)
     ap.add_argument("--n", type=int, default=1024)
     ap.add_argument("--sizes", default="256,2048",

@@ -223,7 +223,11 @@ class ServingEngine:
       min_bucket: floor of the power-of-two shape buckets.
       registry: ``{name: Program}`` of servable sequences (defaults to
         the paper's ``blas.REGISTRY``).
-      mode: search mode for bucket compiles (``"best"`` default).
+      mode: search mode for bucket compiles (``"best"`` default;
+        ``"autotune"`` measures the compiler's ``autotune_budget`` top
+        candidates of each bucket once, the measurements persisting in
+        the compiler's cache, so later compiles of the bucket measure
+        nothing).
       max_pack: most ``(sequence, bucket)`` batches merged into one
         packed dispatch per drain round; ``1`` disables packing.
       backend: ``'cuda'`` or ``'torch'`` — per-engine override passed to

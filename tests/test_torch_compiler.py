@@ -109,7 +109,7 @@ def test_unknown_backend_and_mode_raise_coded_errors():
     assert ei.value.codes == ("RPL401",)
     cc = FusionCompiler(device="cpu", cache=None)
     seq = BLAS["SSCAL"]
-    for bad in ("autotune", True, -1, 5):
+    for bad in (True, -1, 5):
         with pytest.raises(VerificationError) as ei:
             cc.compile(seq.script, seq.shapes(N), mode=bad)
         assert ei.value.codes == ("RPL402",)
@@ -149,6 +149,22 @@ def test_serve_blas_on_cpu_end_to_end(backend, capsys):
     assert res["kernel_launches"] == 0          # CPU: no kernel launched
     assert res["cache"]["program_hits"] == 1
     assert "serve AXPYDOT" in capsys.readouterr().out
+
+
+def test_serve_autotune_refit_on_cpu(capsys):
+    """``--autotune`` is the one switch for the measured search: it
+    calibrates, measures, refits and recompiles; ``--mode autotune`` is
+    refused."""
+    res = serve.main(["--blas", "GEMVER", "--autotune", "--refit",
+                      "--budget", "2", "--n", "64", "--requests", "2",
+                      "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "autotune budget=2: winner #" in out and "refit: " in out
+    assert "(measured, 0/" in out and res["us_per_request"] > 0
+    with pytest.raises(SystemExit):
+        serve.main(["--blas", "VADD", "--mode", "autotune",
+                    "--device", "cpu"])
+    assert "--autotune" in capsys.readouterr().err
 
 
 def test_serve_rejects_unknown_backend():

@@ -618,3 +618,96 @@ def test_engine_open_loop_keeps_one_graph_per_input_set(cuda):
     for r in opened:
         for o, k in zip(r.outputs, closed[r.rid - b1].outputs):
             assert torch.equal(_bits(o), _bits(k))
+
+
+# ---------------------------------------------------------------------------
+# autotune and calibration on the card, and the verifier's RPL215
+# ---------------------------------------------------------------------------
+
+#: summed group times against the winner's whole-program replay, at the
+#: widths the smoke run tunes at (A and the vectors beyond the 50 MB
+#: L2): a plan replays its groups back to back in one graph, a group is
+#: timed alone in a graph of its own launches, both by ``replay_s``, so
+#: the two agree to within this share (both programs agree within 1 %
+#: on an H100 80GB)
+SUM_VS_REPLAY = 0.10
+
+
+def _autotuned(name, n, budget=4):
+    from repro_torch.core import autotune
+    cache = PlanCache()
+    cc = FusionCompiler(hw="calibrate", backend="cuda", device="cuda",
+                        cache=cache, autotune_budget=budget)
+    prog = REGISTRY[name]
+    cp = cc.compile(prog.script, prog.shapes(n), mode="autotune")
+    return cc, cp, cc.last_autotune, autotune
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["GEMVER", "BiCGK", "AXPYDOT", "LM_BLOCK"])
+def test_autotune_on_gpu_matches_float64_and_warm_pass_measures_nothing(
+        name, cuda):
+    cc, cp, rep, _ = _autotuned(name, N)
+    assert rep.n_groups_measured > 0 and rep.build_s >= 0
+    assert rep.winner.t_meas <= rep.candidates[0].t_meas
+    prog = REGISTRY[name]
+    inputs = make_inputs(prog, N, seed=8)
+    got = cp(**inputs)
+    got = got if isinstance(got, tuple) else (got,)
+    want = prog.reference(**{k: np.asarray(v, np.float64)
+                             for k, v in inputs.items()})
+    want = want if isinstance(want, tuple) else (want,)
+    for o, w in zip(got, want):
+        assert _rel(o, torch.from_numpy(np.asarray(w)).cuda()) <= RTOL
+    cc.search(cc.space(cp.graph), "autotune")
+    warm = cc.last_autotune
+    assert warm.n_groups_measured == 0
+    assert warm.group_table_hit_rate == 1.0
+    assert warm.winner_index == rep.winner_index
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,n", [("GEMVER", 4096), ("AXPYDOT", 1 << 24)])
+def test_summed_group_times_track_the_winners_replay(name, n, cuda):
+    from repro_torch.core.timing import replay_s
+    cc, cp, rep, _ = _autotuned(name, n)
+    args = cp.prepare(**make_inputs(REGISTRY[name], n, seed=2))
+    replay = replay_s(lambda: cp.fn(*args), inner=8, reps=5)
+    assert abs(rep.winner.t_meas / replay - 1) <= SUM_VS_REPLAY
+
+
+@pytest.mark.gpu
+def test_replay_timer_refuses_an_empty_capture(cuda):
+    """A capture with no device work, or without the kernel launches the
+    caller expects, would time as ~0: ``replay_s`` raises instead."""
+    from repro_torch.core.timing import EmptyCaptureError, replay_s
+    x = torch.zeros(8, device="cuda")
+    with pytest.raises(EmptyCaptureError):
+        replay_s(lambda: None)
+    with pytest.raises(EmptyCaptureError):
+        replay_s(lambda: x.add_(1.0), inner=2, launches=2)
+    assert replay_s(lambda: x.add_(1.0), inner=2) > 0
+
+
+@pytest.mark.gpu
+def test_calibration_on_gpu_is_finite_and_below_the_datasheet(cuda):
+    from repro_torch.core import autotune
+    hw = autotune.calibrate_hardware("cuda", cache=PlanCache(), force=True)
+    for v in (hw.hbm_bw, hw.peak_flops, hw.launch_overhead_s):
+        assert np.isfinite(v) and v > 0
+    assert 1.5e12 <= hw.hbm_bw <= 3.35e12
+    assert hw.launch_overhead_s < 20e-6
+
+
+@pytest.mark.gpu
+def test_smem_over_budget_group_gets_rpl215(cuda):
+    from repro_torch.analysis import verify_plan
+    from repro_torch.core import cuda_codegen
+    prog = REGISTRY["GEMVER"]
+    cp = FusionCompiler(backend="cuda", device="cuda", cache=PlanCache()
+                        ).compile(prog.script, prog.shapes(N))
+    assert not [d for d in verify_plan(cp.plan, cp.graph) if d.is_error]
+    need = max(cuda_codegen.smem_bytes(k.layout) for k in cp.group_fns)
+    codes = {d.code for d in verify_plan(cp.plan, cp.graph,
+                                         smem_budget=need - 1)}
+    assert codes == {"RPL215"}

@@ -3,7 +3,7 @@
     python3 tools/k5_ablation.py        # from the root of a checkout
 
 Builds three versions of ``src/repro_torch/csrc/decode_attention.cu``
-and times each one's split kernel as device time (``chip_smoke.device_ms``)
+and times each one's split kernel as device time (``core.timing.device_ms``)
 at the shapes ``chip_smoke.py`` times K5 at:
 
 * ``kernel``: the source as it is;
@@ -28,7 +28,6 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 #: (start, end) of the work on a tile, cut out for ``copies``
@@ -63,7 +62,7 @@ def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("k5_ablation: needs an NVIDIA GPU")
-    import chip_smoke as cs
+    from repro_torch.core.timing import device_ms
     from repro_torch.kernels import _build, _launch
     from repro_torch.kernels import decode_attention as k5
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -93,7 +92,7 @@ def main():
         for name, fns in libs.items():
             k5._fns = fns
             _launch._grids.clear()
-            ms = cs.device_ms(lambda: k5.split(q, k, v))
+            ms = device_ms(lambda: k5.split(q, k, v))
             print(json.dumps({"version": name, "shape": list(shape),
                               "dtype": dt, "split_ms": ms,
                               **k5.config(Hq // Hkv, d, tdt, q.device)}),
