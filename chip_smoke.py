@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Drives the port's two paths at the data scale users run, with random
+Drives the port's three paths at the data scale users run, with random
 inputs made from a seed:
 
 * the compiler's main path — ``FusionCompiler.compile`` (trace, fusion
@@ -23,22 +23,50 @@ inputs made from a seed:
   128), in bfloat16 and float32; K6 (AdamW) over one Llama-3-8B decoder
   layer's N = 218,103,808 parameters, p in float32 and p, g in bfloat16;
   K7 (softmax cross-entropy) on (T, V) = (8192, 128256), 8192 tokens over
-  Llama-3-8B's vocabulary, in float32 and bfloat16.
+  Llama-3-8B's vocabulary, in float32 and bfloat16;
+* LM serving, ``serve --arch``'s loop (``launch.serve.generate``):
+  Llama-3-8B at its full width and depth in bfloat16, random weights
+  from ``--seed``, 8 prompts of 1024 tokens and 32 greedy tokens, K4
+  running every RMSNorm and K5 every decode attention; and qwen2_7b at
+  full width, its depth cut to 2.
 
 Phases, each printed as JSON lines:
 
 1. device: the card's name and power limit (``nvidia-smi``), and the
    build of every plan's kernels and of the hand kernels (one ``nvcc``
    per source, in parallel);
-2. kernel: every K1 group's kernel against K1's plain tiled version on
+2. lm: ``launch.serve.generate`` for Llama-3-8B (32 layers, bfloat16;
+   weights from a seeded ``torch.Generator`` on the card, cast once) on
+   8 prompts of 1024 tokens from ``--seed``, 32 greedy tokens, counts
+   set to 0 just before and read just after (K4 65 · 32, K5's split and
+   combine 32 · 31 each): prefill ms, each decode
+   step's ms (CUDA events; median and range), tokens a second, the
+   step's bound (every weight read once and K/V up to the step's
+   ``kv_len``, over 3.35 TB/s; ``lm_step_bound``), peak memory of the
+   load and of serving.  One more step counted with every plain version
+   forbidden (K4 2·32 + 1 = 65 launches, K5's split and combine 32
+   each), timed as one CUDA graph (the device's share of an eager step)
+   and run under ``torch.profiler`` (device-busy share, kernel time by
+   name).  Decode against forward (``decode_vs_forward``: prefill(1023)
+   and one step against the forward over 1024 tokens) within 5e-2, the
+   reference's bound, and within 1e-4 in float32 at full depth.  K5 at
+   the decode's (8, 32, 8, 1056, 128) with ``kv_len`` 1025 and 1056
+   (bfloat16, 1e-3) and 777 (float32, 1e-4), K4 on (8, 4096) and (8192,
+   4096) bfloat16 (1e-3), each with a bitwise repeat; K4 and K5 at the
+   decode's and prefill's shapes timed beside their bounds, their plain
+   versions, ``F.rms_norm`` and SDPA.  Then qwen2_7b (28 heads over 4,
+   QKV bias) at full width and depth 2: the same run, launch counts and
+   checks, K5 at (8, 28, 4, 1056, 128), K4 on (8, 3584) and (8192,
+   3584) (448 of 512 eight-element packs a row: the tail-masked path);
+3. kernel: every K1 group's kernel against K1's plain tiled version on
    the same inputs on the card, and a second launch of it bitwise equal
    to the first (the groups whose reduce axes K1 cuts into slices
    combine their partials in a fixed order, with no atomics); each
    record gives the group's work units and slices per phase;
-3. main: every program's outputs against its numpy reference in
+4. main: every program's outputs against its numpy reference in
    float64, and the launch counts of that run, which must show every
    group of every plan launched once;
-4. hand: K2-K7 against their plain versions (``kernels.ref``) on the
+5. hand: K2-K7 against their plain versions (``kernels.ref``) on the
    card, at the main shapes and at odd ones: K2/K3 at a non-square
    (4096, 6144) and an odd (1000, 1531); RMSNorm rows of (1, 4096),
    (7, 33), (2, 8) and (3, 20000) (longer than K4's register path),
@@ -52,13 +80,13 @@ Phases, each printed as JSON lines:
    groups, and a bitwise repeat; K6 at steps 3 and 7 and at N =
    1,000,003; K7 at (7, 1000) and (33, 50257), per-row losses and their
    mean;
-5. hand_main: the ``ops`` path, counts set to 0 just before it and read
+6. hand_main: the ``ops`` path, counts set to 0 just before it and read
    just after: every hand kernel launched, outputs against float64;
-6. serve: ``serve_blas`` for GEMVER at n = 4096, 100 requests, in
+7. serve: ``serve_blas`` for GEMVER at n = 4096, 100 requests, in
    ``best`` and ``unfused`` (CUDA events): µs per request replaying the
    plan's CUDA graph and on the eager path (a Python call a group) side
    by side, and the device time of each;
-7. engine: the ``ServingEngine`` on one mixed stream of 64 requests
+8. engine: the ``ServingEngine`` on one mixed stream of 64 requests
    from ``--seed`` at full width: GEMVER and BiCGK with n from 1000 to
    4096 (buckets 1024, 2048, 4096), AXPYDOT with n from 2**20 to 2**24,
    LM_DECODE_ATTN at ragged KV lengths from 100,000 to 131,072 (masked,
@@ -79,13 +107,13 @@ Phases, each printed as JSON lines:
    eager run of the same staged batch; each engine kernel on one staged
    batch against its plain batched version (the group's dense function,
    request by request), and timed;
-8. fp16: AXPYDOT (2**24) and GEMVER (4096, A and the u, v vectors scaled
+9. fp16: AXPYDOT (2**24) and GEMVER (4096, A and the u, v vectors scaled
    by n**-0.5 to stay inside float16's range) in float16 through K1,
    ``best`` and ``unfused``: launches counted (each group once), outputs
    against float64, each group against its plain version (K1's tiled
    version, in float32 and rounded where the kernel stores), times
    beside the bound;
-9. series: the paper's comparison for GEMVER, BiCGK, LM_RMSNORM (n =
+10. series: the paper's comparison for GEMVER, BiCGK, LM_RMSNORM (n =
    4096), AXPYDOT, FUSED_ADAMW (n = 2**24) and LM_DECODE_ATTN (n =
    131072) — compiler ``best`` and ``unfused``, the hand kernels (none
    for AXPYDOT), the ``torch`` backend, for FUSED_ADAMW the port's
@@ -97,7 +125,7 @@ Phases, each printed as JSON lines:
    (``*_us``) and as device time (``*_device_us``), beside the hand
    kernels' bounds; the compiler's programs run as their callers run
    them, one CUDA graph replay a request (``best`` also eager);
-10. time: each kernel's time beside its bound (compulsory bytes over
+11. time: each kernel's time beside its bound (compulsory bytes over
    3.35 TB/s, or float32 operations over 67 TFLOP/s), the plain
    version's time, and one PyTorch call computing the same function
    where there is one (checked against the kernel once, timed here
@@ -115,12 +143,12 @@ Phases, each printed as JSON lines:
    shape.  ``wrapper_ms`` is the wrapper's whole path per
    call, launched back to back (checks, output allocation, the ctypes
    call, the combine): where it exceeds ``ms``, the host is the limit;
-11. calibrate: ``autotune.calibrate_hardware`` on the card — the
+12. calibrate: ``autotune.calibrate_hardware`` on the card — the
    streaming rate fitted over 256 MiB to 1 GiB arrays, the per-kernel
    cost of tiny kernels replayed in one CUDA graph and the f32 matmul
    rate (8192³, TF32 off), rounded and unrounded, with the per-size
    sweep and the card's ``nvidia-smi`` line;
-12. autotune: every program compiled with ``mode="autotune"`` under
+13. autotune: every program compiled with ``mode="autotune"`` under
    ``hw="calibrate"`` at the main widths, ``--budget`` candidates each
    (every candidate group built first, one ``nvcc`` a distinct source,
    in parallel), each group timed by graph replay on the card: each
@@ -132,10 +160,10 @@ Phases, each printed as JSON lines:
    and its whole-program time by graph replay beside ``best``'s and
    beside its summed group times (all three by ``core.timing.replay_s``
    at the autotune's discipline: 8 calls a graph, least of 3); each winner group against its plain
-   version and timed, as in phase 10; a second pass over the same
+   version and timed, as in phase 11; a second pass over the same
    cache must measure nothing (group hit rate 1.00); then ``refit``
    over the measured groups, the constants before and after;
-13. verify: the full static verifier (``repro_torch.analysis``) over
+14. verify: the full static verifier (``repro_torch.analysis``) over
    the 30 ``best``/``unfused`` plans and the 15 autotune winners, 0
    errors; and a plan entry corrupted on disk on purpose (two input refs
    swapped) that the compile path rejects, drops, recompiles and
@@ -159,8 +187,8 @@ outputs.
 
 The last lines are the ``{"kernels": [...]}`` record (the main path's
 K1 groups and hand kernels, then the engine's, the float16 path's and
-the autotune winners' K1 groups, each with the launches of its own
-counted run) and
+the autotune winners' K1 groups, then K4 and K5 on the LM serving path,
+each with the launches of its own counted run) and
 ``{"ok": true, "device": {...}}``; the card's ``nvidia-smi`` line is in
 the first (``device``) record.  Any failed
 phase ends the run with exit code 1 and no result line; so does a
@@ -256,6 +284,20 @@ OPEN_LOOP_HZ = 2000.0
 FP16 = ("AXPYDOT", "GEMVER")
 #: candidates the autotune phase measures for each program
 AUTOTUNE_BUDGET = 8
+#: the lm phase: ``serve --arch``'s loop at Llama-3-8B's full width and
+#: depth (32 layers, d_model 4096, 32 heads over 8 KV heads, d_ff 14336,
+#: vocab 128256; src/repro/configs/llama3_8b.py:5-8) in bfloat16, for
+#: 8 sequences of 1024-token prompts and 32 greedy tokens
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "llama3_8b", 8, 1024, 32
+#: ... and a second architecture at full width, depth cut to 2:
+#: qwen2_7b's 28 heads over 4 KV heads (G = 7) with QKV bias
+#: (src/repro/configs/qwen2_7b.py:5-9)
+LM_ARCH2, LM_DEPTH2 = "qwen2_7b", 2
+#: decode against forward on the logits, the reference's bound for the
+#: same check (tests/test_models.py:64-88)
+DECODE_VS_FORWARD = 5e-2
+#: H100 SXM bfloat16 on the tensor cores, dense
+BF16_OPS_PER_S = 989e12
 #: float16 output against float64: 11 bits of mantissa
 FP16_RTOL = 1e-2
 #: float16 kernel against its plain version (one rounding each)
@@ -376,11 +418,12 @@ def library_call(im, args, batched: bool = False):
     return None
 
 
-def bound_of(nbytes: float, ops: float):
+def bound_of(nbytes: float, ops: float, peak: float = F32_OPS_PER_S):
     """(ms, what bounds it): the larger of the bytes over the memory rate
-    and the float32 operations over the peak rate."""
+    and the operations over the peak rate (float32 outside the tensor
+    cores by default)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -534,6 +577,403 @@ def library_sequence(name, d):
         return None
     n = d["x"].shape[0]
     return lambda: (F.rms_norm(d["x"][None], (n,), d["gamma"], eps=1e-6)[0],)
+
+
+def lm_step_bound(cfg, B: int, kv_len: int):
+    """Least time of one bfloat16 decode step of ``cfg`` for B sequences
+    attending ``kv_len`` cache rows: every weight read once (each layer's
+    and ``unembed``; ``embed`` only at the B tokens' rows), K and V read
+    up to ``kv_len``, the new K/V rows and the logits written, against
+    the matmuls' and attention's operations on the tensor cores."""
+    from repro_torch.models import model_shapes
+    shapes = model_shapes(cfg)
+    D, L = cfg.d_model, cfg.n_layers
+    per_layer = sum(math.prod(s[1:]) for s in shapes["layers"].values())
+    matmul = sum(math.prod(s[1:]) for k, s in shapes["layers"].items()
+                 if k.startswith("w"))
+    head = math.prod(shapes.get("unembed", shapes["embed"]))
+    row = cfg.n_kv_heads * cfg.dh * 2            # one position's k or v
+    nbytes = (2 * (L * per_layer + head + D + B * D)
+              + 2 * L * B * kv_len * row + 2 * L * B * row
+              + 2 * B * cfg.vocab)
+    ops = (2 * B * (L * matmul + head)
+           + 4 * L * B * cfg.n_heads * kv_len * cfg.dh)
+    return bound_of(nbytes, ops, BF16_OPS_PER_S)
+
+
+def device_busy(prof) -> dict:
+    """From a ``torch.profiler`` run: the device's busy time (the union of
+    its kernels' intervals, µs) and the kernels' device time by name,
+    largest first; an empty record where the trace shows no device
+    work."""
+    import torch
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name: dict = {}
+    for e in evs:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return {"kernels": len(evs), "busy_us": busy if evs else None,
+            "by_kernel_us": dict(top[:12]),
+            "other_kernels_us": sum(t for _, t in top[12:])}
+
+
+class forbid_plain:
+    """Within the block, a call of any plain version in ``kernels.ref``
+    raises: the decode step counted there must run the kernels alone."""
+
+    NAMES = ("rmsnorm", "decode_attention", "decode_attention_split",
+             "decode_attention_combine")
+
+    def __init__(self, ref):
+        self.ref, self.saved = ref, {}
+
+    def __enter__(self):
+        def plain(*a, **k):
+            raise AssertionError("the counted step reached a plain version")
+        for n in self.NAMES:
+            self.saved[n] = getattr(self.ref, n)
+            setattr(self.ref, n, plain)
+
+    def __exit__(self, *exc):
+        for n, f in self.saved.items():
+            setattr(self.ref, n, f)
+
+
+def lm_phase(args, failures: list, smi_line: str) -> list:
+    """Phase 2: ``serve --arch``'s loop (``launch.serve.generate``) on the
+    card for ``LM_ARCH`` at full width and depth and for ``LM_ARCH2`` at
+    full width and depth ``LM_DEPTH2``, each from ``--seed``; one decode
+    step counted (K4 2 L + 1 times, K5's split and combine L times each,
+    no plain version), timed by graph replay and traced; decode against
+    forward, and for ``LM_ARCH`` again in float32; K5 and K4 at each
+    arch's decode and prefill shapes against their plain versions, with
+    bitwise repeats; returns the kernel records of ``LM_ARCH``'s run
+    (``lm_records``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import LAUNCHES
+    from repro_torch.core.timing import graph_ms
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import generate, load_model
+    from repro_torch.train.steps import make_decode_step
+
+    B, P, G = LM_BATCH, LM_PROMPT, LM_GEN
+    records = []
+    for arch, depth in ((LM_ARCH, None), (LM_ARCH2, LM_DEPTH2)):
+        cfg = get_config(arch)
+        reduced = None
+        if depth is not None:
+            reduced = {"n_layers": [cfg.n_layers, depth]}
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        L = cfg.n_layers
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = load_model(cfg, args.seed, "cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        peak_load = torch.cuda.max_memory_allocated() - base
+        n_params = sum(p.numel() for p in model.parameters())
+        rng = np.random.default_rng(args.seed)
+        prompts = rng.integers(0, cfg.vocab, (B, P)).astype(np.int32)
+        generate(cfg, model, prompts[:, :16], 2)        # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: counts set to 0 just before, read just after
+        LAUNCHES.reset()
+        res = generate(cfg, model, prompts, G)
+        torch.cuda.synchronize()
+        main_launches = dict(LAUNCHES.by_kernel)
+        peak_serve = torch.cuda.max_memory_allocated() - base
+        toks = res["tokens"]
+        steps_ms = res["step_ms"]
+        decode_s = sum(steps_ms) / 1e3
+        kv_lens = [P + i + 1 for i in range(G - 1)]
+        bounds = [lm_step_bound(cfg, B, n)[0] for n in kv_lens]
+        bound_ms = sum(bounds) / len(bounds)
+        tokens_ok = toks.shape == (B, G) and bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all())
+
+        # one more step at the cache's last row: counted, with every
+        # plain version forbidden, then timed as one graph, then traced
+        cache = res["cache"]
+        tok = torch.as_tensor(toks[:, -1], device="cuda")
+        pos = P + G - 1
+        step = make_decode_step(cfg)
+        with forbid_plain(ref):
+            LAUNCHES.reset()
+            _, step_logits, _ = step(model, cache, tok, pos)
+            torch.cuda.synchronize()
+            step_launches = dict(LAUNCHES.by_kernel)
+        want_launches = {"K4/rmsnorm_bf16": 2 * L + 1, "K5/split_bf16": L,
+                         "K5/combine_bf16": L}
+        if step_launches != want_launches:
+            failures.append(f"lm {arch}: one decode step launched "
+                            f"{step_launches}, want {want_launches}")
+        # the main run: the prefill's 2 L + 1 RMSNorms, then G - 1 steps
+        want_main = {"K4/rmsnorm_bf16": (2 * L + 1) * G,
+                     "K5/split_bf16": L * (G - 1),
+                     "K5/combine_bf16": L * (G - 1)}
+        if main_launches != want_main:
+            failures.append(f"lm {arch}: the main run launched "
+                            f"{main_launches}, want {want_main}")
+        logits_finite = bool(torch.isfinite(step_logits).all())
+        step_dev_ms, step_how = graph_ms(lambda: step(model, cache, tok, pos))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(model, cache, tok, pos)
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        trace = device_busy(prof)
+        busy_us = trace.pop("busy_us")
+
+        dvf, dvf_max = decode_vs_forward(cfg, model, prompts)
+        if not (dvf <= DECODE_VS_FORWARD and tokens_ok and logits_finite):
+            failures.append(f"lm {arch}: decode against forward {dvf:.3g} "
+                            f"(bound {DECODE_VS_FORWARD}), tokens ok "
+                            f"{tokens_ok}, logits finite {logits_finite}")
+        emit({"phase": "lm", "arch": arch, "nvidia_smi": smi_line,
+              "reduced": reduced, "n_layers": L, "d_model": cfg.d_model,
+              "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+              "d_ff": cfg.d_ff, "vocab": cfg.vocab, "params": n_params,
+              "dtype": cfg.compute_dtype, "batch": B, "prompt": P, "gen": G,
+              "load_s": load_s, "peak_load_bytes": peak_load,
+              "peak_serve_bytes": peak_serve, "base_bytes": base,
+              "prefill_ms": res["prefill_ms"],
+              "step_ms_median": float(np.median(steps_ms)),
+              "step_ms_min": min(steps_ms), "step_ms_max": max(steps_ms),
+              "step_ms": steps_ms,
+              "decode_tok_s": B * len(steps_ms) / decode_s,
+              "bound_ms_per_step": bound_ms, "bound_tok_s": B / bound_ms * 1e3,
+              "bound_by": lm_step_bound(cfg, B, kv_lens[-1])[1],
+              "step_device_ms": step_dev_ms, "step_timed_by": step_how,
+              "traced_step_ms": traced_s * 1e3,
+              "traced_busy_ms": None if busy_us is None else busy_us / 1e3,
+              "traced_busy_share": None if busy_us is None
+              else busy_us / 1e6 / traced_s,
+              "device_share_of_step": step_dev_ms
+              / float(np.median(steps_ms)),
+              "trace": trace, "main_launches": main_launches, "step_launches": step_launches,
+              "decode_vs_forward_norm_rel": dvf,
+              "decode_vs_forward_max_rel": dvf_max,
+              "tokens_ok": tokens_ok, "sample": toks[0][:16].tolist()})
+        if depth is not None:
+            checks = [((B, cfg.n_heads, cfg.n_kv_heads, P + G, cfg.dh),
+                       P + 1, "bfloat16")]
+        else:
+            checks = [((B, cfg.n_heads, cfg.n_kv_heads, P + G, cfg.dh), n, dt)
+                      for n, dt in ((P + 1, "bfloat16"), (P + G, "bfloat16"),
+                                    (777, "float32"))]
+        del model, res, cache, step_logits
+        torch.cuda.empty_cache()
+
+        # K5 and K4 at the decode's shapes against their plain versions
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+
+        def randn(*shape, dtype=torch.bfloat16):
+            return torch.randn(shape, generator=gen,
+                               device="cuda").to(dtype)
+
+        for shape, kv_len, dt in checks:
+            b, hq, hkv, S, d = shape
+            tdt = getattr(torch, dt)
+            q, kk, vv = (randn(b, hq, d, dtype=tdt),
+                         randn(b, S, hkv, d, dtype=tdt),
+                         randn(b, S, hkv, d, dtype=tdt))
+            tol = BF16_KERNEL_RTOL if dt == "bfloat16" else RTOL
+            got = k5.decode_attention(q, kk, vv, kv_len=kv_len)
+            again = k5.decode_attention(q, kk, vv, kv_len=kv_len)
+            rel, mabs = tensor_err(got, ref.decode_attention(
+                q, kk, vv, kv_len=kv_len))
+            same = torch.equal(bits(got), bits(again))
+            emit({"phase": "lm_kernel", "arch": arch, "kernel": "K5",
+                  "shape": list(shape), "kv_len": kv_len, "dtype": dt,
+                  "norm_rel_err": rel, "max_abs_err": mabs,
+                  "repeat_bitwise": same})
+            if not (rel <= tol and same):
+                failures.append(f"lm_kernel K5 {shape} kv_len {kv_len} {dt}: "
+                                f"error {rel:.3g} (tol {tol}), bitwise "
+                                f"repeat {same}")
+        k4_inputs = lm_k4_checks(cfg, randn, failures)
+        if depth is None:
+            records += lm_records(cfg, randn, k4_inputs, main_launches,
+                                  failures)
+
+    # the same check in float32 (TF32 off) at full depth: the gap of the
+    # two algorithms without bfloat16's rounding
+    cfg = dataclasses.replace(get_config(LM_ARCH), compute_dtype="float32")
+    model = load_model(cfg, args.seed, "cuda")
+    prompts = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab, (B, P)).astype(np.int32)
+    dvf, dvf_max = decode_vs_forward(cfg, model, prompts)
+    del model
+    torch.cuda.empty_cache()
+    emit({"phase": "lm", "arch": LM_ARCH, "dtype": "float32",
+          "n_layers": cfg.n_layers, "decode_vs_forward_norm_rel": dvf,
+          "decode_vs_forward_max_rel": dvf_max})
+    if not dvf <= RTOL:
+        failures.append(f"lm {LM_ARCH} float32: decode against forward "
+                        f"{dvf:.3g} > {RTOL}")
+    return records
+
+
+def decode_vs_forward(cfg, model, prompts) -> tuple[float, float]:
+    """The reference's serving check (``tests/test_models.py:64-88``) on
+    the card: prefill(P - 1) and one decode step at P - 1 (K5 over the
+    first 1024 rows of a 1055-row cache) against the forward over the P
+    = 1024 prompt tokens (one 1024-row block of the blockwise attention)
+    at the last position; (norm-relative, max-relative) error of the
+    logits."""
+    import torch
+
+    from repro_torch.launch.serve import grow_cache
+    from repro_torch.models import decode_step, forward_lm, prefill
+    Pf = prompts.shape[1] - 1
+    seq = torch.as_tensor(prompts, device="cuda")
+    want = forward_lm(cfg, model, seq)[0][:, Pf].float()
+    _, cache = prefill(cfg, model, seq[:, :Pf])
+    cache = grow_cache(cfg, cache, Pf + LM_GEN)
+    got = decode_step(cfg, model, cache, seq[:, Pf], Pf)[0].float()
+    return (tensor_err(got, want)[0],
+            float((got - want).abs().max() / want.abs().max()))
+
+
+def lm_k4_checks(cfg, randn, failures: list) -> list:
+    """K4 at ``cfg``'s decode (B, D) and prefill (B·P, D) shapes in
+    bfloat16 against its plain version, with a bitwise repeat; returns
+    ``(T, x, gamma, max_abs_err)`` for each."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as k4
+
+    D = cfg.d_model
+    out = []
+    for T in (LM_BATCH, LM_BATCH * LM_PROMPT):
+        x, g = randn(T, D), randn(D)
+        got, again = k4.rmsnorm(x, g), k4.rmsnorm(x, g)
+        rel, mabs = tensor_err(got, ref.rmsnorm(x, g))
+        same = torch.equal(bits(got), bits(again))
+        emit({"phase": "lm_kernel", "arch": cfg.name,
+              "kernel": "K4/rmsnorm_bf16", "shape": [T, D],
+              "dtype": "bfloat16", "norm_rel_err": rel, "max_abs_err": mabs,
+              "repeat_bitwise": same, **k4.plan(D, x.dtype, x.device)})
+        if not (rel <= BF16_KERNEL_RTOL and same):
+            failures.append(f"lm_kernel K4 {cfg.name} ({T}, {D}): error "
+                            f"{rel:.3g}, bitwise repeat {same}")
+        out.append((T, x, g, mabs))
+    return out
+
+
+def lm_records(cfg, randn, k4_checked: list, launches: dict,
+               failures: list) -> list:
+    """K4 (on ``lm_k4_checks``'s inputs) and K5 at ``LM_ARCH``'s decode
+    (and K4 at its prefill) shapes, each timed: the kernel records, with
+    the main run's ``launches`` of each kernel (prefill and decode
+    together)."""
+    import torch
+
+    from repro_torch.core.timing import graph_ms, time_ms
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as k4
+
+    F = torch.nn.functional
+    B, P, G = LM_BATCH, LM_PROMPT, LM_GEN
+    D = cfg.d_model
+    timed = []
+    for T, x, g, mabs in k4_checked:
+        # gamma in bfloat16, as the cast model holds it
+        timed.append(
+            dict(counter="K4/rmsnorm_bf16",
+                 where="decode" if T == B else "prefill", shape=[T, D],
+                 err=mabs,
+                 wrapper=lambda x=x, g=g: k4.rmsnorm(x, g),
+                 plain=lambda x=x, g=g: ref.rmsnorm(x, g),
+                 lib=lambda x=x, g=g: F.rms_norm(x, (D,), g, eps=1e-6),
+                 bound=bound_of(2 * 2 * T * D + 2 * D, 4 * T * D)))
+    # K5 at the decode steps' mean KV length
+    kv_len = P + G // 2
+    shape = (B, cfg.n_heads, cfg.n_kv_heads, P + G, cfg.dh)
+    b, hq, hkv, S, d = shape
+    q, kk, vv = randn(b, hq, d), randn(b, S, hkv, d), randn(b, S, hkv, d)
+    acc, mm, ll, length = k5.split(q, kk, vv, kv_len=kv_len)
+    chunks = acc.shape[0] // (b * hkv)
+    e_split = max(tensor_err(x, y)[1] for x, y in zip(
+        (acc, mm, ll), ref.decode_attention_split(q, kk, vv, length,
+                                                  kv_len=kv_len)))
+    part = (acc, mm, ll, b, hq, torch.bfloat16)
+    o = k5.combine(*part)
+    e_comb = tensor_err(o, ref.decode_attention_combine(*part))[1]
+    e_whole = tensor_err(k5.decode_attention(q, kk, vv, kv_len=kv_len),
+                         ref.decode_attention(q, kk, vv, kv_len=kv_len))[1]
+    b_split, b_comb, b_whole = k5_bounds(
+        (b, hq, hkv, kv_len, d), "bfloat16", chunks)
+    qkv = (q, kk, vv)
+    extra = dict(where="decode", shape=list(shape), kv_len=kv_len,
+                 chunks=chunks, chunk_len=length)
+    timed.append(dict(
+        extra, counter="K5/split_bf16", err=e_split, lib=None,
+        wrapper=lambda: k5.split(*qkv, kv_len=kv_len),
+        plain=lambda: ref.decode_attention_split(*qkv, length, kv_len=kv_len),
+        bound=b_split))
+    timed.append(dict(
+        extra, counter="K5/combine_bf16", err=e_comb, lib=None,
+        wrapper=lambda: k5.combine(*part),
+        plain=lambda: ref.decode_attention_combine(*part), bound=b_comb))
+    # K5 as a whole: a time line only, beside the library's attention
+    timed.append(dict(
+        extra, counter=None, err=e_whole,
+        wrapper=lambda: k5.decode_attention(*qkv, kv_len=kv_len),
+        plain=lambda: ref.decode_attention(*qkv, kv_len=kv_len),
+        lib=lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kk[:, :kv_len].transpose(1, 2),
+            vv[:, :kv_len].transpose(1, 2), enable_gqa=True)[:, :, 0],
+        bound=b_whole))
+    records = []
+    for e in timed:
+        name = f"{e['counter'] or 'K5/split+combine_bf16'} (lm {e['where']})"
+        ms, how = graph_ms(e["wrapper"])
+        lib_ms = lib_err = None
+        if e["lib"] is not None:
+            out = e["wrapper"]()
+            lib_err = tensor_err(e["lib"](), out)[0]
+            if not lib_err <= BF16_RTOL:
+                failures.append(f"library call for {name} disagrees with "
+                                f"the kernel: {lib_err:.3g}")
+            lib_ms = graph_ms(e["lib"])[0]
+        b_ms, b_by = e["bound"]
+        src, replaces = HAND[e["counter"] or "K5/split_bf16"]
+        rec = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces,
+               "launches": launches.get(e["counter"], 0),
+               "max_abs_err": e["err"], "ms": ms,
+               "plain_ms": time_ms(e["plain"]), "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": lib_ms}
+        emit({"phase": "time", "path": "lm", **rec, "timed_by": how,
+              "wrapper_ms": time_ms(e["wrapper"]),
+              "library_norm_rel_err": lib_err, "bound_share": b_ms / ms,
+              **{k: e[k] for k in ("shape", "kv_len", "chunks", "chunk_len")
+                 if k in e}})
+        if e["counter"] is not None:
+            records.append(rec)
+    return records
 
 
 def heal_corrupt_plan(FusionCompiler, PlanCache, REGISTRY, make_inputs,
@@ -710,6 +1150,12 @@ def main(argv=None):
     if failures:
         fail("; ".join(failures))
 
+    # -- 2. lm: serve --arch at Llama-3-8B's full width and depth, while the
+    # card holds nothing else (the float32 check loads 32 GB of weights)
+    lm_recs = lm_phase(args, failures, smi_line)
+    if failures:
+        fail("; ".join(failures))
+
     names = list(BLAS) + list(LM)
     inputs = {name: make_inputs(REGISTRY[name], size(name), seed=0)
               for name in names}
@@ -720,7 +1166,7 @@ def main(argv=None):
         return [vals[r[1]] if r[0] == "input" else outs_so_far[r[1]][r[2]]
                 for r in gp.inputs]
 
-    # -- 2. kernel phase: each group against the plain tiled version ---------
+    # -- 3. kernel phase: each group against the plain tiled version ---------
     kernel_err, group_in, kernel_out = {}, {}, {}
     for k in keys:
         prog = progs[k]
@@ -763,7 +1209,7 @@ def main(argv=None):
     if failures:
         fail("; ".join(failures))
 
-    # -- 3. main path: programs against float64 numpy, counting launches -----
+    # -- 4. main path: programs against float64 numpy, counting launches -----
     outs = {}
     LAUNCHES.reset()
     for k in keys:
@@ -793,7 +1239,7 @@ def main(argv=None):
     if failures:
         fail("; ".join(failures))
 
-    # -- 4. hand kernels against their plain versions ------------------------
+    # -- 5. hand kernels against their plain versions ------------------------
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -830,7 +1276,7 @@ def main(argv=None):
     #: K5 as a whole (split and combine), and K5 at LM_DECODE_ATTN's
     #: shape, timed on lines of their own
     whole_in: dict[str, dict] = {}
-    #: the full-width inputs the ``ops`` path of phase 5 reuses
+    #: the full-width inputs the ``ops`` path of phase 6 reuses
     hand_data: dict = {}
     alpha = torch.tensor(ALPHA, device="cuda")
     beta = torch.tensor(BETA, device="cuda")
@@ -1027,7 +1473,7 @@ def main(argv=None):
     if failures:
         fail("; ".join(failures))
 
-    # -- 5. the hand kernels' path through ops, counting launches -----------
+    # -- 6. the hand kernels' path through ops, counting launches -----------
     series_dev = {name: {k: torch.as_tensor(np.asarray(v)).cuda()
                          for k, v in inputs[name].items()} for name in SERIES}
     prefill = {dt: randn(*PREFILL, dtype=getattr(torch, dt))
@@ -1120,7 +1566,7 @@ def main(argv=None):
     if failures:
         fail("; ".join(failures))
 
-    # -- 6. serving: one request a call, graph replay beside eager ------------
+    # -- 7. serving: one request a call, graph replay beside eager ------------
     for mode in MODES:
         res = serve_blas(argparse.Namespace(
             blas="GEMVER", n=n2, requests=args.requests, mode=mode,
@@ -1149,7 +1595,7 @@ def main(argv=None):
     #: kernel records of the engine and float16 paths, for the last line
     path_records = []
 
-    # -- 7. the engine: a mixed stream, batched, packed, replayed ------------
+    # -- 8. the engine: a mixed stream, batched, packed, replayed ------------
     t0 = time.perf_counter()
     host_in = [make_inputs(REGISTRY[s_], n, seed=args.seed + 1000 + i)
                for i, (s_, n) in enumerate(stream)]
@@ -1388,7 +1834,7 @@ def main(argv=None):
     if failures:
         fail("; ".join(failures))
 
-    # -- 8. float16 through K1 ------------------------------------------------
+    # -- 9. float16 through K1 ------------------------------------------------
     inputs16 = {name: fp16_inputs(name, size(name), seed=0) for name in FP16}
     dev16 = {k: progs16[k].prepare(**inputs16[k[0]]) for k in keys16}
     LAUNCHES.reset()
@@ -1454,7 +1900,7 @@ def main(argv=None):
     if failures:
         fail("; ".join(failures))
 
-    # -- 9. the series: compiler, hand, torch backend, library -------------
+    # -- 10. the series: compiler, hand, torch backend, library -------------
     series_bounds = {
         "GEMVER": {k: hand_bound(k, (n2, n2))[0]
                    for k in ("K3/gemver_k1", "K3/gemver_k2")},
@@ -1517,7 +1963,7 @@ def main(argv=None):
     if failures:
         fail("; ".join(failures))
 
-    # -- 10. times -----------------------------------------------------------
+    # -- 11. times -----------------------------------------------------------
     def time_k1(fn, graph, im, a, out, err, launches, **extra):
         """The time record of one K1 group (``out``: its outputs on
         ``a``), emitted as a ``time`` line with ``extra``."""
@@ -1597,7 +2043,7 @@ def main(argv=None):
     if failures:
         fail("; ".join(failures))
 
-    # -- 11. calibrate: the card's constants for the cost model -------------
+    # -- 12. calibrate: the card's constants for the cost model -------------
     cal_cache = PlanCache()
     t0 = time.perf_counter()
     hw_cal = autotune.calibrate_hardware("cuda", cache=cal_cache)
@@ -1613,7 +2059,7 @@ def main(argv=None):
                (hw_cal.hbm_bw, hw_cal.launch_overhead_s, hw_cal.peak_flops)):
         fail(f"calibrate: constants not finite and positive: {hw_cal}")
 
-    # -- 12. autotune: every program, measured on the card -------------------
+    # -- 13. autotune: every program, measured on the card -------------------
     at_cache = PlanCache()
     cc_at = FusionCompiler(hw="calibrate", backend="cuda", device="cuda",
                            cache=at_cache, autotune_budget=args.budget)
@@ -1746,7 +2192,7 @@ def main(argv=None):
     winner_plans = {name: (p.plan, p.graph) for name, p in winners.items()}
     del winners, at_inputs, at_outs
 
-    # -- 13. verify: the full verifier over every plan, and one heal -------
+    # -- 14. verify: the full verifier over every plan, and one heal -------
     n_plans = n_err = 0
     for k in keys:
         diags = verify_plan(progs[k].plan, progs[k].graph, hw=cc.hw)
@@ -1762,7 +2208,8 @@ def main(argv=None):
     if n_err or not heal["healed"]:
         fail(f"verify: {n_err} errors over {n_plans} plans, heal {heal}")
 
-    emit({"kernels": records + path_records})
+
+    emit({"kernels": records + path_records + lm_recs})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev_name,
                                  "count": torch.cuda.device_count()}})
 

@@ -1,0 +1,13 @@
+"""granite-34b [dense]: 88L d_model=6144 48H (MQA kv=1) d_ff=24576
+vocab=49152 — llama-arch code model [arXiv:2405.04324; hf]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite_34b", family="dense", n_layers=88, d_model=6144,
+    n_heads=48, n_kv_heads=1, d_ff=24576, vocab=49152,
+)
+
+SMOKE = ModelConfig(
+    name="granite_34b_smoke", family="dense", n_layers=3, d_model=64,
+    n_heads=4, n_kv_heads=1, d_ff=128, vocab=256,
+)

@@ -117,15 +117,17 @@ def group_source(g: Graph, impl: Impl) -> str:
 
 
 def measure_group(g: Graph, impl: Impl, *, backend: str = "cuda",
-                  device="cpu", reps: int = MEAS_REPS,
+                  device="cuda", reps: int = MEAS_REPS,
                   warmup: int = MEAS_WARMUP, inner: int = GROUP_INNER,
                   seed: int = 0) -> float:
     """Time ONE fused group in isolation on synthetic inputs: on the
     ``cuda`` backend its K1 kernel (the wrapper a plan calls: launch and
     fold), on ``torch`` its dense function.  On a CUDA device by graph
     replay (``timing.replay_s``), on the CPU by the host clock
-    (``measure_callable``).  A failed build or launch raises."""
-    dev = torch.device(device)
+    (``measure_callable``), only when the caller passes ``device="cpu"``.
+    A failed build or launch raises, and so does ``"cuda"`` without a
+    card."""
+    dev = codegen.resolve_device(device)
     f = impl.fusion
     args = tuple(codegen.as_tensor(x, v, dev)
                  for x, v in zip(group_inputs(f, seed), f.external_inputs))
@@ -180,7 +182,7 @@ def _env_fields(device) -> tuple:
     """What makes two measuring environments interchangeable: the torch
     and CUDA versions, and the card's name and compute capability (or
     ``"cpu"``)."""
-    dev = torch.device(device)
+    dev = codegen.resolve_device(device)
     if dev.type == "cuda":
         idx = dev.index if dev.index is not None \
             else torch.cuda.current_device()
@@ -191,7 +193,7 @@ def _env_fields(device) -> tuple:
     return (torch.__version__, torch.version.cuda) + where
 
 
-def hw_fingerprint(backend: str = "cuda", device="cpu") -> str:
+def hw_fingerprint(backend: str = "cuda", device="cuda") -> str:
     """Fingerprint of the measuring environment: the backend, the torch
     and CUDA versions, and the device's name and compute capability (or
     ``"cpu"``).  Two hosts with the same fingerprint are
@@ -303,7 +305,7 @@ def impl_group_key(g: Graph, im: Impl, fingerprint: str) -> str:
 
 
 def predict_combination(g: Graph, combo: Combination, hw: HardwareModel, *,
-                        backend: str = "cuda", device="cpu",
+                        backend: str = "cuda", device="cuda",
                         cache: PlanCache | None = None) -> float:
     """Predicted seconds for one combination under the **two-phase
     predictor**: a group present in ``cache``'s per-group measured-cost
@@ -329,7 +331,7 @@ def predict_combination(g: Graph, combo: Combination, hw: HardwareModel, *,
 
 def autotune_combination(space: OptimizationSpace, *,
                          hw: HardwareModel = V5E, backend: str = "cuda",
-                         device="cpu", cache: PlanCache | None = None,
+                         device="cuda", cache: PlanCache | None = None,
                          budget: int = 8, reps: int = MEAS_REPS,
                          warmup: int = MEAS_WARMUP,
                          inner: int = GROUP_INNER, seed: int = 0
@@ -462,12 +464,6 @@ MATMUL_CPU = 384
 N_TINY = 200
 
 
-def _pick_device(device) -> torch.device:
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    return codegen.resolve_device(device)
-
-
 def _host_best(fn, reps: int) -> float:
     """Host-clock seconds of one call of ``fn``, warmed, min-of-reps."""
     fn()
@@ -480,7 +476,7 @@ def _host_best(fn, reps: int) -> float:
     return best
 
 
-def bandwidth_sweep(device=None, *, reps: int = 3,
+def bandwidth_sweep(device="cuda", *, reps: int = 3,
                     sizes=None) -> dict[int, float]:
     """Streaming bandwidth at each of ``sizes`` f32 element counts (by
     default ``BW_SWEEP_SIZES_CUDA`` on a CUDA device, else
@@ -490,7 +486,7 @@ def bandwidth_sweep(device=None, *, reps: int = 3,
     (``timing.replay_s``), on the CPU by the host clock.  Returns
     ``{bytes_moved: bytes/s}`` — keys derive deterministically from
     ``sizes``, values carry the jitter."""
-    dev = _pick_device(device)
+    dev = codegen.resolve_device(device)
     on_cuda = dev.type == "cuda"
     if sizes is None:
         sizes = BW_SWEEP_SIZES_CUDA if on_cuda else BW_SWEEP_SIZES
@@ -517,18 +513,18 @@ def bandwidth_sweep(device=None, *, reps: int = 3,
 _CALIBRATED: dict[tuple, HardwareModel] = {}
 
 
-def calibration_key(device=None) -> str:
+def calibration_key(device="cuda") -> str:
     """The measurement-layer key of ``device``'s calibration record."""
-    fields = _env_fields(_pick_device(device))
+    fields = _env_fields(codegen.resolve_device(device))
     return hashlib.sha256(
         repr(("calibration",) + fields).encode()).hexdigest()
 
 
-def calibrate_hardware(device=None, *, force: bool = False, reps: int = 3,
+def calibrate_hardware(device="cuda", *, force: bool = False, reps: int = 3,
                        cache: PlanCache | None = None) -> HardwareModel:
-    """Micro-benchmark ``device`` (default: the GPU when there is one,
-    else the CPU; asking for ``"cuda"`` without one raises) into a
-    ``HardwareModel``.
+    """Micro-benchmark ``device`` (default the GPU; without one that
+    raises: the CPU is measured only when the caller passes ``"cpu"``)
+    into a ``HardwareModel``.
 
     Three measurements, each min-of-``reps`` after a warm-up:
 
@@ -560,7 +556,7 @@ def calibrate_hardware(device=None, *, force: bool = False, reps: int = 3,
     policy, not speed, so a calibrated model searches the same space
     and only the ranking changes.
     """
-    dev = _pick_device(device)
+    dev = codegen.resolve_device(device)
     platform = dev.type
     fields = _env_fields(dev)
     if cache is None:

@@ -97,9 +97,10 @@ class HardwareModel:
         return max(t_transfer, t_compute) + self.launch_overhead_s
 
     @classmethod
-    def calibrate(cls, device=None, force: bool = False) -> "HardwareModel":
-        """Micro-benchmark ``device`` (default: the GPU when there is
-        one, else the CPU) into a HardwareModel: streaming bandwidth,
+    def calibrate(cls, device="cuda", force: bool = False) -> "HardwareModel":
+        """Micro-benchmark ``device`` (default the GPU, which raises
+        without one; the CPU only as ``device="cpu"``) into a
+        HardwareModel: streaming bandwidth,
         per-kernel overhead and f32 flop rate replace the hardcoded v5e
         constants (memoized per device; see
         ``core.autotune.calibrate_hardware``)."""

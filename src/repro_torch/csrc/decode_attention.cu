@@ -56,7 +56,11 @@
 //   round of loads, not one thread walking the chunks.  It is launched
 //   as a programmatic dependent of the split, so that its launch
 //   overlaps the split's last CTAs.
-// Tails of S and d are masked; any d up to D_MAX is taken; no atomics:
+// Only the valid prefix [0, kv_len) of each batch's S rows is read and
+// chunked (a KV cache allocated at its full horizon and filled up to the
+// decode position; S stays the row count of a batch's slab), so a decode
+// step attends its cache in place, without a copy of the prefix.  Tails
+// of kv_len and d are masked; any d up to D_MAX is taken; no atomics:
 // the same inputs give the same bits every run.
 
 #include "hand_kernels.cuh"
@@ -349,8 +353,9 @@ template <int GH, int KT>
 __global__ void __launch_bounds__(MMA_WARPS * 32) decode_attention_split_mma(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, float* __restrict__ acc_part,
-    float* __restrict__ m_part, float* __restrict__ l_part, int S, int Hkv,
-    int G, int d, int chunks, int len, float scale, int groups, int gh,
+    float* __restrict__ m_part, float* __restrict__ l_part, int S,
+    int kv_len, int Hkv, int G, int d, int chunks, int len, float scale,
+    int groups, int gh,
     int ts, int stages, int pitch, int body) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr float LOG2E = 1.4426950408889634f;  // KT = d / 16
@@ -368,7 +373,7 @@ __global__ void __launch_bounds__(MMA_WARPS * 32) decode_attention_split_mma(
   (void)ts;  // the CTA's rows a tile: MMA_WARPS * MMA_ROWS
 
   const long long s0 = (long long)c * len;
-  const long long s1 = s0 + len < S ? s0 + len : S;
+  const long long s1 = s0 + len < kv_len ? s0 + len : kv_len;
   const int nb = (int)((s1 - s0 + MMA_ROWS - 1) / MMA_ROWS);
   const int mine = nb > warp ? (nb - warp + MMA_WARPS - 1) / MMA_WARPS : 0;
   const long long row_stride = (long long)Hkv * d;
@@ -538,8 +543,9 @@ template <typename T, int VEC, int GH>
 __global__ void __launch_bounds__(NT, GH <= 4 ? 2 : 1) decode_attention_split(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, float* __restrict__ acc_part,
-    float* __restrict__ m_part, float* __restrict__ l_part, int S, int Hkv,
-    int G, int d, int chunks, int len, float scale, int groups, int gh,
+    float* __restrict__ m_part, float* __restrict__ l_part, int S,
+    int kv_len, int Hkv, int G, int d, int chunks, int len, float scale,
+    int groups, int gh,
     int ts, int stages, int pitch, int body) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int JP = EMAX / VEC;  // pieces a lane holds of a row
@@ -565,7 +571,7 @@ __global__ void __launch_bounds__(NT, GH <= 4 ? 2 : 1) decode_attention_split(
   T* ring = reinterpret_cast<T*>(smem);
   const int tile = ts * d;  // elements of one K (or V) tile
   const long long s0 = (long long)c * len;
-  const long long s1 = s0 + len < S ? s0 + len : S;
+  const long long s1 = s0 + len < kv_len ? s0 + len : kv_len;
   const int ntiles = (int)((s1 - s0 + ts - 1) / ts);
   const long long row_stride = (long long)Hkv * d;
   const T* kb = k + ((long long)b * S * Hkv + h) * d;
@@ -933,16 +939,20 @@ extern "C" int decode_attention_config(int G, int d, int bf16,
 }
 
 // q: (B, Hq, d); k, v: (B, S, Hkv, d), all float32 (bf16 == 0) or
-// bfloat16; acc_part: (B * Hkv * chunks, G, d) and m_part, l_part:
-// (B * Hkv * chunks, G) float32; chunks of len positions cover S, none
-// empty.
+// bfloat16, of which rows [0, kv_len) of each batch's slab are attended
+// (a cache allocated at its full horizon, filled up to kv_len; S stays
+// the slab's row count, the stride from one batch to the next);
+// acc_part: (B * Hkv * chunks, G, d) and m_part, l_part:
+// (B * Hkv * chunks, G) float32; chunks of len positions cover kv_len,
+// none empty.
 extern "C" int decode_attention_split_launch(
     const void* q, const void* k, const void* v, void* acc_part,
-    void* m_part, void* l_part, int B, int Hq, int Hkv, int S, int d,
-    int chunks, int len, float scale, int bf16, void* stream) {
-  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || S < 1 || d < 1 || d > D_MAX ||
-      chunks < 1 || len < 1 || (long long)chunks * len < S ||
-      (long long)(chunks - 1) * len >= S)
+    void* m_part, void* l_part, int B, int Hq, int Hkv, int S, int kv_len,
+    int d, int chunks, int len, float scale, int bf16, void* stream) {
+  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || kv_len < 1 || kv_len > S ||
+      d < 1 || d > D_MAX || chunks < 1 || len < 1 ||
+      (long long)chunks * len < kv_len ||
+      (long long)(chunks - 1) * len >= kv_len)
     return (int)cudaErrorInvalidValue;
   int G = Hq / Hkv;
   const bool aligned = hk::aligned16(k) && hk::aligned16(v);
@@ -954,7 +964,8 @@ extern "C" int decode_attention_split_launch(
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   void* args[] = {(void*)&q,          (void*)&k,      (void*)&v,
                   (void*)&acc_part,   (void*)&m_part, (void*)&l_part,
-                  (void*)&S,          (void*)&Hkv,    (void*)&G,
+                  (void*)&S,          (void*)&kv_len, (void*)&Hkv,
+                  (void*)&G,
                   (void*)&d,          (void*)&chunks, (void*)&len,
                   (void*)&scale,      (void*)&cfg.groups,
                   (void*)&cfg.gh,     (void*)&cfg.ts, (void*)&cfg.stages,

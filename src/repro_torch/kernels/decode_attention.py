@@ -15,12 +15,15 @@ in q's dtype.  Two launches, counted as ``K5/split_*`` and
 split's configuration on the card (``config``).  The plain versions are
 ``kernels.ref.decode_attention`` (the whole function) and
 ``ref.decode_attention_split`` / ``ref.decode_attention_combine`` (each
-kernel).
+kernel).  ``kv_len`` (at most S; default S) attends only the first
+``kv_len`` rows of each batch's K and V: a decode cache allocated at its
+full horizon and filled up to the step's position, read in place.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+import operator
 
 import torch
 
@@ -48,7 +51,7 @@ def _launchers():
         lib = _build.load_csrc("decode_attention.cu")
         ptr, i = ctypes.c_void_p, ctypes.c_int
         _fns = (_build.c_function(lib, "decode_attention_split_launch",
-                                  [ptr] * 6 + [i] * 7
+                                  [ptr] * 6 + [i] * 8
                                   + [ctypes.c_float, i, ptr]),
                 _build.c_function(lib, "decode_attention_combine_launch",
                                   [ptr] * 4 + [i] * 6 + [ptr]),
@@ -96,6 +99,18 @@ def check_heads(Hq: int, Hkv: int):
                          f"a multiple of Hkv = {Hkv} KV heads")
 
 
+def check_kv_len(kv_len, S: int) -> int:
+    """The rows of the cache to attend: ``kv_len`` (a host integer,
+    1 <= kv_len <= S), S where it is None."""
+    if kv_len is None:
+        return S
+    kv_len = operator.index(kv_len)
+    if not 1 <= kv_len <= S:
+        raise ValueError(f"decode_attention: kv_len = {kv_len} is outside "
+                         f"[1, S = {S}]")
+    return kv_len
+
+
 def _check(q, k, v):
     """(B, Hq, Hkv, S, d) of checked inputs."""
     name = NAMES.get(q.dtype, NAMES[torch.float32])[0]
@@ -113,15 +128,16 @@ def _check(q, k, v):
     return B, Hq, Hkv, S, d
 
 
-def split(q, k, v, scale: float | None = None):
-    """The split kernel: per (b, h_kv, chunk) float32 partials ``acc``
-    (B·Hkv·chunks, G, d), ``m`` and ``l`` (B·Hkv·chunks, G), and the
-    chunk length."""
+def split(q, k, v, scale: float | None = None, *, kv_len=None):
+    """The split kernel: per (b, h_kv, chunk of the first ``kv_len``
+    rows) float32 partials ``acc`` (B·Hkv·chunks, G, d), ``m`` and ``l``
+    (B·Hkv·chunks, G), and the chunk length."""
     B, Hq, Hkv, S, d = _check(q, k, v)
+    kv_len = check_kv_len(kv_len, S)
     G = Hq // Hkv
     bf16 = int(q.dtype == torch.bfloat16)
     cfg = config(G, d, q.dtype, q.device)
-    chunks, length = chunk_plan(ctas_per_chunk(B, Hkv, cfg), S,
+    chunks, length = chunk_plan(ctas_per_chunk(B, Hkv, cfg), kv_len,
                                 cfg["ctas_per_sm"] * cfg["sms"],
                                 cfg["tile"])
     rows = B * Hkv * chunks
@@ -131,7 +147,7 @@ def split(q, k, v, scale: float | None = None):
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     _launch.launch(NAMES[q.dtype][0], _launchers()[0],
                    *(t.data_ptr() for t in (q, k, v, acc, m, l)),
-                   B, Hq, Hkv, S, d, chunks, length, scale, bf16,
+                   B, Hq, Hkv, S, kv_len, d, chunks, length, scale, bf16,
                    device=q.device)
     return acc, m, l, length
 
@@ -161,9 +177,10 @@ def combine(acc, m, l, B: int, Hq: int, dtype=torch.float32):
     return out
 
 
-def decode_attention(q, k, v, scale: float | None = None):
+def decode_attention(q, k, v, scale: float | None = None, *, kv_len=None):
     """q: (B, Hq, d); k, v: (B, S, Hkv, d); all float32 or all bfloat16
-    on one CUDA device, Hq a multiple of Hkv, d <= D_MAX.  Returns (B, Hq,
-    d) in q's dtype."""
-    acc, m, l, _ = split(q, k, v, scale)
+    on one CUDA device, Hq a multiple of Hkv, d <= D_MAX; attends the
+    first ``kv_len`` rows (default S).  Returns (B, Hq, d) in q's
+    dtype."""
+    acc, m, l, _ = split(q, k, v, scale, kv_len=kv_len)
     return combine(acc, m, l, q.shape[0], q.shape[1], q.dtype)

@@ -87,9 +87,13 @@ def softmax_xent(logits, labels):
     return _xent.softmax_xent(logits, labels)
 
 
-def decode_attention(q, k, v):
-    """q: (B, Hq, d); k, v: (B, S, Hkv, d) -> (B, Hq, d)."""
+def decode_attention(q, k, v, kv_len=None):
+    """q: (B, Hq, d); k, v: (B, S, Hkv, d) -> (B, Hq, d), attending the
+    first ``kv_len`` rows of k and v (a host integer, 1 <= kv_len <= S;
+    default S): the valid prefix of a cache allocated at its full
+    horizon, read in place."""
     _attn.check_heads(q.shape[1], k.shape[2])
+    kv_len = _attn.check_kv_len(kv_len, k.shape[1])
     if _on_cpu(q, k, v):
-        return ref.decode_attention(q, k, v)
-    return _attn.decode_attention(q, k, v)
+        return ref.decode_attention(q, k, v, kv_len=kv_len)
+    return _attn.decode_attention(q, k, v, kv_len=kv_len)

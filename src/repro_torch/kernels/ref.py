@@ -71,12 +71,26 @@ def softmax_xent(logits, labels):
     return torch.mean(softmax_xent_rows(logits, labels))
 
 
-def decode_attention(q, k, v, scale: float | None = None):
-    """K5: single-token GQA decode attention.
+def _prefix(k, v, kv_len):
+    """K and V cut to their first ``kv_len`` rows (all S where None;
+    1 <= kv_len <= S)."""
+    if kv_len is None:
+        return k, v
+    S = k.shape[1]
+    if not 1 <= kv_len <= S:
+        raise ValueError(f"decode_attention: kv_len = {kv_len} is outside "
+                         f"[1, S = {S}]")
+    return k[:, :kv_len], v[:, :kv_len]
+
+
+def decode_attention(q, k, v, scale: float | None = None, *, kv_len=None):
+    """K5: single-token GQA decode attention over the first ``kv_len``
+    rows of the cache (default all S).
 
     q: (B, Hq, d) ; k, v: (B, S, Hkv, d) ; returns (B, Hq, d).
     Hq must be a multiple of Hkv (grouped sharing).
     """
+    k, v = _prefix(k, v, kv_len)
     B, Hq, d = q.shape
     _, S, Hkv, _ = k.shape
     groups = Hq // Hkv
@@ -88,11 +102,13 @@ def decode_attention(q, k, v, scale: float | None = None):
     return o.reshape(B, Hq, d).to(q.dtype)
 
 
-def decode_attention_split(q, k, v, length: int, scale: float | None = None):
-    """K5's split kernel: per (b, h_kv, chunk of ``length`` positions)
-    float32 partials ``acc`` (B·Hkv·chunks, G, d) = Σ exp(s - m) v over
-    the chunk, ``m`` (B·Hkv·chunks, G) its max score and ``l`` its sum of
-    exp(s - m)."""
+def decode_attention_split(q, k, v, length: int, scale: float | None = None,
+                           *, kv_len=None):
+    """K5's split kernel: per (b, h_kv, chunk of ``length`` positions of
+    the first ``kv_len``) float32 partials ``acc`` (B·Hkv·chunks, G, d) =
+    Σ exp(s - m) v over the chunk, ``m`` (B·Hkv·chunks, G) its max score
+    and ``l`` its sum of exp(s - m)."""
+    k, v = _prefix(k, v, kv_len)
     B, Hq, d = q.shape
     _, S, Hkv, _ = k.shape
     G = Hq // Hkv

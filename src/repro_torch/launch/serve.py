@@ -1,4 +1,18 @@
-"""BLAS-sequence serving through the fusion compiler.
+"""Serving launcher: LM serving (``--arch``) and BLAS-sequence serving
+through the fusion compiler (``--blas``).
+
+A language model: batched prefill of random prompts, then greedy decode
+against a KV cache at the full horizon (prompt + generated tokens), the
+weights random from ``--seed`` at the config's shapes and cast once to
+its compute dtype; K4 runs every RMSNorm and K5 every decode attention
+on the card:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \
+        --batch 8 --prompt-len 1024 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \
+        --smoke --device cpu
+
+BLAS sequences:
 
 One sequence, one size: compile through the plan cache, then a request
 loop where each request runs every group of the plan — on the ``cuda``
@@ -25,8 +39,8 @@ sequence recompiled with ``best`` under the refit model:
         --autotune --refit --budget 4 --n 4096
 
 Runs on the GPU by default; ``--device cpu`` runs the same paths on the
-CPU (K1's plain tiled version stands in for the kernels there).
-Requests on the GPU are timed with CUDA events around the whole loop.
+CPU (the kernels' plain versions stand in for them there).  On the GPU,
+requests and decode steps are timed with CUDA events.
 """
 from __future__ import annotations
 
@@ -137,6 +151,101 @@ def serve_blas(args) -> dict:
             "device": str(prog.device), "hw": cc.hw.name, "cache": stats}
 
 
+def grow_cache(cfg, cache, horizon: int) -> dict:
+    """The prefill's cache of KV length P at the full ``horizon``: a
+    ``zero_cache`` with the P positions copied in (the reference pads
+    it)."""
+    from repro_torch.models import zero_cache
+    k = cache["k"]
+    full = zero_cache(cfg, k.shape[1], horizon, device=k.device)
+    for name, t in cache.items():
+        full[name][:, :, :t.shape[2]] = t
+    return full
+
+
+def generate(cfg, model, prompts, gen: int) -> dict:
+    """The reference's ``--arch`` loop on ``model`` (cast to the compute
+    dtype): prefill the prompts (B, P), grow the cache to P + gen, take
+    the greedy token, then ``gen - 1`` decode steps.  Returns the (B,
+    gen) tokens (numpy int32), the cache, the prefill's milliseconds
+    (with the grow) and each decode step's (CUDA events on the card, so
+    a step's time includes the device waiting for the host)."""
+    import torch
+
+    from repro_torch.train import steps
+
+    B, P = prompts.shape
+    on_cuda = model.device.type == "cuda"
+    marks = []
+
+    def mark():
+        if on_cuda:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        else:
+            marks.append(time.perf_counter())
+
+    tokens = torch.as_tensor(np.asarray(prompts, np.int32),
+                             device=model.device)
+    decode_step = steps.make_decode_step(cfg)
+    mark()
+    logits, cache = steps.make_prefill_step(cfg)(model, {"tokens": tokens})
+    cache = grow_cache(cfg, cache, P + gen)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    mark()
+    out = [tok]
+    for i in range(gen - 1):
+        tok, logits, cache = decode_step(model, cache, tok, P + i)
+        out.append(tok)
+        mark()
+    if on_cuda:
+        marks[-1].synchronize()
+        ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    else:
+        ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    return {"tokens": torch.stack(out, dim=1).cpu().numpy(), "cache": cache,
+            "prefill_ms": ms[0], "step_ms": ms[1:]}
+
+
+def load_model(cfg, seed: int, device):
+    """Random parameters from a ``torch.Generator`` on ``device`` seeded
+    with ``seed``, in ``cfg.param_dtype``, cast once to
+    ``cfg.compute_dtype`` (leaf by leaf, in place)."""
+    import torch
+
+    from repro_torch.core.codegen import resolve_device
+    from repro_torch.models import cast_params, init_params
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return cast_params(cfg, init_params(cfg, gen, dev))
+
+
+def serve_arch(args):
+    """``--arch``: prompts from ``np.random.default_rng(seed)`` as the
+    reference draws them, a model from ``load_model``, then ``generate``;
+    prints the reference's three lines and returns the (B, gen)
+    tokens."""
+    from repro_torch.configs import get_config, smoke_config
+    if args.model_parallel > 1:
+        raise ValueError(f"--model-parallel {args.model_parallel}: sharded "
+                         f"serving comes with the port's dist slice "
+                         f"(ROADMAP.md); this path runs on one device")
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    B, P, G = args.batch, args.prompt_len, args.gen
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, cfg.vocab, (B, P)).astype(np.int32)
+    model = load_model(cfg, args.seed, args.device)
+    res = generate(cfg, model, prompts, G)
+    t_decode = sum(res["step_ms"]) / 1e3
+    tput = B * (G - 1) / max(t_decode, 1e-9)
+    print(f"prefill {P} toks x{B}: {res['prefill_ms']:.1f} ms")
+    print(f"decode  {G-1} steps x{B}: {t_decode*1e3:.1f} ms "
+          f"({tput:.1f} tok/s)")
+    print("sample generation (first sequence):",
+          res["tokens"][0][:16].tolist())
+    return res["tokens"]
+
+
 def engine_stream(ranges, requests: int, seed: int = 0) -> list:
     """A mixed-size request stream: ``(sequence, n)`` pairs, the
     sequences of ``ranges`` (``{name: (lo, hi)}``) in turn.  Each request
@@ -231,7 +340,9 @@ def serve_engine(args) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--blas", required=True,
+    ap.add_argument("--arch", help="serve a language model of "
+                    "repro_torch.configs (e.g. llama3_8b)")
+    ap.add_argument("--blas",
                     help="BLAS sequence to serve (e.g. GEMVER), or with "
                     "--engine a comma-separated list (GEMVER,BiCGK)")
     ap.add_argument("--engine", action="store_true",
@@ -268,6 +379,12 @@ def main(argv=None):
                     help="open-loop arrival rate in req/s for --engine "
                     "(0 = closed loop)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--smoke", action="store_true",
+                    help="with --arch: the config's reduced smoke size")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--model-parallel", type=int, default=1)
     args = ap.parse_args(argv)
 
     from repro_torch.core.diagnostics import KNOWN_BACKENDS, VerificationError
@@ -276,7 +393,11 @@ def main(argv=None):
             "RPL401", "cli.--backend",
             f"unknown backend {args.backend!r}",
             f"valid backends: {', '.join(KNOWN_BACKENDS)}")
-    return serve_engine(args) if args.engine else serve_blas(args)
+    if args.blas:
+        return serve_engine(args) if args.engine else serve_blas(args)
+    if not args.arch:
+        ap.error("one of --arch or --blas is required")
+    return serve_arch(args)
 
 
 if __name__ == "__main__":

@@ -186,6 +186,60 @@ def test_calibrate_on_cuda_without_a_gpu_raises(monkeypatch):
         autotune.calibrate_hardware("cuda", cache=PlanCache())
 
 
+def _no_card(monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(autotune, "_CALIBRATED", {})
+
+
+def _axpydot_impl():
+    g = trace(REGISTRY["AXPYDOT"].script, REGISTRY["AXPYDOT"].shapes(N))
+    return g, enumerate_combinations(build_space(g))[0].impls[0]
+
+
+@pytest.mark.parametrize("entry", [
+    "calibrate_hardware", "HardwareModel.calibrate", "measure_group",
+    "hw_fingerprint", "predict_combination", "autotune_combination"])
+def test_measuring_entry_points_without_a_device_need_the_card(entry,
+                                                               monkeypatch):
+    """Called without a device, every measuring entry point asks for the
+    card: on a machine without CUDA it raises and returns no CPU
+    numbers.  The CPU is measured only as ``device="cpu"``."""
+    _no_card(monkeypatch)
+    g, im = _axpydot_impl()
+    calls = {
+        "calibrate_hardware": lambda: autotune.calibrate_hardware(
+            cache=PlanCache()),
+        "HardwareModel.calibrate": lambda: type(V5E).calibrate(),
+        "measure_group": lambda: autotune.measure_group(g, im),
+        "hw_fingerprint": lambda: autotune.hw_fingerprint(),
+        "predict_combination": lambda: autotune.predict_combination(
+            g, enumerate_combinations(build_space(g))[0], V5E),
+        "autotune_combination": lambda: autotune.autotune_combination(
+            build_space(g), cache=PlanCache(), budget=1),
+    }
+    with pytest.raises(RuntimeError, match="is_available"):
+        calls[entry]()
+
+
+def test_measured_search_on_the_cpu_only_when_asked(monkeypatch):
+    """``device="cpu"`` still measures on the host: ``measure_group``
+    and the compiler's measured search."""
+    _no_card(monkeypatch)
+    monkeypatch.setattr(autotune, "MEAS_REPS", 1)
+    g, im = _axpydot_impl()
+    t = autotune.measure_group(g, im, device="cpu", reps=1, warmup=0,
+                               inner=1)
+    assert math.isfinite(t) and t > 0
+    prog = REGISTRY["AXPYDOT"]
+    cc = FusionCompiler(device="cpu", cache=PlanCache(), autotune_budget=1)
+    cp = cc.compile(prog.script, prog.shapes(N), mode="autotune")
+    assert cc.last_autotune.n_groups_measured > 0
+    want = prog.reference(**make_inputs(prog, N, seed=2))
+    for o, w in zip(cp(**make_inputs(prog, N, seed=2)), want):
+        np.testing.assert_allclose(o.numpy(), w, rtol=1e-5, atol=1e-5)
+
+
 def test_corrupt_measurement_entry_is_healed(stubbed, tmp_path):
     g = trace(REGISTRY["AXPYDOT"].script, REGISTRY["AXPYDOT"].shapes(N))
     cache = PlanCache(disk_dir=str(tmp_path))

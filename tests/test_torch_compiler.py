@@ -194,5 +194,8 @@ def test_port_imports_no_jax_and_no_reference():
                 "kernels.ref", "kernels.bicgk", "kernels.gemver",
                 "kernels.rmsnorm", "kernels.decode_attention",
                 "kernels.adamw", "kernels.softmax_xent", "optim",
-                "optim.fused", "programs.models", "programs.model_lib"):
+                "optim.fused", "programs.models", "programs.model_lib",
+                "configs", "configs.base", "configs.llama3_8b",
+                "models.common", "models.model", "models.forward",
+                "models.convert", "train.steps", "examples.serve_lm"):
         assert f"repro_torch.{mod}" in res["mods"]

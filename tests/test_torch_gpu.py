@@ -179,6 +179,42 @@ def test_decode_attention_kernels_match_ref_on_gpu(B, Hq, Hkv, S, d, dtype,
     assert length % cfg["tile"] == 0
 
 
+#: (B, Hq, Hkv, S, d, kv_len): Llama-3-8B's decode step for 8 sequences
+#: at a 1024-token prompt and 32 generated, the cache at its full horizon
+#: of 1056 rows, attended up to one row, the first step's 1025, an odd
+#: 777 and all 1056; one whole 64-row tile; a single head over 4099 rows
+KV_LEN_CASES = [(8, 32, 8, 1056, 128, 1), (8, 32, 8, 1056, 128, 1025),
+                (8, 32, 8, 1056, 128, 777), (8, 32, 8, 1056, 128, 1056),
+                (2, 8, 2, 256, 64, 64), (1, 1, 1, 4099, 48, 2049)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,S,d,kv_len", KV_LEN_CASES)
+def test_decode_attention_kv_len_matches_ref_on_gpu(B, Hq, Hkv, S, d, kv_len,
+                                                    dtype, cuda):
+    """K5 over the first ``kv_len`` rows of a longer cache against the
+    plain version; the rows past ``kv_len`` hold NaN, so a kernel that
+    read one would not be finite."""
+    rng = np.random.default_rng(S + kv_len)
+    q = _randn(rng, B, Hq, d, dtype=dtype, scale=0.5)
+    k = _randn(rng, B, S, Hkv, d, dtype=dtype, scale=0.2)
+    v = _randn(rng, B, S, Hkv, d, dtype=dtype)
+    k[:, kv_len:] = float("nan")
+    v[:, kv_len:] = float("nan")
+    tol = 1e-3 if dtype == torch.bfloat16 else 1e-4
+    acc, m, l, length = k5.split(q, k, v, kv_len=kv_len)
+    assert acc.shape[0] == B * Hkv * -(-kv_len // length)
+    for got, w in zip((acc, m, l), ref.decode_attention_split(
+            q, k, v, length, kv_len=kv_len)):
+        assert _rel(got, w) <= 1e-4
+    got = ops.decode_attention(q, k, v, kv_len)
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, ref.decode_attention(q, k, v, kv_len=kv_len)) <= tol
+    with pytest.raises(ValueError, match="kv_len"):
+        ops.decode_attention(q, k, v, S + 1)
+
+
 def _bits(t):
     return t.contiguous().view(torch.int16 if t.element_size() == 2
                                else torch.int32)
@@ -233,7 +269,10 @@ def test_decode_attention_unaligned_views_take_the_element_path(cuda):
     (5, 33, torch.bfloat16, "general_elements"),
     (2, 8, torch.float32, "registers"),
     (2, 8, torch.bfloat16, "registers"),
-    (7, 1000, torch.bfloat16, "registers")])
+    (7, 1000, torch.bfloat16, "registers"),
+    # qwen2_7b's rows (d_model 3584) at its decode and prefill
+    (8, 3584, torch.bfloat16, "registers"),
+    (8192, 3584, torch.bfloat16, "registers")])
 def test_rmsnorm_kernel_paths_match_ref_and_repeat_bitwise(T, D, dtype,
                                                            path, cuda):
     """K4 on its register path (rows of up to 1024 packs) and its general

@@ -208,6 +208,53 @@ def test_decode_attention_split_and_combine_compose(B, Hq, Hkv, S, d,
     assert got16.dtype == torch.bfloat16
 
 
+#: (B, Hq, Hkv, S, d) of a cache allocated at its full horizon, and the
+#: valid prefixes attended: one row, a chunk boundary of the 64-row
+#: chunks below, an odd length and all S
+KV_LEN_SHAPE = (2, 8, 2, 256, 64)
+
+
+@pytest.mark.parametrize("kv_len", [1, 64, 97, 256])
+def test_decode_attention_kv_len_is_the_sliced_cache(kv_len):
+    """``kv_len`` attends the first ``kv_len`` rows: the plain version
+    equals itself on ``k[:, :kv_len]`` bit for bit, and the reference's
+    Pallas kernel (interpret mode) on the sliced cache; the split's
+    chunks of ``kv_len`` compose to the same."""
+    B, Hq, Hkv, S, d = KV_LEN_SHAPE
+    rng = np.random.default_rng(kv_len)
+    q = randn(rng, B, Hq, d, scale=0.5)
+    k = randn(rng, B, S, Hkv, d, scale=0.2)
+    v = randn(rng, B, S, Hkv, d)
+    got = ref.decode_attention(t(q), t(k), t(v), kv_len=kv_len)
+    sliced = ref.decode_attention(t(q), t(k[:, :kv_len]), t(v[:, :kv_len]))
+    assert torch.equal(got, sliced)
+    torch.testing.assert_close(ops.decode_attention(t(q), t(k), t(v), kv_len),
+                               got, rtol=0, atol=0)
+    want = pallas_decode_attention(
+        *map(jnp.asarray, (q, k[:, :kv_len], v[:, :kv_len])), interpret=True)
+    close(got, np.asarray(want), 3e-4)
+    acc, m, l = ref.decode_attention_split(t(q), t(k), t(v), 64,
+                                           kv_len=kv_len)
+    assert acc.shape[0] == B * Hkv * -(-kv_len // 64)
+    torch.testing.assert_close(
+        ref.decode_attention_combine(acc, m, l, B, Hq), got, rtol=1e-5,
+        atol=1e-6)
+
+
+@pytest.mark.parametrize("kv_len", [0, KV_LEN_SHAPE[3] + 1, -1])
+def test_decode_attention_kv_len_outside_the_cache_raises(kv_len):
+    B, Hq, Hkv, S, d = KV_LEN_SHAPE
+    q, kv = torch.zeros(B, Hq, d), torch.zeros(B, S, Hkv, d)
+    for call in (lambda: ops.decode_attention(q, kv, kv, kv_len),
+                 lambda: ref.decode_attention(q, kv, kv, kv_len=kv_len),
+                 lambda: ref.decode_attention_split(q, kv, kv, 64,
+                                                    kv_len=kv_len),
+                 lambda: k5.check_kv_len(kv_len, S)):
+        with pytest.raises(ValueError, match="kv_len"):
+            call()
+    assert k5.check_kv_len(None, S) == S
+
+
 @pytest.mark.parametrize("ctas,S,slots,tile,want", [
     # Llama-3-8B decode step: B·Hkv = 64 over 2 CTAs an SM x 132 SMs
     (64, 8192, 264, 64, (4, 2048)),

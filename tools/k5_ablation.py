@@ -76,7 +76,7 @@ def main():
         lib = _build.load(text, f"k5{name}")
         libs[name] = (
             _build.c_function(lib, "decode_attention_split_launch",
-                              [ptr] * 6 + [i] * 7 + [ctypes.c_float, i,
+                              [ptr] * 6 + [i] * 8 + [ctypes.c_float, i,
                                                      ptr]),
             _build.c_function(lib, "decode_attention_combine_launch",
                               [ptr] * 4 + [i] * 6 + [ptr]),
