@@ -27,8 +27,11 @@ inputs made from a seed:
 * LM serving, ``serve --arch``'s loop (``launch.serve.generate``):
   Llama-3-8B at its full width and depth in bfloat16, random weights
   from ``--seed``, 8 prompts of 1024 tokens and 32 greedy tokens, K4
-  running every RMSNorm and K5 every decode attention; and qwen2_7b at
-  full width, its depth cut to 2.
+  running every RMSNorm and K5 every decode attention; qwen2_7b at
+  full width, its depth cut to 2; and the MoE family the same way:
+  DeepSeek-V2-Lite (MLA, 64 experts top-6 and 2 shared, a dense first
+  layer) at its full width and depth, and Grok-1 (GQA, 8 experts top-2)
+  at full width, its depth cut 64 -> 2.
 
 Phases, each printed as JSON lines:
 
@@ -57,7 +60,24 @@ Phases, each printed as JSON lines:
    versions, ``F.rms_norm`` and SDPA.  Then qwen2_7b (28 heads over 4,
    QKV bias) at full width and depth 2: the same run, launch counts and
    checks, K5 at (8, 28, 4, 1056, 128), K4 on (8, 3584) and (8192,
-   3584) (448 of 512 eight-element packs a row: the tail-masked path);
+   3584) (448 of 512 eight-element packs a row: the tail-masked path).
+   Then DeepSeek-V2-Lite at full width and depth and Grok-1 at depth 2
+   (``lm_run``): the same run and counts (K4 2 L + 1 a pass, 55 and 5
+   a step; K5's split and combine L each a step for Grok, none for
+   DeepSeek, whose absorbed MLA decode is plain PyTorch), the step
+   repeated bitwise, and replayed as one CUDA graph (the MoE layer moves
+   nothing to the host); the share of assignments the prefill drops at
+   capacity; the distinct experts one step's router chooses, whose
+   weights the step's bound reads (beside the bytes of the reference's
+   formulation, which multiplies every expert); decode against forward
+   with the capacity factor replaced by E / k (no drops), as the
+   reference computes it (the prefill's MLA ``kr`` before rope), with
+   ``kr`` roped, and with the decode routed to the forward's experts
+   (``routing_flips`` lists the near ties that flipped), the last held
+   to 5e-2, and in float32 to 1e-4 for DeepSeek at depth 3 (the dense
+   layer and 2 MoE layers).  K4 on (8, 2048), (8192, 2048), (8, 6144)
+   and (8192, 6144), K5 at Grok's (8, 48, 8, 1056, 128) with ``kv_len``
+   1040 (G = 6), each with a bitwise repeat, and timed;
 3. kernel: every K1 group's kernel against K1's plain tiled version on
    the same inputs on the card, and a second launch of it bitwise equal
    to the first (the groups whose reduce axes K1 cuts into slices
@@ -198,6 +218,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import math
 import os
@@ -293,6 +314,22 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "llama3_8b", 8, 1024, 32
 #: qwen2_7b's 28 heads over 4 KV heads (G = 7) with QKV bias
 #: (src/repro/configs/qwen2_7b.py:5-9)
 LM_ARCH2, LM_DEPTH2 = "qwen2_7b", 2
+#: the MoE family: DeepSeek-V2-Lite at full width and depth (27 layers,
+#: the first dense with d_ff 10944; d_model 2048, 16 heads with MLA:
+#: kv_lora_rank 512, rope 64, nope 128, v 128; 64 routed experts top-6
+#: and 2 shared, d_ff_moe 1408; src/repro/configs/deepseek_v2_lite.py:6-13)
+#: and Grok-1 at full width (d_model 6144, 48 heads over 8 KV heads, 8
+#: experts top-2 of d_ff 32768; src/repro/configs/grok1_314b.py:9-14),
+#: its depth cut 64 -> 2 to fit one card
+MOE_ARCH, MOE_ARCH2, MOE_DEPTH2 = "deepseek_v2_lite", "grok1_314b", 2
+#: DeepSeek's float32 decode-against-forward check: the dense head layer
+#: and 2 MoE layers
+MOE_F32_DEPTH = 3
+#: the lm phase's runs: (arch, depth or None for the full depth)
+LM_RUNS = ((LM_ARCH, None), (LM_ARCH2, LM_DEPTH2), (MOE_ARCH, None),
+           (MOE_ARCH2, MOE_DEPTH2))
+#: ... and its float32 decode-against-forward checks
+LM_F32_RUNS = ((LM_ARCH, None), (MOE_ARCH, MOE_F32_DEPTH))
 #: decode against forward on the logits, the reference's bound for the
 #: same check (tests/test_models.py:64-88)
 DECODE_VS_FORWARD = 5e-2
@@ -579,26 +616,51 @@ def library_sequence(name, d):
     return lambda: (F.rms_norm(d["x"][None], (n,), d["gamma"], eps=1e-6)[0],)
 
 
-def lm_step_bound(cfg, B: int, kv_len: int):
+def lm_step_bound(cfg, B: int, kv_len: int, experts=None):
     """Least time of one bfloat16 decode step of ``cfg`` for B sequences
     attending ``kv_len`` cache rows: every weight read once (each layer's
-    and ``unembed``; ``embed`` only at the B tokens' rows), K and V read
-    up to ``kv_len``, the new K/V rows and the logits written, against
-    the matmuls' and attention's operations on the tensor cores."""
+    and ``unembed``; ``embed`` only at the B tokens' rows), the cache
+    read up to ``kv_len`` (K and V, or MLA's latent and rope key: r + rd
+    elements a row), the new rows and the logits written, against the
+    matmuls' and attention's operations on the tensor cores (MLA's
+    absorbed attention: the latent scores, the rope scores and the
+    latent values).  An MoE layer reads the weights of ``experts[i]``
+    distinct experts (its router's choices in one step; all E where
+    None: the reference's formulation, whose expert batch multiplies
+    every expert) and computes k of them a token.  Returns (ms, what
+    bounds it, bytes)."""
     from repro_torch.models import model_shapes
     shapes = model_shapes(cfg)
-    D, L = cfg.d_model, cfg.n_layers
-    per_layer = sum(math.prod(s[1:]) for s in shapes["layers"].values())
-    matmul = sum(math.prod(s[1:]) for k, s in shapes["layers"].items()
-                 if k.startswith("w"))
+    D, L, E = cfg.d_model, cfg.n_layers, cfg.n_experts
+    stacks = [(shapes.get("head_layers", {}), "dense"),
+              (shapes["layers"], "moe" if cfg.family == "moe" else "dense")]
+    weights = ops = 0
+    moe_i = 0
+    for stack, kind in stacks:
+        n = next(iter(stack.values()))[0] if stack else 0
+        for _ in range(n):
+            for name, s in stack.items():
+                size = math.prod(s[1:])
+                if kind == "moe" and name in ("wg", "wu", "wd"):
+                    used = E if experts is None else experts[moe_i]
+                    weights += size // E * used
+                    ops += 2 * B * cfg.topk * (size // E)
+                else:
+                    weights += size
+                    ops += 2 * B * size if len(s) == 3 else 0
+            moe_i += kind == "moe"
     head = math.prod(shapes.get("unembed", shapes["embed"]))
-    row = cfg.n_kv_heads * cfg.dh * 2            # one position's k or v
-    nbytes = (2 * (L * per_layer + head + D + B * D)
-              + 2 * L * B * kv_len * row + 2 * L * B * row
-              + 2 * B * cfg.vocab)
-    ops = (2 * B * (L * matmul + head)
-           + 4 * L * B * cfg.n_heads * kv_len * cfg.dh)
-    return bound_of(nbytes, ops, BF16_OPS_PER_S)
+    if cfg.kv_lora_rank:
+        row = cfg.kv_lora_rank + cfg.qk_rope_dim
+        attn = 2 * B * cfg.n_heads * kv_len * (2 * cfg.kv_lora_rank
+                                               + cfg.qk_rope_dim)
+    else:
+        row = cfg.n_kv_heads * cfg.dh * 2        # one position's k and v
+        attn = 4 * B * cfg.n_heads * kv_len * cfg.dh
+    nbytes = (2 * (weights + head + D + B * D) + 2 * L * B * kv_len * row
+              + 2 * L * B * row + 2 * B * cfg.vocab)
+    ms, by = bound_of(nbytes, ops + 2 * B * head + L * attn, BF16_OPS_PER_S)
+    return ms, by, nbytes
 
 
 def device_busy(prof) -> dict:
@@ -647,17 +709,68 @@ class forbid_plain:
 
 
 def lm_phase(args, failures: list, smi_line: str) -> list:
-    """Phase 2: ``serve --arch``'s loop (``launch.serve.generate``) on the
-    card for ``LM_ARCH`` at full width and depth and for ``LM_ARCH2`` at
-    full width and depth ``LM_DEPTH2``, each from ``--seed``; one decode
-    step counted (K4 2 L + 1 times, K5's split and combine L times each,
-    no plain version), timed by graph replay and traced; decode against
-    forward, and for ``LM_ARCH`` again in float32; K5 and K4 at each
-    arch's decode and prefill shapes against their plain versions, with
-    bitwise repeats; returns the kernel records of ``LM_ARCH``'s run
-    (``lm_records``)."""
+    """Phase 2: ``serve --arch``'s loop on the card for each of
+    ``LM_RUNS`` (``lm_run``), then decode against forward in float32 for
+    ``LM_ARCH`` at full depth and ``MOE_ARCH`` at depth
+    ``MOE_F32_DEPTH``; returns the kernel records of the runs."""
     import dataclasses
 
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import load_model
+
+    records = []
+    for arch, depth in LM_RUNS:
+        records += lm_run(args, arch, depth, failures, smi_line)
+
+    # the same check in float32 (TF32 off): the gap of the two algorithms
+    # without bfloat16's rounding
+    for arch, depth in LM_F32_RUNS:
+        cfg, reduced = lm_config(get_config(arch), depth)
+        cfg = dataclasses.replace(cfg, compute_dtype="float32")
+        model = load_model(cfg, args.seed, "cuda")
+        prompts = np.random.default_rng(args.seed).integers(
+            0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+        dvf = decode_vs_forward(cfg, model, prompts)
+        del model
+        torch.cuda.empty_cache()
+        emit({"phase": "lm", "arch": arch, "dtype": "float32",
+              "reduced": reduced, "n_layers": cfg.n_layers,
+              "nvidia_smi": smi_line, **dvf})
+        # in float32 the two passes route every token alike
+        if not (dvf["decode_vs_forward_checked"] <= RTOL
+                and not dvf.get("routing_flips")):
+            failures.append(f"lm {arch} float32: decode against forward "
+                            f"{dvf['decode_vs_forward_checked']:.3g} > "
+                            f"{RTOL}, routing flips "
+                            f"{dvf.get('routing_flips')}")
+    return records
+
+
+def lm_config(cfg, depth):
+    """(``cfg`` at ``depth`` layers, the ``reduced`` record), or (cfg,
+    None) at its full depth."""
+    import dataclasses
+    if depth is None:
+        return cfg, None
+    return (dataclasses.replace(cfg, n_layers=depth),
+            {"n_layers": [cfg.n_layers, depth]})
+
+
+def lm_run(args, arch: str, depth, failures: list, smi_line: str) -> list:
+    """``launch.serve.generate`` for ``arch`` (at ``depth`` layers where
+    given) from ``--seed``: 8 prompts of 1024 tokens, 32 greedy tokens,
+    the counts set to 0 just before and read just after (K4 2 L + 1
+    times a forward pass, K5's split and combine L times a GQA step).
+    Then one more step counted with every plain version forbidden, the
+    same step repeated (bitwise equal logits), timed as one CUDA graph
+    and traced; for an MoE model the share of assignments the prefill
+    drops and the distinct experts of one step (which the step's bound
+    counts); decode against forward; K5 and K4 at the run's shapes
+    against their plain versions, with bitwise repeats.  Returns the
+    kernel records (``lm_records``; none for ``LM_ARCH2``)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -668,190 +781,331 @@ def lm_phase(args, failures: list, smi_line: str) -> list:
     from repro_torch.kernels import decode_attention as k5
     from repro_torch.kernels import ref
     from repro_torch.launch.serve import generate, load_model
+    from repro_torch.models import prefill
     from repro_torch.train.steps import make_decode_step
 
     B, P, G = LM_BATCH, LM_PROMPT, LM_GEN
-    records = []
-    for arch, depth in ((LM_ARCH, None), (LM_ARCH2, LM_DEPTH2)):
-        cfg = get_config(arch)
-        reduced = None
-        if depth is not None:
-            reduced = {"n_layers": [cfg.n_layers, depth]}
-            cfg = dataclasses.replace(cfg, n_layers=depth)
-        L = cfg.n_layers
-        torch.cuda.empty_cache()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        model = load_model(cfg, args.seed, "cuda")
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        peak_load = torch.cuda.max_memory_allocated() - base
-        n_params = sum(p.numel() for p in model.parameters())
-        rng = np.random.default_rng(args.seed)
-        prompts = rng.integers(0, cfg.vocab, (B, P)).astype(np.int32)
-        generate(cfg, model, prompts[:, :16], 2)        # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        # the main path: counts set to 0 just before, read just after
-        LAUNCHES.reset()
-        res = generate(cfg, model, prompts, G)
-        torch.cuda.synchronize()
-        main_launches = dict(LAUNCHES.by_kernel)
-        peak_serve = torch.cuda.max_memory_allocated() - base
-        toks = res["tokens"]
-        steps_ms = res["step_ms"]
-        decode_s = sum(steps_ms) / 1e3
-        kv_lens = [P + i + 1 for i in range(G - 1)]
-        bounds = [lm_step_bound(cfg, B, n)[0] for n in kv_lens]
-        bound_ms = sum(bounds) / len(bounds)
-        tokens_ok = toks.shape == (B, G) and bool(
-            ((toks >= 0) & (toks < cfg.vocab)).all())
-
-        # one more step at the cache's last row: counted, with every
-        # plain version forbidden, then timed as one graph, then traced
-        cache = res["cache"]
-        tok = torch.as_tensor(toks[:, -1], device="cuda")
-        pos = P + G - 1
-        step = make_decode_step(cfg)
-        with forbid_plain(ref):
-            LAUNCHES.reset()
-            _, step_logits, _ = step(model, cache, tok, pos)
-            torch.cuda.synchronize()
-            step_launches = dict(LAUNCHES.by_kernel)
-        want_launches = {"K4/rmsnorm_bf16": 2 * L + 1, "K5/split_bf16": L,
-                         "K5/combine_bf16": L}
-        if step_launches != want_launches:
-            failures.append(f"lm {arch}: one decode step launched "
-                            f"{step_launches}, want {want_launches}")
-        # the main run: the prefill's 2 L + 1 RMSNorms, then G - 1 steps
-        want_main = {"K4/rmsnorm_bf16": (2 * L + 1) * G,
-                     "K5/split_bf16": L * (G - 1),
-                     "K5/combine_bf16": L * (G - 1)}
-        if main_launches != want_main:
-            failures.append(f"lm {arch}: the main run launched "
-                            f"{main_launches}, want {want_main}")
-        logits_finite = bool(torch.isfinite(step_logits).all())
-        step_dev_ms, step_how = graph_ms(lambda: step(model, cache, tok, pos))
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            step(model, cache, tok, pos)
-            torch.cuda.synchronize()
-            traced_s = time.perf_counter() - t0
-        trace = device_busy(prof)
-        busy_us = trace.pop("busy_us")
-
-        dvf, dvf_max = decode_vs_forward(cfg, model, prompts)
-        if not (dvf <= DECODE_VS_FORWARD and tokens_ok and logits_finite):
-            failures.append(f"lm {arch}: decode against forward {dvf:.3g} "
-                            f"(bound {DECODE_VS_FORWARD}), tokens ok "
-                            f"{tokens_ok}, logits finite {logits_finite}")
-        emit({"phase": "lm", "arch": arch, "nvidia_smi": smi_line,
-              "reduced": reduced, "n_layers": L, "d_model": cfg.d_model,
-              "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
-              "d_ff": cfg.d_ff, "vocab": cfg.vocab, "params": n_params,
-              "dtype": cfg.compute_dtype, "batch": B, "prompt": P, "gen": G,
-              "load_s": load_s, "peak_load_bytes": peak_load,
-              "peak_serve_bytes": peak_serve, "base_bytes": base,
-              "prefill_ms": res["prefill_ms"],
-              "step_ms_median": float(np.median(steps_ms)),
-              "step_ms_min": min(steps_ms), "step_ms_max": max(steps_ms),
-              "step_ms": steps_ms,
-              "decode_tok_s": B * len(steps_ms) / decode_s,
-              "bound_ms_per_step": bound_ms, "bound_tok_s": B / bound_ms * 1e3,
-              "bound_by": lm_step_bound(cfg, B, kv_lens[-1])[1],
-              "step_device_ms": step_dev_ms, "step_timed_by": step_how,
-              "traced_step_ms": traced_s * 1e3,
-              "traced_busy_ms": None if busy_us is None else busy_us / 1e3,
-              "traced_busy_share": None if busy_us is None
-              else busy_us / 1e6 / traced_s,
-              "device_share_of_step": step_dev_ms
-              / float(np.median(steps_ms)),
-              "trace": trace, "main_launches": main_launches, "step_launches": step_launches,
-              "decode_vs_forward_norm_rel": dvf,
-              "decode_vs_forward_max_rel": dvf_max,
-              "tokens_ok": tokens_ok, "sample": toks[0][:16].tolist()})
-        if depth is not None:
-            checks = [((B, cfg.n_heads, cfg.n_kv_heads, P + G, cfg.dh),
-                       P + 1, "bfloat16")]
-        else:
-            checks = [((B, cfg.n_heads, cfg.n_kv_heads, P + G, cfg.dh), n, dt)
-                      for n, dt in ((P + 1, "bfloat16"), (P + G, "bfloat16"),
-                                    (777, "float32"))]
-        del model, res, cache, step_logits
-        torch.cuda.empty_cache()
-
-        # K5 and K4 at the decode's shapes against their plain versions
-        gen = torch.Generator(device="cuda").manual_seed(args.seed)
-
-        def randn(*shape, dtype=torch.bfloat16):
-            return torch.randn(shape, generator=gen,
-                               device="cuda").to(dtype)
-
-        for shape, kv_len, dt in checks:
-            b, hq, hkv, S, d = shape
-            tdt = getattr(torch, dt)
-            q, kk, vv = (randn(b, hq, d, dtype=tdt),
-                         randn(b, S, hkv, d, dtype=tdt),
-                         randn(b, S, hkv, d, dtype=tdt))
-            tol = BF16_KERNEL_RTOL if dt == "bfloat16" else RTOL
-            got = k5.decode_attention(q, kk, vv, kv_len=kv_len)
-            again = k5.decode_attention(q, kk, vv, kv_len=kv_len)
-            rel, mabs = tensor_err(got, ref.decode_attention(
-                q, kk, vv, kv_len=kv_len))
-            same = torch.equal(bits(got), bits(again))
-            emit({"phase": "lm_kernel", "arch": arch, "kernel": "K5",
-                  "shape": list(shape), "kv_len": kv_len, "dtype": dt,
-                  "norm_rel_err": rel, "max_abs_err": mabs,
-                  "repeat_bitwise": same})
-            if not (rel <= tol and same):
-                failures.append(f"lm_kernel K5 {shape} kv_len {kv_len} {dt}: "
-                                f"error {rel:.3g} (tol {tol}), bitwise "
-                                f"repeat {same}")
-        k4_inputs = lm_k4_checks(cfg, randn, failures)
-        if depth is None:
-            records += lm_records(cfg, randn, k4_inputs, main_launches,
-                                  failures)
-
-    # the same check in float32 (TF32 off) at full depth: the gap of the
-    # two algorithms without bfloat16's rounding
-    cfg = dataclasses.replace(get_config(LM_ARCH), compute_dtype="float32")
-    model = load_model(cfg, args.seed, "cuda")
-    prompts = np.random.default_rng(args.seed).integers(
-        0, cfg.vocab, (B, P)).astype(np.int32)
-    dvf, dvf_max = decode_vs_forward(cfg, model, prompts)
-    del model
+    cfg, reduced = lm_config(get_config(arch), depth)
+    L, moe, mla = cfg.n_layers, cfg.family == "moe", bool(cfg.kv_lora_rank)
+    L_gqa = 0 if mla else L
     torch.cuda.empty_cache()
-    emit({"phase": "lm", "arch": LM_ARCH, "dtype": "float32",
-          "n_layers": cfg.n_layers, "decode_vs_forward_norm_rel": dvf,
-          "decode_vs_forward_max_rel": dvf_max})
-    if not dvf <= RTOL:
-        failures.append(f"lm {LM_ARCH} float32: decode against forward "
-                        f"{dvf:.3g} > {RTOL}")
-    return records
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = load_model(cfg, args.seed, "cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    peak_load = torch.cuda.max_memory_allocated() - base
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, cfg.vocab, (B, P)).astype(np.int32)
+    generate(cfg, model, prompts[:, :16], 2)            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts set to 0 just before, read just after
+    LAUNCHES.reset()
+    res = generate(cfg, model, prompts, G)
+    torch.cuda.synchronize()
+    main_launches = dict(LAUNCHES.by_kernel)
+    peak_serve = torch.cuda.max_memory_allocated() - base
+    toks = res["tokens"]
+    steps_ms = res["step_ms"]
+    decode_s = sum(steps_ms) / 1e3
+    tokens_ok = toks.shape == (B, G) and bool(
+        ((toks >= 0) & (toks < cfg.vocab)).all())
+
+    # one more step at the cache's last row: counted, with every plain
+    # version forbidden, repeated, then timed as one graph, then traced
+    cache = res["cache"]
+    tok = torch.as_tensor(toks[:, -1], device="cuda")
+    pos = P + G - 1
+    step = make_decode_step(cfg)
+    with forbid_plain(ref):
+        LAUNCHES.reset()
+        _, step_logits, _ = step(model, cache, tok, pos)
+        torch.cuda.synchronize()
+        step_launches = dict(LAUNCHES.by_kernel)
+    _, again, _ = step(model, cache, tok, pos)
+    repeat_bitwise = torch.equal(bits(step_logits), bits(again))
+    k5_count = {"K5/split_bf16": L_gqa, "K5/combine_bf16": L_gqa} \
+        if L_gqa else {}
+    want_launches = {"K4/rmsnorm_bf16": 2 * L + 1, **k5_count}
+    if step_launches != want_launches:
+        failures.append(f"lm {arch}: one decode step launched "
+                        f"{step_launches}, want {want_launches}")
+    # the main run: the prefill's 2 L + 1 RMSNorms, then G - 1 steps
+    want_main = {"K4/rmsnorm_bf16": (2 * L + 1) * G,
+                 **{k: n * (G - 1) for k, n in k5_count.items()}}
+    if main_launches != want_main:
+        failures.append(f"lm {arch}: the main run launched "
+                        f"{main_launches}, want {want_main}")
+    logits_finite = bool(torch.isfinite(step_logits).all())
+    step_dev_ms, step_how = graph_ms(lambda: step(model, cache, tok, pos))
+    if step_how != "graph":
+        failures.append(f"lm {arch}: the decode step could not be "
+                        f"captured as one CUDA graph")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(model, cache, tok, pos)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    trace = device_busy(prof)
+    busy_us = trace.pop("busy_us")
+
+    moe_rec, experts = {}, None
+    if moe:
+        with moe_routes() as routes:
+            prefill(cfg, model, torch.as_tensor(prompts, device=model.device))
+        dropped = [int((~keep).sum()) for *_, keep in routes]
+        total = [keep.numel() for *_, keep in routes]
+        with moe_routes() as routes:
+            step(model, cache, tok, pos)
+        experts = [int(torch.unique(idx).numel()) for _, idx, _ in routes]
+        moe_rec = {"n_experts": cfg.n_experts, "topk": cfg.topk,
+                   "n_shared_experts": cfg.n_shared_experts,
+                   "first_dense_layers": cfg.first_dense_layers,
+                   "d_ff_moe": cfg.d_ff_moe,
+                   "capacity_factor": cfg.capacity_factor,
+                   "prefill_dropped_share": sum(dropped) / sum(total),
+                   "prefill_dropped_by_layer": [
+                       d / n for d, n in zip(dropped, total)],
+                   "step_experts_by_layer": experts,
+                   "step_experts_mean": sum(experts) / len(experts)}
+    kv_lens = [P + i + 1 for i in range(G - 1)]
+    bounds = [lm_step_bound(cfg, B, n, experts)[0] for n in kv_lens]
+    bound_ms = sum(bounds) / len(bounds)
+    last = lm_step_bound(cfg, B, kv_lens[-1], experts)
+    if moe:
+        all_e = lm_step_bound(cfg, B, kv_lens[-1])
+        moe_rec.update(bound_bytes=last[2],
+                       reference_formulation_bytes=all_e[2],
+                       reference_formulation_bound_ms=all_e[0])
+
+    dvf = decode_vs_forward(cfg, model, prompts)
+    if not (dvf["decode_vs_forward_checked"] <= DECODE_VS_FORWARD
+            and tokens_ok and logits_finite and repeat_bitwise):
+        failures.append(f"lm {arch}: decode against forward "
+                        f"{dvf['decode_vs_forward_checked']:.3g} (bound "
+                        f"{DECODE_VS_FORWARD}), tokens ok {tokens_ok}, "
+                        f"logits finite {logits_finite}, repeat bitwise "
+                        f"{repeat_bitwise}")
+    emit({"phase": "lm", "arch": arch, "nvidia_smi": smi_line,
+          "reduced": reduced, "n_layers": L, "d_model": cfg.d_model,
+          "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+          "kv_lora_rank": cfg.kv_lora_rank,
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab, "params": n_params,
+          "dtype": cfg.compute_dtype, "batch": B, "prompt": P, "gen": G,
+          "load_s": load_s, "peak_load_bytes": peak_load,
+          "peak_serve_bytes": peak_serve, "base_bytes": base,
+          "prefill_ms": res["prefill_ms"],
+          "step_ms_median": float(np.median(steps_ms)),
+          "step_ms_min": min(steps_ms), "step_ms_max": max(steps_ms),
+          "step_ms": steps_ms,
+          "decode_tok_s": B * len(steps_ms) / decode_s,
+          "bound_ms_per_step": bound_ms, "bound_tok_s": B / bound_ms * 1e3,
+          "bound_by": last[1], **moe_rec,
+          "step_device_ms": step_dev_ms, "step_timed_by": step_how,
+          "traced_step_ms": traced_s * 1e3,
+          "traced_busy_ms": None if busy_us is None else busy_us / 1e3,
+          "traced_busy_share": None if busy_us is None
+          else busy_us / 1e6 / traced_s,
+          "device_share_of_step": step_dev_ms / float(np.median(steps_ms)),
+          "trace": trace, "main_launches": main_launches,
+          "step_launches": step_launches,
+          "step_repeat_bitwise": repeat_bitwise, **dvf,
+          "tokens_ok": tokens_ok, "sample": toks[0][:16].tolist()})
+    shape = (B, cfg.n_heads, cfg.n_kv_heads, P + G, cfg.dh)
+    if mla:
+        checks = []
+    elif arch == LM_ARCH:
+        checks = [(shape, n, dt) for n, dt in ((P + 1, "bfloat16"),
+                                               (P + G, "bfloat16"),
+                                               (777, "float32"))]
+    else:
+        checks = [(shape, P + 1 if arch == LM_ARCH2 else P + G // 2,
+                   "bfloat16")]
+    del model, res, cache, step_logits, again
+    torch.cuda.empty_cache()
+
+    # K5 and K4 at the decode's shapes against their plain versions
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    for shape, kv_len, dt in checks:
+        b, hq, hkv, S, d = shape
+        tdt = getattr(torch, dt)
+        q, kk, vv = (randn(b, hq, d, dtype=tdt),
+                     randn(b, S, hkv, d, dtype=tdt),
+                     randn(b, S, hkv, d, dtype=tdt))
+        tol = BF16_KERNEL_RTOL if dt == "bfloat16" else RTOL
+        got = k5.decode_attention(q, kk, vv, kv_len=kv_len)
+        again = k5.decode_attention(q, kk, vv, kv_len=kv_len)
+        rel, mabs = tensor_err(got, ref.decode_attention(
+            q, kk, vv, kv_len=kv_len))
+        same = torch.equal(bits(got), bits(again))
+        emit({"phase": "lm_kernel", "arch": arch, "kernel": "K5",
+              "shape": list(shape), "kv_len": kv_len, "dtype": dt,
+              "norm_rel_err": rel, "max_abs_err": mabs,
+              "repeat_bitwise": same})
+        if not (rel <= tol and same):
+            failures.append(f"lm_kernel K5 {shape} kv_len {kv_len} {dt}: "
+                            f"error {rel:.3g} (tol {tol}), bitwise "
+                            f"repeat {same}")
+    k4_inputs = lm_k4_checks(cfg, randn, failures)
+    if arch == LM_ARCH2:
+        return []
+    return lm_records(cfg, randn, k4_inputs, main_launches, failures,
+                      label="" if arch == LM_ARCH else f"{arch} ")
 
 
-def decode_vs_forward(cfg, model, prompts) -> tuple[float, float]:
+class moe_routes:
+    """Within the block, every MoE layer records (router probabilities
+    (G, Tg, E), expert ids (G, Tg, k), kept assignments (G, Tg·k)) of its
+    routing, in call order: the router and the dispatch computed once
+    more beside the layer's own, for the check alone."""
+
+    def __enter__(self):
+        from repro_torch.models import common
+        from repro_torch.models import model as mm
+        self.mm, self.layer, routes = mm, mm.moe_layer, []
+
+        def tapped(cfg, x, p):
+            probs, _, idx = common.route(cfg, x, p["router"])
+            routes.append((probs, idx, common.dispatch(cfg, idx)[-1]))
+            return self.layer(cfg, x, p)
+        mm.moe_layer = tapped
+        return routes
+
+    def __exit__(self, *exc):
+        self.mm.moe_layer = self.layer
+
+
+def decode_vs_forward(cfg, model, prompts) -> dict:
     """The reference's serving check (``tests/test_models.py:64-88``) on
-    the card: prefill(P - 1) and one decode step at P - 1 (K5 over the
+    the card: prefill(P - 1) and one decode step at P - 1 (over the
     first 1024 rows of a 1055-row cache) against the forward over the P
-    = 1024 prompt tokens (one 1024-row block of the blockwise attention)
-    at the last position; (norm-relative, max-relative) error of the
-    logits."""
+    = 1024 prompt tokens at the last position: norm- and max-relative
+    error of the logits, and each sequence's.  The check's own fix-ups,
+    none of them in the serving path:
+
+    * an MoE model's capacity factor is replaced by E / k on both
+      passes, so that no pass drops an assignment (the forward's 16
+      groups and the decode's one group hold C = Tg);
+    * with MLA the check is made as the reference computes it (the
+      prefill's ``kr`` before rope) and again with the prefill's ``kr``
+      rows roped in place;
+    * an MoE model's last token may choose other experts in the decode
+      than in the forward where its router's k-th and (k+1)-th choices
+      lie closer than the two passes' bfloat16 noise (``routing_flips``
+      lists them, with the forward's gap); the check is made once more
+      with the decode routed to the forward's experts (gates from its
+      own router), ``*_routing_pinned``.
+
+    The last of these is the one held to the bound
+    (``decode_vs_forward_checked``)."""
+    import dataclasses
+
     import torch
 
     from repro_torch.launch.serve import grow_cache
-    from repro_torch.models import decode_step, forward_lm, prefill
-    Pf = prompts.shape[1] - 1
-    seq = torch.as_tensor(prompts, device="cuda")
-    want = forward_lm(cfg, model, seq)[0][:, Pf].float()
+    from repro_torch.models import common, decode_step, forward_lm, prefill
+    out = {}
+    moe = cfg.family == "moe"
+    if moe:
+        replaced = cfg.n_experts / cfg.topk
+        out["replaced"] = {"capacity_factor": [cfg.capacity_factor,
+                                               replaced]}
+        cfg = dataclasses.replace(cfg, capacity_factor=replaced)
+    B, P = prompts.shape
+    Pf = P - 1
+    seq = torch.as_tensor(prompts, device=model.device)
+    with moe_routes() as fwd:
+        want = forward_lm(cfg, model, seq)[0][:, Pf].float()
     _, cache = prefill(cfg, model, seq[:, :Pf])
     cache = grow_cache(cfg, cache, Pf + LM_GEN)
-    got = decode_step(cfg, model, cache, seq[:, Pf], Pf)[0].float()
-    return (tensor_err(got, want)[0],
-            float((got - want).abs().max() / want.abs().max()))
+
+    def errs(key: str, tap: bool = True):
+        with moe_routes() if tap else contextlib.nullcontext() as dec:
+            got = decode_step(cfg, model, cache, seq[:, Pf], Pf)[0].float()
+        out[f"{key}_norm_rel"] = tensor_err(got, want)[0]
+        out[f"{key}_max_rel"] = float((got - want).abs().max()
+                                      / want.abs().max())
+        out[f"{key}_by_sequence"] = ((got - want).norm(dim=-1)
+                                     / want.norm(dim=-1)).tolist()
+        return out[f"{key}_norm_rel"], dec
+
+    key = "decode_vs_forward"
+    checked, dec = errs(key)
+    if cfg.kv_lora_rank:
+        positions = torch.arange(Pf, device=model.device)[None, :]
+        for kr in cache["kr"]:
+            kr[:, :Pf] = common.rope(kr[:, :Pf, None, :], positions,
+                                     cfg.rope_theta)[..., 0, :]
+        key += "_kr_roped"
+        checked, dec = errs(key)
+    if moe:
+        out.update(routing_flips(cfg, fwd, dec, B, P))
+        with pinned_routes(fwd, B, P):
+            checked, _ = errs(key + "_routing_pinned", tap=False)
+    out["decode_vs_forward_checked"] = checked
+    return out
+
+
+class pinned_routes:
+    """Within the block, the i-th MoE layer called sends its tokens (one
+    a sequence: a decode step) to the experts that ``fwd``'s i-th layer
+    (``moe_routes`` over B sequences of P tokens) chose for each
+    sequence's last token, with gates from its own router renormalised
+    over them: the check's routing, never the serving path's."""
+
+    def __init__(self, fwd: list, B: int, P: int):
+        self.fwd, self.B, self.P = fwd, B, P
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import common
+        self.common, self.route = common, common.route
+        calls = iter(self.fwd)
+
+        def pinned(cfg, x, router):
+            probs = self.route(cfg, x, router)[0]
+            idx = next(calls)[1]
+            last = torch.arange(self.B, device=idx.device) * self.P \
+                + self.P - 1
+            idx = idx.reshape(self.B * self.P, -1)[last].reshape(
+                *probs.shape[:2], -1)
+            gate = probs.gather(-1, idx)
+            return probs, gate / gate.sum(-1, keepdim=True), idx
+        common.route = pinned
+
+    def __exit__(self, *exc):
+        self.common.route = self.route
+
+
+def routing_flips(cfg, fwd: list, dec: list, B: int, P: int) -> dict:
+    """The last token's experts in each MoE layer of the forward
+    (``moe_routes`` over B sequences of P tokens) against the decode's:
+    the (layer, sequence) pairs whose expert sets differ, and for each
+    the gap of the forward's k-th and (k+1)-th router probabilities
+    relative to the k-th (a near tie flips under bfloat16 noise)."""
+    import torch
+    k = cfg.topk
+    flips, gaps = [], []
+    for l, ((probs, idx, _), (_, didx, _)) in enumerate(zip(fwd, dec)):
+        last = torch.arange(B, device=idx.device) * P + P - 1
+        f_idx = idx.reshape(B * P, k)[last].sort(-1).values
+        ps = probs.reshape(B * P, -1)[last].sort(-1, descending=True).values
+        differ = (f_idx != didx.reshape(B, k).sort(-1).values).any(-1)
+        for b in differ.nonzero()[:, 0].tolist():
+            flips.append([l, b])
+            gaps.append(float((ps[b, k - 1] - ps[b, k]) / ps[b, k - 1]))
+    return {"routing_flips": flips, "routing_flip_gaps": gaps,
+            "moe_layers": len(fwd)}
 
 
 def lm_k4_checks(cfg, randn, failures: list) -> list:
@@ -882,14 +1136,13 @@ def lm_k4_checks(cfg, randn, failures: list) -> list:
 
 
 def lm_records(cfg, randn, k4_checked: list, launches: dict,
-               failures: list) -> list:
-    """K4 (on ``lm_k4_checks``'s inputs) and K5 at ``LM_ARCH``'s decode
-    (and K4 at its prefill) shapes, each timed: the kernel records, with
-    the main run's ``launches`` of each kernel (prefill and decode
-    together)."""
+               failures: list, label: str = "") -> list:
+    """K4 (on ``lm_k4_checks``'s inputs) and, for GQA, K5 at ``cfg``'s
+    decode (and K4 at its prefill) shapes, each timed: the kernel
+    records, named ``<counter> (lm <label><where>)``, with the main
+    run's ``launches`` of each kernel (prefill and decode together)."""
     import torch
 
-    from repro_torch.core.timing import graph_ms, time_ms
     from repro_torch.kernels import decode_attention as k5
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as k4
@@ -908,6 +1161,8 @@ def lm_records(cfg, randn, k4_checked: list, launches: dict,
                  plain=lambda x=x, g=g: ref.rmsnorm(x, g),
                  lib=lambda x=x, g=g: F.rms_norm(x, (D,), g, eps=1e-6),
                  bound=bound_of(2 * 2 * T * D + 2 * D, 4 * T * D)))
+    if cfg.kv_lora_rank:            # MLA's decode is not K5's (d <= 256)
+        return lm_time(timed, launches, failures, label)
     # K5 at the decode steps' mean KV length
     kv_len = P + G // 2
     shape = (B, cfg.n_heads, cfg.n_kv_heads, P + G, cfg.dh)
@@ -946,9 +1201,18 @@ def lm_records(cfg, randn, k4_checked: list, launches: dict,
             q[:, :, None], kk[:, :kv_len].transpose(1, 2),
             vv[:, :kv_len].transpose(1, 2), enable_gqa=True)[:, :, 0],
         bound=b_whole))
+    return lm_time(timed, launches, failures, label)
+
+
+def lm_time(timed: list, launches: dict, failures: list, label: str) -> list:
+    """Each of ``lm_records``' kernels timed beside its bound, its plain
+    version and its library call: a ``time`` line each, and the records
+    of those with a launch counter."""
+    from repro_torch.core.timing import graph_ms, time_ms
     records = []
     for e in timed:
-        name = f"{e['counter'] or 'K5/split+combine_bf16'} (lm {e['where']})"
+        name = (f"{e['counter'] or 'K5/split+combine_bf16'} "
+                f"(lm {label}{e['where']})")
         ms, how = graph_ms(e["wrapper"])
         lib_ms = lib_err = None
         if e["lib"] is not None:

@@ -4,7 +4,8 @@ through the fusion compiler (``--blas``).
 A language model: batched prefill of random prompts, then greedy decode
 against a KV cache at the full horizon (prompt + generated tokens), the
 weights random from ``--seed`` at the config's shapes and cast once to
-its compute dtype; K4 runs every RMSNorm and K5 every decode attention
+its compute dtype (dense and MoE families, e.g. ``deepseek_v2_lite``,
+``grok1_314b``); K4 runs every RMSNorm and K5 every GQA decode attention
 on the card:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \
@@ -153,11 +154,13 @@ def serve_blas(args) -> dict:
 
 def grow_cache(cfg, cache, horizon: int) -> dict:
     """The prefill's cache of KV length P at the full ``horizon``: a
-    ``zero_cache`` with the P positions copied in (the reference pads
-    it)."""
+    ``zero_cache`` with the P positions of every leaf (axis 2 is the
+    sequence: ``k``/``v``, or MLA's ``ckv``/``kr``) copied in (the
+    reference pads it)."""
     from repro_torch.models import zero_cache
-    k = cache["k"]
-    full = zero_cache(cfg, k.shape[1], horizon, device=k.device)
+    any_leaf = next(iter(cache.values()))
+    full = zero_cache(cfg, any_leaf.shape[1], horizon,
+                      device=any_leaf.device)
     for name, t in cache.items():
         full[name][:, :, :t.shape[2]] = t
     return full
@@ -209,15 +212,17 @@ def generate(cfg, model, prompts, gen: int) -> dict:
 
 def load_model(cfg, seed: int, device):
     """Random parameters from a ``torch.Generator`` on ``device`` seeded
-    with ``seed``, in ``cfg.param_dtype``, cast once to
-    ``cfg.compute_dtype`` (leaf by leaf, in place)."""
+    with ``seed``, each leaf drawn in ``cfg.param_dtype`` and cast to
+    ``cfg.compute_dtype`` as it is drawn (the peak is the cast model and
+    one leaf in ``param_dtype``)."""
     import torch
 
     from repro_torch.core.codegen import resolve_device
-    from repro_torch.models import cast_params, init_params
+    from repro_torch.models import init_params
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return cast_params(cfg, init_params(cfg, gen, dev))
+    return init_params(cfg, gen, dev,
+                       dtype=getattr(torch, cfg.compute_dtype))
 
 
 def serve_arch(args):

@@ -1,14 +1,13 @@
-"""Shared layers of the decoder: norms, rope, blockwise attention and the
-MLP, from the reference's ``repro.models.common``.
+"""Shared layers of the decoder: norms, rope, blockwise attention, the
+MLP and the MoE layer, from the reference's ``repro.models.common``.
 
 Plain functions on tensors.  ``rmsnorm`` goes through
 ``kernels.ops.rmsnorm``: K4 on a CUDA tensor, K4's plain version on a CPU
-tensor.  ``blockwise_attention`` is plain PyTorch, as the reference's is
-plain JAX: no Pallas kernel stands behind it.  The reference's sharding
-helpers (``constrain``, ``pspec``, ``resolve_axis``,
+tensor.  ``blockwise_attention`` and ``moe_layer`` are plain PyTorch, as
+the reference's are plain JAX: no Pallas kernel stands behind them.  The
+reference's sharding helpers (``constrain``, ``pspec``, ``resolve_axis``,
 ``set_tensor_parallel``) are the identity on one device; they come with
-the port's ``dist`` slice, and ``moe_layer`` with the MoE family
-(``ROADMAP.md``).
+the port's ``dist`` slice (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -74,22 +73,24 @@ def rope(x, positions, theta: float):
 # blockwise attention (online softmax over KV blocks)
 # ---------------------------------------------------------------------------
 
-def blockwise_attention(q, k, v, *, block_kv: int = 1024):
+def blockwise_attention(q, k, v, *, block_kv: int = 1024,
+                        scale: float | None = None):
     """Causal online-softmax attention streaming K and V in blocks of
     ``bk`` rows (``block_kv``, halved until it divides Sk), so the logits
     held at once are (B, Sq, Hq, bk) float32, never (Sq, Sk).
 
-    q: (B, Sq, Hq, dh); k, v: (B, Sk, Hkv, dh); Hq % Hkv == 0, the G =
-    Hq / Hkv query heads of a KV head next to each other; q[0] and k[0]
-    at position 0.  Masked logits are -1e30, as in the reference's
-    ``causal=True, q_offset=0, window=0`` (the only case a dense
+    q, k: (B, Sq, Hq, dh), (B, Sk, Hkv, dh); v: (B, Sk, Hkv, dv); Hq %
+    Hkv == 0, the G = Hq / Hkv query heads of a KV head next to each
+    other; q[0] and k[0] at position 0; the logits scaled by ``scale``
+    (``dh ** -0.5`` unless given).  Masked logits are -1e30, as in the
+    reference's ``causal=True, q_offset=0, window=0`` (the only case a
     decoder's prefill runs).  Returns q's dtype.
     """
     B, Sq, Hq, dh = q.shape
     _, Sk, Hkv, _ = k.shape
     dv = v.shape[-1]
     G = Hq // Hkv
-    scale = dh ** -0.5
+    scale = scale if scale is not None else dh ** -0.5
     bk = min(block_kv, Sk)
     while Sk % bk:
         bk //= 2
@@ -131,3 +132,96 @@ def mlp(cfg, x, wg, wu, wd):
     else:
         h = F.gelu(x @ wu, approximate="tanh")
     return h @ wd
+
+
+# ---------------------------------------------------------------------------
+# MoE: sort-based capacity dispatch
+# ---------------------------------------------------------------------------
+
+def route(cfg, x, router):
+    """The router: (probs (G, Tg, E) float32, gates (G, Tg, k) renormalised
+    to sum to 1, expert ids (G, Tg, k)), the top k of a token's softmax
+    over its float32 router logits, largest first."""
+    logits = x.to(torch.float32) @ router.to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = torch.topk(probs, cfg.topk, dim=-1)
+    return probs, gate / gate.sum(-1, keepdim=True).clamp_min(1e-9), idx
+
+
+def dispatch(cfg, idx):
+    """Capacity dispatch of expert ids (G, Tg, k): (C; the Tg·k
+    assignments of a group stably sorted by expert, ``se``, and their
+    token-major ``order``; tokens a expert ``counts`` and its first
+    sorted position ``starts`` (G, E); each sorted assignment's ``rank``
+    within its expert and whether it is kept, rank < C)."""
+    G, Tg, k = idx.shape
+    E, A = cfg.n_experts, Tg * k
+    C = min(max(8, int(Tg * k / E * cfg.capacity_factor)), A)
+    se, order = torch.sort(idx.reshape(G, A), dim=-1, stable=True)
+    counts = (se[..., None] == torch.arange(E, device=idx.device)).sum(1)
+    starts = counts.cumsum(-1) - counts
+    rank = torch.arange(A, device=idx.device) - starts.gather(1, se)
+    return C, se, order, counts, starts, rank, rank < C
+
+
+def moe_layer(cfg, x, p):
+    """x: (G, Tg, D) tokens in groups; p: ``router`` (D, E), ``wg``/``wu``
+    (E, D, F), ``wd`` (E, F, D), and the shared expert ``wg_s``/``wu_s``/
+    ``wd_s`` where ``cfg.n_shared_experts``.  Returns (out (G, Tg, D),
+    aux), the reference's dispatch assignment for assignment:
+
+    top-k of the float32 router softmax, gates renormalised; the Tg·k
+    assignments of a group (token-major) stably sorted by expert; an
+    assignment's rank within its expert kept below the capacity ``C =
+    min(max(8, int(Tg·k / E · capacity_factor)), Tg·k)``, the rest
+    dropped; the (G, E, C, D) expert batch, the expert matmuls, and each
+    token's kept contributions weighted by their gates.
+
+    Every shape is fixed by (G, Tg) and the config, and no value goes to
+    the host, so a step holding this layer can be captured as one CUDA
+    graph.  The expert batch is gathered (slot ``(e, c)`` reads the
+    sorted assignment at expert e's start + c), and each token sums its
+    k contributions in a fixed order after the sort is inverted: no
+    scatter-add, so a repeated call is bitwise equal.  ``aux`` is the
+    Switch-style load-balance term, E · Σ_e mean prob_e · share of
+    first choices_e."""
+    G, Tg, D = x.shape
+    E, k = cfg.n_experts, cfg.topk
+    probs, gate, idx = route(cfg, x, p["router"])
+    C, se, order, counts, starts, rank, keep = dispatch(cfg, idx)
+    A = Tg * k
+    dev = x.device
+
+    # the expert batch: slot (e, c) holds sorted assignment starts_e + c
+    c = torch.arange(C, device=dev)
+    src = (starts[..., None] + c).reshape(G, E * C)       # (G, E·C)
+    filled = (c < counts[..., None]).reshape(G, E * C)
+    tok = (order // k).gather(1, src.clamp_max(A - 1))
+    xe = torch.where(filled[..., None],
+                     x.gather(1, tok[..., None].expand(G, E * C, D)), 0)
+    xe = xe.reshape(G, E, C, D)
+    h = torch.einsum("gecd,edf->gecf", xe, p["wg"])
+    if cfg.act == "swiglu":
+        h = F.silu(h) * torch.einsum("gecd,edf->gecf", xe, p["wu"])
+    else:
+        h = F.gelu(h, approximate="tanh")
+    ye = torch.einsum("gecf,efd->gecd", h, p["wd"]).reshape(G, E * C, D)
+
+    # back to token order: assignment (t, j) reads its slot's output
+    pos = torch.arange(A, device=dev)
+    inv = torch.empty_like(order).scatter_(1, order, pos.expand(G, A))
+    slot = (se * C + torch.where(keep, rank, 0)).gather(1, inv)
+    kept = keep.gather(1, inv)
+    contrib = ye.gather(1, slot[..., None].expand(G, A, D))
+    contrib = torch.where(kept[..., None], contrib, 0) \
+        * gate.reshape(G, A, 1).to(x.dtype)
+    out = contrib.reshape(G, Tg, k, D).to(torch.float32).sum(2).to(x.dtype)
+
+    if cfg.n_shared_experts:
+        xs = x.reshape(G * Tg, D)
+        out = out + mlp(cfg, xs, p.get("wg_s"), p["wu_s"], p["wd_s"]
+                        ).reshape(G, Tg, D)
+    first = idx[..., 0, None] == torch.arange(E, device=dev)
+    me = probs.mean(dim=(0, 1))
+    ce = first.to(torch.float32).mean(dim=(0, 1))
+    return out, E * (me * ce).sum()

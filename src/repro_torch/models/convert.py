@@ -2,12 +2,13 @@
 run both packages on the same numbers.
 
 ``params_from_reference`` takes the tree that ``repro.models.init_params``
-builds (``embed``, ``unembed``, the final norm, and ``layers`` stacked
-``(L, ...)``), its leaves as numpy arrays (or anything ``np.asarray``
-reads, in a dtype numpy has: the configs' ``param_dtype`` is float32),
-and returns an ``LM`` with every leaf copied and ``layers`` unstacked, in
-the arrays' dtype.  It is cast with ``forward.cast_params``, as a loaded
-model is.
+builds (``embed``, ``unembed``, the final norm, ``layers`` stacked
+``(L, ...)`` and an MoE model's ``head_layers``; the MoE leaves
+``router``, ``wg``/``wu``/``wd`` of (E, ·, ·) and ``*_s``), its leaves as
+numpy arrays (or anything ``np.asarray`` reads, in a dtype numpy has:
+the configs' ``param_dtype`` is float32), and returns an ``LM`` with
+every leaf copied and both stacks unstacked, in the arrays' dtype.  It
+is cast with ``forward.cast_params``, as a loaded model is.
 """
 from __future__ import annotations
 
@@ -25,12 +26,14 @@ def params_from_reference(cfg, tree: dict, device="cuda") -> LM:
     another shape than ``model_shapes(cfg)`` gives."""
     dev = resolve_device(device)
     shapes = model_shapes(cfg)
-    per_layer = shapes.pop("layers")
-    if set(tree) != set(shapes) | {"layers"} \
-            or set(tree["layers"]) != set(per_layer):
+    stacks = {k: shapes.pop(k) for k in ("layers", "head_layers")
+              if k in shapes}
+    if set(tree) != set(shapes) | set(stacks) or any(
+            set(tree[k]) != set(s) for k, s in stacks.items()):
         raise ValueError(f"{cfg.name}: the tree's leaves are not the "
-                         f"config's: {sorted(tree)}, layers "
-                         f"{sorted(tree['layers'])}")
+                         f"config's: {sorted(tree)}, " + ", ".join(
+                             f"{k} {sorted(tree[k])}" for k in stacks
+                             if k in tree))
 
     def array(name, a, shape) -> np.ndarray:
         a = np.asarray(a)
@@ -42,9 +45,13 @@ def params_from_reference(cfg, tree: dict, device="cuda") -> LM:
     def tensor(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
+    def unstack(name):
+        per_layer = stacks.get(name, {})
+        stacked = {k: array(k, tree[name][k], s)
+                   for k, s in per_layer.items()}
+        n = next(iter(per_layer.values()))[0] if per_layer else 0
+        return [{k: tensor(a[l]) for k, a in stacked.items()}
+                for l in range(n)]
+
     top = {k: tensor(array(k, tree[k], s)) for k, s in shapes.items()}
-    stacked = {k: array(k, tree["layers"][k], s)
-               for k, s in per_layer.items()}
-    layers = [{k: tensor(a[l]) for k, a in stacked.items()}
-              for l in range(cfg.n_layers)]
-    return LM(cfg, top, layers)
+    return LM(cfg, top, unstack("layers"), unstack("head_layers"))

@@ -1,18 +1,24 @@
-"""The dense decoder: parameter shapes, initialisation, attention and the
-layer body, from the reference's ``repro.models.model``.
+"""The decoders of the dense and MoE families: parameter shapes,
+initialisation, attention (GQA and DeepSeek's MLA) and the layer body,
+from the reference's ``repro.models.model``.
 
-The reference keeps its parameters in a nested dict whose ``layers`` are
+The reference keeps its parameters in a nested dict whose ``layers`` (and
+``head_layers``, an MoE model's dense layers ahead of its MoE stack) are
 stacked ``(L, ...)`` for ``lax.scan``; the port keeps them in an ``LM``
-module under the same leaf names, ``layers`` unstacked: one
-``nn.ParameterDict`` a layer, walked by a Python loop.  The functions
-read parameters as the reference does (``p["wq"]``).  The parameters
-take no gradient: the slice serves; training comes with its own slice.
+module under the same leaf names, unstacked: one ``nn.ParameterDict`` a
+layer, walked by a Python loop.  The functions read parameters as the
+reference does (``p["wq"]``).  The parameters take no gradient: the slice
+serves; training comes with its own slice.
 
 On the card, ``decode_gqa_attention`` runs K5 over the layer's cache slab
-in place, attending its first ``pos + 1`` rows.
+in place, attending its first ``pos + 1`` rows.  MLA's absorbed decode
+(``mla_decode_attention``) attends a latent of r + rd = 576 columns
+against values of r = 512 (DeepSeek-V2-Lite), which K5 (d ≤ 256, equal
+key and value widths) does not take: it is plain PyTorch, as the
+reference's is plain JAX.
 
-Families outside the slice (``moe`` with MLA, ``ssm``, ``hybrid``,
-``encdec``, ``vlm``) and sliding-window attention (hybrid's) raise
+Families outside the slice (``ssm``, ``hybrid``, ``encdec``, ``vlm``),
+MLA outside the MoE family and sliding-window attention (hybrid's) raise
 ``NotImplementedError``; ``ROADMAP.md`` lists them in order.
 """
 from __future__ import annotations
@@ -24,16 +30,17 @@ from torch import nn
 
 from ..core.codegen import resolve_device
 from ..kernels import ops
-from .common import apply_norm, blockwise_attention, mlp, rope
+from .common import apply_norm, blockwise_attention, mlp, moe_layer, rope
 
 #: the families this slice runs
-FAMILIES = ("dense",)
+FAMILIES = ("dense", "moe")
 
 
 def check_family(cfg):
     """Raise ``NotImplementedError`` for a family the port has no path
     for yet: the one gate of the model's entry points."""
-    if cfg.family not in FAMILIES or cfg.kv_lora_rank:
+    if cfg.family not in FAMILIES or (cfg.kv_lora_rank
+                                      and cfg.family != "moe"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; "
             f"the port runs {', '.join(FAMILIES)} (ROADMAP.md lists the "
@@ -44,12 +51,24 @@ def check_family(cfg):
             f"comes with the hybrid family (ROADMAP.md)")
 
 
+def main_kind(cfg) -> str:
+    """The kind of the main stack's layers: ``moe`` or ``dense``."""
+    return "moe" if cfg.family == "moe" else "dense"
+
+
 # ---------------------------------------------------------------------------
 # parameter shapes
 # ---------------------------------------------------------------------------
 
 def _attn_shapes(cfg):
     D, dh, Hq, Hkv = cfg.d_model, cfg.dh, cfg.n_heads, cfg.n_kv_heads
+    if cfg.kv_lora_rank:                                  # MLA
+        r = cfg.kv_lora_rank
+        return {"wq": (D, Hq * (cfg.qk_nope_dim + cfg.qk_rope_dim)),
+                "w_dkv": (D, r), "w_kr": (D, cfg.qk_rope_dim),
+                "w_uk": (r, Hq * cfg.qk_nope_dim),
+                "w_uv": (r, Hq * cfg.v_head_dim),
+                "wo": (Hq * cfg.v_head_dim, D)}
     s = {"wq": (D, Hq * dh), "wk": (D, Hkv * dh), "wv": (D, Hkv * dh),
          "wo": (Hq * dh, D)}
     if cfg.qkv_bias:
@@ -70,22 +89,39 @@ def _norm_shapes(cfg, prefix):
     return {f"{prefix}_g": (cfg.d_model,)}
 
 
-def layer_shapes(cfg):
-    """One dense layer's leaves."""
+def _moe_shapes(cfg):
+    D, E, F = cfg.d_model, cfg.n_experts, cfg.d_ff_moe
+    s = {"router": (D, E), "wg": (E, D, F), "wu": (E, D, F), "wd": (E, F, D)}
+    if cfg.n_shared_experts:
+        fs = F * cfg.n_shared_experts
+        s |= {"wg_s": (D, fs), "wu_s": (D, fs), "wd_s": (fs, D)}
+    return s
+
+
+def layer_shapes(cfg, kind: str = "dense"):
+    """One layer's leaves; ``kind`` is ``dense`` (the MLP) or ``moe``."""
+    ff = _moe_shapes(cfg) if kind == "moe" else _mlp_shapes(cfg, cfg.d_ff)
     return (_norm_shapes(cfg, "ln1") | _attn_shapes(cfg)
-            | _norm_shapes(cfg, "ln2") | _mlp_shapes(cfg, cfg.d_ff))
+            | _norm_shapes(cfg, "ln2") | ff)
 
 
 def model_shapes(cfg) -> dict:
     """The reference's shape tree: ``embed``, ``unembed`` (unless tied),
-    the final norm, and ``layers`` stacked ``(L, ...)``."""
+    the final norm, ``layers`` stacked ``(L - first_dense_layers, ...)``
+    and, where ``cfg.first_dense_layers``, the dense ``head_layers``
+    stacked ``(first_dense_layers, ...)``."""
     check_family(cfg)
     tree: dict[str, Any] = {"embed": (cfg.vocab, cfg.d_model)}
     if not cfg.tie_embeddings:
         tree["unembed"] = (cfg.d_model, cfg.vocab)
     tree |= _norm_shapes(cfg, "final")
-    tree["layers"] = {k: (cfg.n_layers,) + v
-                      for k, v in layer_shapes(cfg).items()}
+    n_main = cfg.n_layers - cfg.first_dense_layers
+    tree["layers"] = {k: (n_main,) + v
+                      for k, v in layer_shapes(cfg, main_kind(cfg)).items()}
+    if cfg.first_dense_layers:
+        tree["head_layers"] = {
+            k: (cfg.first_dense_layers,) + v
+            for k, v in layer_shapes(cfg, "dense").items()}
     return tree
 
 
@@ -100,19 +136,27 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 class LM(nn.Module):
     """A decoder's parameters under the reference's leaf names:
     ``embed``, ``unembed`` (unless tied), ``final_g`` (and ``final_b``
-    for layernorm), and ``layers``, one ``nn.ParameterDict`` a layer
-    (``ln1_g``, ``wq``, ``wk``, ``wv``, ``wo``, ``bq``/``bk``/``bv``,
-    ``ln2_g``, ``wg``, ``wu``, ``wd``).  ``model["embed"]`` reads a
-    top-level leaf as the reference reads its tree."""
+    for layernorm), ``layers``, one ``nn.ParameterDict`` a layer (``ln1_g``,
+    ``wq``, ``wk``, ``wv``, ``wo``, ``bq``/``bk``/``bv`` or MLA's ``wq``,
+    ``w_dkv``, ``w_kr``, ``w_uk``, ``w_uv``, ``wo``; ``ln2_g``; ``wg``,
+    ``wu``, ``wd`` or the MoE's ``router``, ``wg``/``wu``/``wd`` of (E, ·,
+    ·) and ``wg_s``/``wu_s``/``wd_s``), and ``head_layers``, the dense
+    layers ahead of an MoE stack (none for a dense model).
+    ``model["embed"]`` reads a top-level leaf as the reference reads its
+    tree."""
 
-    def __init__(self, cfg, top: dict, layers: list):
+    def __init__(self, cfg, top: dict, layers: list, head_layers=()):
         super().__init__()
         self.cfg = cfg
         for name, t in top.items():
             self.register_parameter(name, _frozen(t))
-        self.layers = nn.ModuleList(
-            nn.ParameterDict({k: _frozen(t) for k, t in lp.items()})
-            for lp in layers)
+
+        def stack(lps):
+            return nn.ModuleList(
+                nn.ParameterDict({k: _frozen(t) for k, t in lp.items()})
+                for lp in lps)
+        self.head_layers = stack(head_layers)
+        self.layers = stack(layers)
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return getattr(self, name)
@@ -121,34 +165,50 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def stacks(self):
+        """Every layer with its kind, in the order of the cache's index:
+        the dense head layers, then the main stack."""
+        return ([(lp, "dense") for lp in self.head_layers]
+                + [(lp, main_kind(self.cfg)) for lp in self.layers])
+
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def init_params(cfg, generator: torch.Generator, device="cuda") -> LM:
-    """Random parameters at the config's shapes in ``cfg.param_dtype`` on
-    ``device``: ones for ``*_g``, zeros for biases (``*_b``, ``b*``),
-    ``0.02 · N(0, 1)`` from ``generator`` (on ``device``) otherwise, as
-    the reference's ``init_params``.  The numbers are not the
-    reference's: its ``jax.random`` key draws others."""
+def init_params(cfg, generator: torch.Generator, device="cuda",
+                dtype=None) -> LM:
+    """Random parameters at the config's shapes on ``device``: ones for
+    ``*_g``, zeros for biases (``*_b``, ``b*``), ``0.02 · N(0, 1)`` from
+    ``generator`` (on ``device``) otherwise, as the reference's
+    ``init_params``, each drawn in ``cfg.param_dtype`` and, where
+    ``dtype`` is given, cast to it at once: the same numbers as drawing
+    them all and then casting (``forward.cast_params``), with one leaf
+    in ``param_dtype`` at a time.  The numbers are not the reference's:
+    its ``jax.random`` key draws others."""
     dev = resolve_device(device)
-    dtype = _dtype(cfg.param_dtype)
+    drawn = _dtype(cfg.param_dtype)
+    dtype = drawn if dtype is None else dtype
 
     def leaf(name, shape):
         if name.endswith("_g"):
-            return torch.ones(shape, dtype=dtype, device=dev)
-        if name.endswith("_b") or name.startswith("b"):
-            return torch.zeros(shape, dtype=dtype, device=dev)
-        return torch.randn(shape, generator=generator, dtype=dtype,
-                           device=dev).mul_(0.02)
+            t = torch.ones(shape, dtype=drawn, device=dev)
+        elif name.endswith("_b") or name.startswith("b"):
+            t = torch.zeros(shape, dtype=drawn, device=dev)
+        else:
+            t = torch.randn(shape, generator=generator, dtype=drawn,
+                            device=dev).mul_(0.02)
+        return t.to(dtype)
 
     shapes = model_shapes(cfg)
     stacked = shapes.pop("layers")
+    head = shapes.pop("head_layers", {})
     top = {k: leaf(k, s) for k, s in shapes.items()}
+    head_layers = [{k: leaf(k, s[1:]) for k, s in head.items()}
+                   for _ in range(cfg.first_dense_layers)]
     layers = [{k: leaf(k, s[1:]) for k, s in stacked.items()}
-              for _ in range(cfg.n_layers)]
-    return LM(cfg, top, layers)
+              for _ in range(cfg.n_layers - cfg.first_dense_layers)]
+    return LM(cfg, top, layers, head_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -205,22 +265,97 @@ def new_kv(cfg, x, p, pos: int):
     return k, v
 
 
+def mla_attention(cfg, x, p):
+    """DeepSeek's MLA over the sequence from position 0 (prefill), in its
+    expanded form: returns (out, (c_kv, k_rope)), the latent (B, S, r)
+    and the rope key (B, S, rd) for the cache.  ``k_rope`` is the
+    projection *before* rope, as the reference returns it; the attention
+    itself uses the roped key, and ``decode_step`` writes roped keys (a
+    reference behaviour, ``ROADMAP.md`` §3)."""
+    B, S, _ = x.shape
+    Hq = cfg.n_heads
+    nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q = _split_heads(x @ p["wq"], Hq, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    c_kv = x @ p["w_dkv"]
+    k_rope = x @ p["w_kr"]
+    k_nope = _split_heads(c_kv @ p["w_uk"], Hq, nd)
+    v = _split_heads(c_kv @ p["w_uv"], Hq, vd)
+    positions = torch.arange(S, device=x.device)[None, :]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    k_rope_r = rope(k_rope[..., None, :], positions, cfg.rope_theta)
+    qf = torch.cat([q_nope, q_rope], -1)
+    kf = torch.cat([k_nope, k_rope_r.expand(B, S, Hq, rd)], -1)
+    o = blockwise_attention(qf, kf, v, scale=(nd + rd) ** -0.5)
+    return o.reshape(B, S, Hq * vd) @ p["wo"], (c_kv, k_rope)
+
+
+def mla_decode_attention(cfg, x, p, cache_ckv, cache_kr, pos: int):
+    """One token's MLA against the layer's latent cache ``cache_ckv`` (B,
+    S, r) and rope keys ``cache_kr`` (B, S, rd), which already hold this
+    step's rows at ``pos``: the absorbed form (``w_uk`` folded into the
+    query, ``w_uv`` applied after), scores and values in float32 over
+    the first ``pos + 1`` rows, read in place (the reference masks the
+    rows after ``pos``)."""
+    B = x.shape[0]
+    Hq = cfg.n_heads
+    nd, rd, vd, r = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                     cfg.kv_lora_rank)
+    f32 = torch.float32
+    q = _split_heads(x @ p["wq"], Hq, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    q_rope = rope(q_rope, torch.full((B, 1), pos, device=x.device),
+                  cfg.rope_theta)
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope,
+                         p["w_uk"].reshape(r, Hq, nd))      # (B, 1, Hq, r)
+    ckv = cache_ckv[:, :pos + 1].to(f32)
+    kr = cache_kr[:, :pos + 1].to(f32)
+    scores = (torch.einsum("bshr,btr->bhst", q_lat.to(f32), ckv)
+              + torch.einsum("bshd,btd->bhst", q_rope.to(f32), kr))
+    w = torch.softmax(scores * (nd + rd) ** -0.5, dim=-1)
+    o_lat = torch.einsum("bhst,btr->bshr", w, ckv)
+    o = torch.einsum("bshr,rhd->bshd", o_lat,
+                     p["w_uv"].reshape(r, Hq, vd).to(f32))
+    return o.reshape(B, 1, Hq * vd).to(x.dtype) @ p["wo"]
+
+
+def new_latent(cfg, x, p, pos: int):
+    """This step's MLA cache rows: the latent (B, 1, r) and the rope key
+    after rope (B, 1, rd)."""
+    B = x.shape[0]
+    kr = rope((x @ p["w_kr"])[..., None, :],
+              torch.full((B, 1), pos, device=x.device), cfg.rope_theta)
+    return x @ p["w_dkv"], kr[..., 0, :]
+
+
 # ---------------------------------------------------------------------------
 # the layer body
 # ---------------------------------------------------------------------------
 
-def _moe_or_mlp(cfg, x, p):
-    """The layer's feed-forward: the MLP (the MoE layer comes with its
-    family); returns (out, aux)."""
-    return mlp(cfg, x, p.get("wg"), p["wu"], p["wd"]), 0.0
+def _moe_or_mlp(cfg, x, p, is_moe: bool):
+    """The layer's feed-forward on x (B, S, D): the MLP, or the MoE layer
+    over the B·S tokens in 16 groups where they divide into 16 (one group
+    otherwise), as the reference groups them; returns (out, aux)."""
+    if not is_moe:
+        return mlp(cfg, x, p.get("wg"), p["wu"], p["wd"]), 0.0
+    if cfg.moe_impl == "shard_map":
+        raise NotImplementedError(
+            f"{cfg.name}: moe_impl='shard_map' (expert parallelism by "
+            f"all-to-all) comes with the port's dist slice (ROADMAP.md)")
+    B, S, D = x.shape
+    T = B * S
+    groups = 16 if T % 16 == 0 and T >= 16 else 1
+    y, aux = moe_layer(cfg, x.reshape(groups, T // groups, D), p)
+    return y.reshape(B, S, D), aux
 
 
-def decoder_layer(cfg, x, lp):
-    """One dense layer over the sequence (prefill); returns (x', (k, v),
-    aux)."""
+def decoder_layer(cfg, x, lp, kind: str = "dense"):
+    """One layer over the sequence (prefill); returns (x', cache pieces:
+    (k, v), or MLA's (c_kv, k_rope), aux)."""
     h = apply_norm(cfg, x, lp, "ln1")
-    o, cache = gqa_attention(cfg, h, lp)
+    attend = mla_attention if cfg.kv_lora_rank else gqa_attention
+    o, cache = attend(cfg, h, lp)
     x = x + o
     h2 = apply_norm(cfg, x, lp, "ln2")
-    m, aux = _moe_or_mlp(cfg, h2, lp)
+    m, aux = _moe_or_mlp(cfg, h2, lp, kind == "moe")
     return x + m, cache, aux

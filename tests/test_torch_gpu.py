@@ -185,7 +185,10 @@ def test_decode_attention_kernels_match_ref_on_gpu(B, Hq, Hkv, S, d, dtype,
 #: 777 and all 1056; one whole 64-row tile; a single head over 4099 rows
 KV_LEN_CASES = [(8, 32, 8, 1056, 128, 1), (8, 32, 8, 1056, 128, 1025),
                 (8, 32, 8, 1056, 128, 777), (8, 32, 8, 1056, 128, 1056),
-                (2, 8, 2, 256, 64, 64), (1, 1, 1, 4099, 48, 2049)]
+                (2, 8, 2, 256, 64, 64), (1, 1, 1, 4099, 48, 2049),
+                # Grok-1's decode step (48 heads over 8, G = 6) at the
+                # decode steps' mean KV length
+                (8, 48, 8, 1056, 128, 1040)]
 
 
 @pytest.mark.gpu
@@ -224,7 +227,8 @@ def _bits(t):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Hq,Hkv,S,d", [(8, 32, 8, 2048, 128),
                                           (1, 1, 1, 131072, 48),
-                                          (1, 48, 1, 1000, 128)])
+                                          (1, 48, 1, 1000, 128),
+                                          (8, 48, 8, 1056, 128)])
 def test_decode_attention_repeats_bitwise(B, Hq, Hkv, S, d, dtype, cuda):
     """A second launch of split + combine gives the same bits (no
     atomics; every sum in a fixed order)."""
@@ -272,7 +276,12 @@ def test_decode_attention_unaligned_views_take_the_element_path(cuda):
     (7, 1000, torch.bfloat16, "registers"),
     # qwen2_7b's rows (d_model 3584) at its decode and prefill
     (8, 3584, torch.bfloat16, "registers"),
-    (8192, 3584, torch.bfloat16, "registers")])
+    (8192, 3584, torch.bfloat16, "registers"),
+    # DeepSeek-V2-Lite's (d_model 2048) and Grok-1's (6144)
+    (8, 2048, torch.bfloat16, "registers"),
+    (8192, 2048, torch.bfloat16, "registers"),
+    (8, 6144, torch.bfloat16, "registers"),
+    (8192, 6144, torch.bfloat16, "registers")])
 def test_rmsnorm_kernel_paths_match_ref_and_repeat_bitwise(T, D, dtype,
                                                            path, cuda):
     """K4 on its register path (rows of up to 1024 packs) and its general
@@ -750,3 +759,43 @@ def test_smem_over_budget_group_gets_rpl215(cuda):
     codes = {d.code for d in verify_plan(cp.plan, cp.graph,
                                          smem_budget=need - 1)}
     assert codes == {"RPL215"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek_v2_lite", "grok1_314b"])
+def test_moe_decode_step_replays_as_one_cuda_graph_bitwise(arch, cuda):
+    """An MoE model's decode step (smoke size, bfloat16) moves no value to
+    the host, so it is captured as one CUDA graph; the replay's logits
+    and cache rows equal the eager step's bitwise, and a second eager
+    step repeats them."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.serve import grow_cache, load_model
+    from repro_torch.models import decode_step, prefill
+    cfg = smoke_config(arch)
+    model = load_model(cfg, 0, "cuda")
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (8, 33)),
+                           dtype=torch.int32, device="cuda")
+    _, cache = prefill(cfg, model, toks[:, :32])
+    cache = grow_cache(cfg, cache, 40)
+    eager, _ = decode_step(cfg, model, cache, toks[:, 32], 32)
+    again, _ = decode_step(cfg, model, cache, toks[:, 32], 32)
+    assert torch.equal(_bits(eager), _bits(again))
+    rows = {k: t[:, :, 32].clone() for k, t in cache.items()}
+    for t in cache.values():
+        t[:, :, 32] = 0
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):         # warm-up off the capture
+        decode_step(cfg, model, cache, toks[:, 32], 32)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed, _ = decode_step(cfg, model, cache, toks[:, 32], 32)
+    for t in cache.values():
+        t[:, :, 32] = 0
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(replayed), _bits(eager))
+    for k, t in cache.items():
+        assert torch.equal(_bits(t[:, :, 32]), _bits(rows[k]))

@@ -45,7 +45,7 @@ from repro_torch.models.convert import params_from_reference
 from repro_torch.train import steps
 
 DENSE = ["llama3_8b", "qwen2_7b", "granite3_8b", "granite_34b"]
-OUTSIDE = ["deepseek_v2_lite", "mamba2_2p7b", "hymba_1p5b", "whisper_medium",
+OUTSIDE = ["mamba2_2p7b", "hymba_1p5b", "whisper_medium",
            "llava_next_34b"]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DECODE_VS_FORWARD = 5e-2
@@ -301,9 +301,10 @@ def test_steps_greedy_argmax_and_cache_in_place():
 def test_the_model_path_hands_the_kernels_what_they_take(monkeypatch):
     """On the card K4 and K5 take contiguous tensors of one dtype: the
     plain versions that stand in for them here check it, and count the
-    calls — one decode step makes 2 L + 1 RMSNorms and L attentions."""
+    calls — one decode step makes 2 L + 1 RMSNorms and L GQA attentions
+    (none with MLA), for a dense config and one MoE config of each
+    branch (grok1_314b's GQA, deepseek_v2_lite's MLA)."""
     from repro_torch.kernels import ref
-    cfg, _, model, _ = both("qwen2_7b", "bfloat16")
     calls = {"rmsnorm": 0, "decode_attention": 0}
 
     def checked(name):
@@ -320,14 +321,18 @@ def test_the_model_path_hands_the_kernels_what_they_take(monkeypatch):
 
     for name in calls:
         monkeypatch.setattr(ref, name, checked(name))
-    toks = torch.from_numpy(tokens(cfg, P))
-    _, cache = prefill(cfg, model, toks)
-    assert calls == {"rmsnorm": 2 * cfg.n_layers + 1, "decode_attention": 0}
-    cache = serve.grow_cache(cfg, cache, P + 2)
-    calls.update(rmsnorm=0)
-    decode_step(cfg, model, cache, toks[:, -1], P)
-    assert calls == {"rmsnorm": 2 * cfg.n_layers + 1,
-                     "decode_attention": cfg.n_layers}
+    for arch in ("qwen2_7b", "grok1_314b", "deepseek_v2_lite"):
+        cfg, _, model, _ = both(arch, "bfloat16")
+        L = cfg.n_layers
+        toks = torch.from_numpy(tokens(cfg, P))
+        calls.update(rmsnorm=0, decode_attention=0)
+        _, cache = prefill(cfg, model, toks)
+        assert calls == {"rmsnorm": 2 * L + 1, "decode_attention": 0}, arch
+        cache = serve.grow_cache(cfg, cache, P + 2)
+        calls.update(rmsnorm=0)
+        decode_step(cfg, model, cache, toks[:, -1], P)
+        assert calls == {"rmsnorm": 2 * L + 1, "decode_attention":
+                         0 if cfg.kv_lora_rank else L}, arch
 
 
 @pytest.mark.parametrize("arch", OUTSIDE)
