@@ -31,7 +31,10 @@ inputs made from a seed:
   full width, its depth cut to 2; and the MoE family the same way:
   DeepSeek-V2-Lite (MLA, 64 experts top-6 and 2 shared, a dense first
   layer) at its full width and depth, and Grok-1 (GQA, 8 experts top-2)
-  at full width, its depth cut 64 -> 2.
+  at full width, its depth cut 64 -> 2; then the last four families at
+  their full width and depth: LLaVA-NeXT-34B (vlm, 576 patch
+  embeddings), Mamba-2-2.7B (ssm), Hymba-1.5B (hybrid, a ring of 1024
+  slots) and Whisper-medium (encdec, 1500 frames, prompt 192).
 
 Phases, each printed as JSON lines:
 
@@ -77,7 +80,31 @@ Phases, each printed as JSON lines:
    to 5e-2, and in float32 to 1e-4 for DeepSeek at depth 3 (the dense
    layer and 2 MoE layers).  K4 on (8, 2048), (8192, 2048), (8, 6144)
    and (8192, 6144), K5 at Grok's (8, 48, 8, 1056, 128) with ``kv_len``
-   1040 (G = 6), each with a bitwise repeat, and timed;
+   1040 (G = 6), each with a bitwise repeat, and timed.  Then the last
+   four families (``lm_run``), each at full width and depth: the same
+   run (``draw_inputs``: the prompts, then LLaVA's (8, 576, 7168) patch
+   embeddings or Whisper's (8, 1500, 1024) frames), launch counts a step
+   (``lm_step_launches``: K4 121 for LLaVA, 129 for Mamba-2 (ln1 and
+   the gated norm at d_inner 5120), 161 for Hymba (ln1, the gated norm
+   at 3200, the two mixing norms, ln2), none for Whisper (LayerNorm);
+   K5's split and combine 60, 0, 32 (the ring, ``kv_len`` min(pos + 1,
+   1024)) and 48 (self and cross) each), the step repeated bitwise (the
+   SSD state restored first), one graph, the trace; the step's bound
+   counts the float32 state read and written, the ring's rows and
+   Whisper's cross K/V.  Decode against forward: one step for LLaVA and
+   Whisper, every one of the 32 steps for Mamba-2 and Hymba (the
+   forward over the 1056 tokens ``generate`` produced, whose SSD chunk
+   is 32 and whose window wraps the ring); every layer of every run but
+   the MoE ones teacher-forced (``layer_gaps``: the layer's decode on
+   the forward's own input and history against the forward's output of
+   the layer) and held to 5e-2; the end-to-end gap held to 5e-2 but for
+   LLaVA, Mamba-2 and Hymba (``DRIFTING``: printed; their bfloat16
+   forward lies as far from float32, ``tools/bf16_drift.py``); float32
+   at depth 2 within 1e-4 end to end and by layer.  K4 at (8, D) and
+   (8192, D) for D 7168, 2560 and 5120, 1600 and 3200; K5 at (8, 56, 8,
+   1056, 128), the ring (8, 25, 5, 1024, 64), Whisper's self (8, 16,
+   16, 224, 64) and cross (8, 16, 16, 1500, 64): each against its plain
+   version with a bitwise repeat, and timed;
 3. kernel: every K1 group's kernel against K1's plain tiled version on
    the same inputs on the card, and a second launch of it bitwise equal
    to the first (the groups whose reduce axes K1 cuts into slices
@@ -325,11 +352,42 @@ MOE_ARCH, MOE_ARCH2, MOE_DEPTH2 = "deepseek_v2_lite", "grok1_314b", 2
 #: DeepSeek's float32 decode-against-forward check: the dense head layer
 #: and 2 MoE layers
 MOE_F32_DEPTH = 3
+#: the last four families at full width and depth: LLaVA-NeXT-34B (vlm:
+#: 60 layers, d_model 7168, 56 heads over 8, d_ff 20480, vocab 64000, 576
+#: patch embeddings over the first positions;
+#: src/repro/configs/llava_next_34b.py:6-9), Mamba-2-2.7B (ssm: 64 layers,
+#: d_model 2560, d_inner 5120, 80 SSD heads of 64, state 128, tied;
+#: src/repro/configs/mamba2_2p7b.py:5-9), Hymba-1.5B (hybrid: 32 layers,
+#: d_model 1600, 25 heads over 5 of d 64 with a 1024-token window beside
+#: 50 SSD heads of state 16; src/repro/configs/hymba_1p5b.py:10-14) and
+#: Whisper-medium (encdec: 24 + 24 layers, d_model 1024, 16 heads of d
+#: 64, LayerNorm, GELU, 1500 encoder frames;
+#: src/repro/configs/whisper_medium.py:7-11)
+VLM_ARCH, SSM_ARCH, HYBRID_ARCH, ENCDEC_ARCH = (
+    "llava_next_34b", "mamba2_2p7b", "hymba_1p5b", "whisper_medium")
 #: the lm phase's runs: (arch, depth or None for the full depth)
 LM_RUNS = ((LM_ARCH, None), (LM_ARCH2, LM_DEPTH2), (MOE_ARCH, None),
-           (MOE_ARCH2, MOE_DEPTH2))
-#: ... and its float32 decode-against-forward checks
-LM_F32_RUNS = ((LM_ARCH, None), (MOE_ARCH, MOE_F32_DEPTH))
+           (MOE_ARCH2, MOE_DEPTH2), (VLM_ARCH, None), (SSM_ARCH, None),
+           (HYBRID_ARCH, None), (ENCDEC_ARCH, None))
+#: a run's prompt length where it is not ``LM_PROMPT``: Whisper's decoder
+#: takes 448 positions, so 192 + 32 generated
+LM_PROMPTS = {ENCDEC_ARCH: 192}
+#: ... and its float32 decode-against-forward checks (the new families
+#: at depth 2, Whisper's encoder cut to 2 layers too)
+LM_F32_RUNS = ((LM_ARCH, None), (MOE_ARCH, MOE_F32_DEPTH), (VLM_ARCH, 2),
+               (SSM_ARCH, 2), (HYBRID_ARCH, 2), (ENCDEC_ARCH, 2))
+#: the families whose decode keeps a recurrent state: decode against
+#: forward runs all 32 steps of ``generate`` (prefill of 1024, the
+#: forward over 1056 = 32 · 33, whose SSD chunk is 32, not 1), and a
+#: repeated step starts from the state the first one read
+STATEFUL = ("ssm", "hybrid")
+#: the runs whose bfloat16 decode-against-forward gap at full depth is
+#: printed, not held to the reference's bound: these random models
+#: amplify bfloat16 rounding with depth in the forward itself, which
+#: lies as far from float32 as the decode does (``tools/bf16_drift.py``);
+#: every layer of every run is held to the bound instead, teacher-forced
+#: (``layer_gaps``)
+DRIFTING = (VLM_ARCH, SSM_ARCH, HYBRID_ARCH)
 #: decode against forward on the logits, the reference's bound for the
 #: same check (tests/test_models.py:64-88)
 DECODE_VS_FORWARD = 5e-2
@@ -618,22 +676,27 @@ def library_sequence(name, d):
 
 def lm_step_bound(cfg, B: int, kv_len: int, experts=None):
     """Least time of one bfloat16 decode step of ``cfg`` for B sequences
-    attending ``kv_len`` cache rows: every weight read once (each layer's
-    and ``unembed``; ``embed`` only at the B tokens' rows), the cache
-    read up to ``kv_len`` (K and V, or MLA's latent and rope key: r + rd
-    elements a row), the new rows and the logits written, against the
-    matmuls' and attention's operations on the tensor cores (MLA's
-    absorbed attention: the latent scores, the rope scores and the
-    latent values).  An MoE layer reads the weights of ``experts[i]``
-    distinct experts (its router's choices in one step; all E where
-    None: the reference's formulation, whose expert batch multiplies
-    every expert) and computes k of them a token.  Returns (ms, what
-    bounds it, bytes)."""
+    at KV length ``kv_len``: every weight the step uses read once (each
+    decoder layer's, the final norm's and ``unembed``; ``embed`` only at
+    the B tokens' rows; no encoder weight, nor a Whisper decoder's
+    cross-attention ``x_wk``/``x_wv``, whose K/V the cache holds), the
+    cache read up to ``kv_len`` (K and V, or MLA's latent and rope key:
+    r + rd elements a row; a hybrid's ring up to ``min(kv_len, W)``
+    rows; a Whisper decoder's cross K/V, all F frames), the SSD state
+    read and written in float32, the new rows and the logits written,
+    against the matmuls', attention's and the state update's operations
+    on the tensor cores (MLA's absorbed attention: the latent scores,
+    the rope scores and the latent values).  An MoE layer reads the
+    weights of ``experts[i]`` distinct experts (its router's choices in
+    one step; all E where None: the reference's formulation, whose
+    expert batch multiplies every expert) and computes k of them a
+    token.  Returns (ms, what bounds it, bytes)."""
     from repro_torch.models import model_shapes
     shapes = model_shapes(cfg)
-    D, L, E = cfg.d_model, cfg.n_layers, cfg.n_experts
+    L, E, fam = cfg.n_layers, cfg.n_experts, cfg.family
     stacks = [(shapes.get("head_layers", {}), "dense"),
-              (shapes["layers"], "moe" if cfg.family == "moe" else "dense")]
+              (shapes["layers"], "moe" if fam == "moe" else "dense")]
+    cached = ("x_wk", "x_wv") if fam == "encdec" else ()
     weights = ops = 0
     moe_i = 0
     for stack, kind in stacks:
@@ -641,6 +704,8 @@ def lm_step_bound(cfg, B: int, kv_len: int, experts=None):
         for _ in range(n):
             for name, s in stack.items():
                 size = math.prod(s[1:])
+                if name in cached:
+                    continue
                 if kind == "moe" and name in ("wg", "wu", "wd"):
                     used = E if experts is None else experts[moe_i]
                     weights += size // E * used
@@ -650,16 +715,29 @@ def lm_step_bound(cfg, B: int, kv_len: int, experts=None):
                     ops += 2 * B * size if len(s) == 3 else 0
             moe_i += kind == "moe"
     head = math.prod(shapes.get("unembed", shapes["embed"]))
+    norms = sum(math.prod(s) for k, s in shapes.items()
+                if k.startswith("final_"))
+    rows, attn, state = kv_len, 0, 0
     if cfg.kv_lora_rank:
         row = cfg.kv_lora_rank + cfg.qk_rope_dim
         attn = 2 * B * cfg.n_heads * kv_len * (2 * cfg.kv_lora_rank
                                                + cfg.qk_rope_dim)
+    elif fam == "ssm":
+        row = 0
     else:
         row = cfg.n_kv_heads * cfg.dh * 2        # one position's k and v
-        attn = 4 * B * cfg.n_heads * kv_len * cfg.dh
-    nbytes = (2 * (weights + head + D + B * D) + 2 * L * B * kv_len * row
-              + 2 * L * B * row + 2 * B * cfg.vocab)
-    ms, by = bound_of(nbytes, ops + 2 * B * head + L * attn, BF16_OPS_PER_S)
+        if fam == "hybrid":
+            rows = min(kv_len, cfg.window)
+        if fam == "encdec":                      # the cross K/V, F rows
+            rows += cfg.encoder_frames
+        attn = 4 * B * cfg.n_heads * rows * cfg.dh
+    if fam in STATEFUL:                          # mul, fma, the readout
+        state = B * cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state
+    nbytes = (2 * (weights + head + norms + B * cfg.d_model)
+              + 2 * L * B * rows * row + 2 * L * B * row
+              + 2 * 4 * L * state + 2 * B * cfg.vocab)
+    ms, by = bound_of(nbytes, ops + 2 * B * head + L * (attn + 5 * state),
+                      BF16_OPS_PER_S)
     return ms, by, nbytes
 
 
@@ -711,15 +789,14 @@ class forbid_plain:
 def lm_phase(args, failures: list, smi_line: str) -> list:
     """Phase 2: ``serve --arch``'s loop on the card for each of
     ``LM_RUNS`` (``lm_run``), then decode against forward in float32 for
-    ``LM_ARCH`` at full depth and ``MOE_ARCH`` at depth
-    ``MOE_F32_DEPTH``; returns the kernel records of the runs."""
+    each of ``LM_F32_RUNS``; returns the kernel records of the runs."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import load_model
+    from repro_torch.launch.serve import draw_inputs, load_model
 
     records = []
     for arch, depth in LM_RUNS:
@@ -730,10 +807,17 @@ def lm_phase(args, failures: list, smi_line: str) -> list:
     for arch, depth in LM_F32_RUNS:
         cfg, reduced = lm_config(get_config(arch), depth)
         cfg = dataclasses.replace(cfg, compute_dtype="float32")
+        P = LM_PROMPTS.get(arch, LM_PROMPT)
         model = load_model(cfg, args.seed, "cuda")
-        prompts = np.random.default_rng(args.seed).integers(
-            0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
-        dvf = decode_vs_forward(cfg, model, prompts)
+        x = draw_inputs(cfg, LM_BATCH, P, args.seed)
+        seq, steps = x["prompts"], 1
+        if cfg.family in STATEFUL:      # random tokens stand for generated
+            seq = np.concatenate([seq, np.random.default_rng(
+                args.seed + 1).integers(0, cfg.vocab, (LM_BATCH, LM_GEN))
+                .astype(np.int32)], axis=1)
+            steps = LM_GEN
+        dvf = decode_vs_forward(cfg, model, seq, steps, x["patches"],
+                                x["frames"])
         del model
         torch.cuda.empty_cache()
         emit({"phase": "lm", "arch": arch, "dtype": "float32",
@@ -741,33 +825,79 @@ def lm_phase(args, failures: list, smi_line: str) -> list:
               "nvidia_smi": smi_line, **dvf})
         # in float32 the two passes route every token alike
         if not (dvf["decode_vs_forward_checked"] <= RTOL
+                and dvf.get("layer_gap_max", 0.0) <= RTOL
                 and not dvf.get("routing_flips")):
             failures.append(f"lm {arch} float32: decode against forward "
-                            f"{dvf['decode_vs_forward_checked']:.3g} > "
-                            f"{RTOL}, routing flips "
+                            f"{dvf['decode_vs_forward_checked']:.3g}, "
+                            f"largest layer gap {dvf.get('layer_gap_max')}"
+                            f" (bound {RTOL}), routing flips "
                             f"{dvf.get('routing_flips')}")
     return records
 
 
 def lm_config(cfg, depth):
-    """(``cfg`` at ``depth`` layers, the ``reduced`` record), or (cfg,
-    None) at its full depth."""
+    """(``cfg`` at ``depth`` layers, its encoder too, and the ``reduced``
+    record), or (cfg, None) at its full depth."""
     import dataclasses
     if depth is None:
         return cfg, None
-    return (dataclasses.replace(cfg, n_layers=depth),
-            {"n_layers": [cfg.n_layers, depth]})
+    cut = {"n_layers": depth}
+    if cfg.family == "encdec":
+        cut["encoder_layers"] = depth
+    return (dataclasses.replace(cfg, **cut),
+            {k: [getattr(cfg, k), n] for k, n in cut.items()})
+
+
+def lm_step_launches(cfg) -> dict:
+    """The hand kernels' launches in one bfloat16 decode step of ``cfg``:
+    K4 for every RMSNorm (``ln1`` and, but for the SSD mixer alone,
+    ``ln2`` a layer, the SSD mixer's gated norm, a hybrid's two mixing
+    norms, the final norm; none with LayerNorm), K5's split and combine
+    for every GQA attention (a hybrid's ring, a Whisper decoder's self-
+    and cross-attention; none with MLA or the SSD mixer alone).  A
+    prefill launches K4 as often."""
+    L, fam = cfg.n_layers, cfg.family
+    k4 = {"ssm": 2, "hybrid": 5}.get(fam, 2) * L + 1
+    k5 = 0 if cfg.kv_lora_rank or fam == "ssm" else L
+    if fam == "encdec":
+        k4, k5 = 0, 2 * L
+    out = {"K4/rmsnorm_bf16": k4} if k4 else {}
+    if k5:
+        out |= {"K5/split_bf16": k5, "K5/combine_bf16": k5}
+    return out
+
+
+def lm_k5_shapes(cfg, B: int, P: int, G: int) -> list:
+    """K5's calls in ``cfg``'s decode steps as (where, (B, Hq, Hkv, S,
+    d), the steps' mean ``kv_len``): the cache at its horizon P + G, a
+    hybrid's ring of W slots (full from the first step when P >= W), a
+    Whisper decoder's cross K/V over its F frames."""
+    if cfg.kv_lora_rank or cfg.family == "ssm":
+        return []
+    heads = (B, cfg.n_heads, cfg.n_kv_heads)
+    if cfg.family == "hybrid":
+        W = cfg.window
+        return [("decode ring", heads + (W, cfg.dh),
+                 min(P + G // 2, W))]
+    out = [("decode", heads + (P + G, cfg.dh), P + G // 2)]
+    if cfg.family == "encdec":
+        F = cfg.encoder_frames
+        out.append(("decode cross", heads + (F, cfg.dh), F))
+    return out
 
 
 def lm_run(args, arch: str, depth, failures: list, smi_line: str) -> list:
     """``launch.serve.generate`` for ``arch`` (at ``depth`` layers where
-    given) from ``--seed``: 8 prompts of 1024 tokens, 32 greedy tokens,
-    the counts set to 0 just before and read just after (K4 2 L + 1
-    times a forward pass, K5's split and combine L times a GQA step).
-    Then one more step counted with every plain version forbidden, the
-    same step repeated (bitwise equal logits), timed as one CUDA graph
-    and traced; for an MoE model the share of assignments the prefill
-    drops and the distinct experts of one step (which the step's bound
+    given) from ``--seed``: 8 prompts of 1024 tokens (``LM_PROMPTS``
+    apart; a VLM's patches, an encoder-decoder's frames, drawn after
+    them as ``serve --arch`` draws them), 32 greedy tokens, the counts
+    set to 0 just before and read just after (``lm_step_launches`` a
+    step, K4 as often in the prefill).  Then one more step counted with
+    every plain version forbidden, the same step repeated (bitwise equal
+    logits; a recurrent state restored to what the first read, and the
+    states they leave bitwise equal), timed as one CUDA graph and
+    traced; for an MoE model the share of assignments the prefill drops
+    and the distinct experts of one step (which the step's bound
     counts); decode against forward; K5 and K4 at the run's shapes
     against their plain versions, with bitwise repeats.  Returns the
     kernel records (``lm_records``; none for ``LM_ARCH2``)."""
@@ -780,14 +910,13 @@ def lm_run(args, arch: str, depth, failures: list, smi_line: str) -> list:
     from repro_torch.core.timing import graph_ms
     from repro_torch.kernels import decode_attention as k5
     from repro_torch.kernels import ref
-    from repro_torch.launch.serve import generate, load_model
+    from repro_torch.launch.serve import draw_inputs, generate, load_model
     from repro_torch.models import prefill
     from repro_torch.train.steps import make_decode_step
 
-    B, P, G = LM_BATCH, LM_PROMPT, LM_GEN
+    B, P, G = LM_BATCH, LM_PROMPTS.get(arch, LM_PROMPT), LM_GEN
     cfg, reduced = lm_config(get_config(arch), depth)
-    L, moe, mla = cfg.n_layers, cfg.family == "moe", bool(cfg.kv_lora_rank)
-    L_gqa = 0 if mla else L
+    L, fam, moe = cfg.n_layers, cfg.family, cfg.family == "moe"
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -797,19 +926,22 @@ def lm_run(args, arch: str, depth, failures: list, smi_line: str) -> list:
     load_s = time.perf_counter() - t0
     peak_load = torch.cuda.max_memory_allocated() - base
     n_params = sum(p.numel() for p in model.parameters())
-    rng = np.random.default_rng(args.seed)
-    prompts = rng.integers(0, cfg.vocab, (B, P)).astype(np.int32)
-    generate(cfg, model, prompts[:, :16], 2)            # warm-up
+    x = draw_inputs(cfg, B, P, args.seed)
+    prompts, extra = x["prompts"], {k: x[k] for k in ("patches", "frames")}
+    warm = dict(extra)
+    if warm["patches"] is not None:             # 8 patches in 16 tokens
+        warm["patches"] = warm["patches"][:, :8]
+    generate(cfg, model, prompts[:, :16], 2, **warm)        # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the main path: counts set to 0 just before, read just after
     LAUNCHES.reset()
-    res = generate(cfg, model, prompts, G)
+    res = generate(cfg, model, prompts, G, **extra)
     torch.cuda.synchronize()
     main_launches = dict(LAUNCHES.by_kernel)
     peak_serve = torch.cuda.max_memory_allocated() - base
-    toks = res["tokens"]
-    steps_ms = res["step_ms"]
+    toks, prefill_ms, steps_ms = res["tokens"], res["prefill_ms"], \
+        res["step_ms"]
     decode_s = sum(steps_ms) / 1e3
     tokens_ok = toks.shape == (B, G) and bool(
         ((toks >= 0) & (toks < cfg.vocab)).all())
@@ -820,22 +952,29 @@ def lm_run(args, arch: str, depth, failures: list, smi_line: str) -> list:
     tok = torch.as_tensor(toks[:, -1], device="cuda")
     pos = P + G - 1
     step = make_decode_step(cfg)
+    state0 = cache["state"].clone() if fam in STATEFUL else None
     with forbid_plain(ref):
         LAUNCHES.reset()
         _, step_logits, _ = step(model, cache, tok, pos)
         torch.cuda.synchronize()
         step_launches = dict(LAUNCHES.by_kernel)
+    state_same = True
+    if state0 is not None:          # the repeat reads the same state
+        state1 = cache["state"].clone()
+        cache["state"].copy_(state0)
     _, again, _ = step(model, cache, tok, pos)
-    repeat_bitwise = torch.equal(bits(step_logits), bits(again))
-    k5_count = {"K5/split_bf16": L_gqa, "K5/combine_bf16": L_gqa} \
-        if L_gqa else {}
-    want_launches = {"K4/rmsnorm_bf16": 2 * L + 1, **k5_count}
+    if state0 is not None:
+        state_same = torch.equal(bits(cache["state"]), bits(state1))
+        del state0, state1
+    repeat_bitwise = torch.equal(bits(step_logits), bits(again)) \
+        and state_same
+    want_launches = lm_step_launches(cfg)
     if step_launches != want_launches:
         failures.append(f"lm {arch}: one decode step launched "
                         f"{step_launches}, want {want_launches}")
-    # the main run: the prefill's 2 L + 1 RMSNorms, then G - 1 steps
-    want_main = {"K4/rmsnorm_bf16": (2 * L + 1) * G,
-                 **{k: n * (G - 1) for k, n in k5_count.items()}}
+    # the main run: the prefill's K4 launches, then G - 1 steps
+    want_main = {k: n * (G if k.startswith("K4") else G - 1)
+                 for k, n in want_launches.items()}
     if main_launches != want_main:
         failures.append(f"lm {arch}: the main run launched "
                         f"{main_launches}, want {want_main}")
@@ -882,30 +1021,46 @@ def lm_run(args, arch: str, depth, failures: list, smi_line: str) -> list:
         moe_rec.update(bound_bytes=last[2],
                        reference_formulation_bytes=all_e[2],
                        reference_formulation_bound_ms=all_e[0])
+    del res, cache, step_logits, again
+    torch.cuda.empty_cache()
 
-    dvf = decode_vs_forward(cfg, model, prompts)
-    if not (dvf["decode_vs_forward_checked"] <= DECODE_VS_FORWARD
+    if fam in STATEFUL:     # every step of the run against the forward
+        dvf = decode_vs_forward(cfg, model, np.concatenate(
+            [prompts, toks], axis=1), G, **extra)
+    else:
+        dvf = decode_vs_forward(cfg, model, prompts, 1, **extra)
+    held = arch not in DRIFTING
+    if not ((dvf["decode_vs_forward_checked"] <= DECODE_VS_FORWARD
+             or not held)
+            and dvf.get("layer_gap_max", 0.0) <= DECODE_VS_FORWARD
             and tokens_ok and logits_finite and repeat_bitwise):
         failures.append(f"lm {arch}: decode against forward "
-                        f"{dvf['decode_vs_forward_checked']:.3g} (bound "
+                        f"{dvf['decode_vs_forward_checked']:.3g} (held "
+                        f"{held}), largest layer gap "
+                        f"{dvf.get('layer_gap_max')} (bound "
                         f"{DECODE_VS_FORWARD}), tokens ok {tokens_ok}, "
                         f"logits finite {logits_finite}, repeat bitwise "
                         f"{repeat_bitwise}")
-    emit({"phase": "lm", "arch": arch, "nvidia_smi": smi_line,
+    dvf["decode_vs_forward_held"] = held
+    emit({"phase": "lm", "arch": arch, "family": fam, "nvidia_smi": smi_line,
           "reduced": reduced, "n_layers": L, "d_model": cfg.d_model,
           "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
-          "kv_lora_rank": cfg.kv_lora_rank,
-          "d_ff": cfg.d_ff, "vocab": cfg.vocab, "params": n_params,
+          "kv_lora_rank": cfg.kv_lora_rank, "d_ff": cfg.d_ff,
+          "d_inner": cfg.d_inner if fam in STATEFUL else None,
+          "ssm_state": cfg.ssm_state, "window": cfg.window,
+          "encoder_layers": cfg.encoder_layers if fam == "encdec" else None,
+          "encoder_frames": cfg.encoder_frames if fam == "encdec" else None,
+          "n_patches": cfg.n_patches, "vocab": cfg.vocab, "params": n_params,
           "dtype": cfg.compute_dtype, "batch": B, "prompt": P, "gen": G,
           "load_s": load_s, "peak_load_bytes": peak_load,
           "peak_serve_bytes": peak_serve, "base_bytes": base,
-          "prefill_ms": res["prefill_ms"],
+          "prefill_ms": prefill_ms,
           "step_ms_median": float(np.median(steps_ms)),
           "step_ms_min": min(steps_ms), "step_ms_max": max(steps_ms),
           "step_ms": steps_ms,
           "decode_tok_s": B * len(steps_ms) / decode_s,
           "bound_ms_per_step": bound_ms, "bound_tok_s": B / bound_ms * 1e3,
-          "bound_by": last[1], **moe_rec,
+          "bound_by": last[1], "bound_bytes_last_step": last[2], **moe_rec,
           "step_device_ms": step_dev_ms, "step_timed_by": step_how,
           "traced_step_ms": traced_s * 1e3,
           "traced_busy_ms": None if busy_us is None else busy_us / 1e3,
@@ -916,17 +1071,18 @@ def lm_run(args, arch: str, depth, failures: list, smi_line: str) -> list:
           "step_launches": step_launches,
           "step_repeat_bitwise": repeat_bitwise, **dvf,
           "tokens_ok": tokens_ok, "sample": toks[0][:16].tolist()})
-    shape = (B, cfg.n_heads, cfg.n_kv_heads, P + G, cfg.dh)
-    if mla:
-        checks = []
-    elif arch == LM_ARCH:
+    k5_shapes = lm_k5_shapes(cfg, B, P, G)
+    if arch == LM_ARCH:
+        shape = k5_shapes[0][1]
         checks = [(shape, n, dt) for n, dt in ((P + 1, "bfloat16"),
                                                (P + G, "bfloat16"),
                                                (777, "float32"))]
+    elif arch == LM_ARCH2:
+        checks = [(k5_shapes[0][1], P + 1, "bfloat16")]
     else:
-        checks = [(shape, P + 1 if arch == LM_ARCH2 else P + G // 2,
-                   "bfloat16")]
-    del model, res, cache, step_logits, again
+        checks = [(shape, kv_len, "bfloat16")
+                  for _, shape, kv_len in k5_shapes]
+    del model
     torch.cuda.empty_cache()
 
     # K5 and K4 at the decode's shapes against their plain versions
@@ -955,11 +1111,11 @@ def lm_run(args, arch: str, depth, failures: list, smi_line: str) -> list:
             failures.append(f"lm_kernel K5 {shape} kv_len {kv_len} {dt}: "
                             f"error {rel:.3g} (tol {tol}), bitwise "
                             f"repeat {same}")
-    k4_inputs = lm_k4_checks(cfg, randn, failures)
+    k4_inputs = lm_k4_checks(cfg, P, randn, failures)
     if arch == LM_ARCH2:
         return []
-    return lm_records(cfg, randn, k4_inputs, main_launches, failures,
-                      label="" if arch == LM_ARCH else f"{arch} ")
+    return lm_records(cfg, randn, k4_inputs, k5_shapes, main_launches,
+                      failures, label="" if arch == LM_ARCH else f"{arch} ")
 
 
 class moe_routes:
@@ -984,13 +1140,70 @@ class moe_routes:
         self.mm.moe_layer = self.layer
 
 
-def decode_vs_forward(cfg, model, prompts) -> dict:
+class layer_gaps:
+    """Within the block, each decoder layer the forward runs is also
+    decoded, teacher-forced, at position ``pos``: the layer's prefill
+    over the forward's own input to it at positions ``[0, pos)`` fills a
+    one-layer cache (``forward.write_layer``), then ``forward.
+    decode_layer`` runs on the forward's input at ``pos``; its output is
+    held against the forward's output of the layer at ``pos`` (norm-
+    relative, one entry a layer).  Each layer's decode algorithm then
+    meets its forward on the same input and history, with one layer's
+    rounding between them, however far the stack amplifies the rounding
+    of the layers before it.  MoE layers are not checked (their
+    capacity drops differ between a sequence and one token, and an MLA
+    prefill leaves ``kr`` unroped)."""
+
+    def __init__(self, cfg, pos: int):
+        self.cfg, self.pos = cfg, pos
+
+    def __enter__(self):
+        import dataclasses
+
+        import torch
+
+        from repro_torch.models import forward as fw
+        self.fw, gaps, pos = fw, [], self.pos
+        self.saved = (fw.decoder_layer, fw.whisper_decoder_layer)
+        one = dataclasses.replace(self.cfg, n_layers=1)
+
+        def check(layer, x, lp, kind):
+            out = layer(x)
+            cache = {k: torch.zeros(shape, dtype=fw.cache_dtype(one, k),
+                                    device=x.device)
+                     for k, shape in fw.cache_shapes(
+                         one, x.shape[0], pos + 1).items()}
+            fw.write_layer(one, cache, 0, layer(x[:, :pos])[1], pos)
+            got = fw.decode_layer(one, x[:, pos:pos + 1].contiguous(), lp,
+                                  kind, cache, 0, pos)
+            gaps.append(tensor_err(got[:, 0].float(),
+                                   out[0][:, pos].float())[0])
+            return out
+
+        dec, whisper = self.saved
+        fw.decoder_layer = lambda cfg, x, lp, kind="dense": check(
+            lambda xs: dec(cfg, xs, lp, kind), x, lp, kind)
+        fw.whisper_decoder_layer = lambda cfg, x, lp, enc_out: check(
+            lambda xs: whisper(cfg, xs, lp, enc_out), x, lp, "dec")
+        return gaps
+
+    def __exit__(self, *exc):
+        self.fw.decoder_layer, self.fw.whisper_decoder_layer = self.saved
+
+
+def decode_vs_forward(cfg, model, seq, steps: int = 1, patches=None,
+                      frames=None) -> dict:
     """The reference's serving check (``tests/test_models.py:64-88``) on
-    the card: prefill(P - 1) and one decode step at P - 1 (over the
-    first 1024 rows of a 1055-row cache) against the forward over the P
-    = 1024 prompt tokens at the last position: norm- and max-relative
-    error of the logits, and each sequence's.  The check's own fix-ups,
-    none of them in the serving path:
+    the card, over ``seq`` (B, S) tokens (and a VLM's ``patches``, an
+    encoder-decoder's ``frames``, the same on both passes): prefill(S -
+    ``steps``) and ``steps`` decode steps at S - steps ... S - 1 (over a
+    cache grown to S - steps + 32 rows) against the forward over all S
+    at each step's position: norm- and max-relative error of the logits
+    (the largest over the steps, and each step's), and each sequence's
+    at the last step.  One step over the prompt (S = 1024) for the
+    stateless families; a recurrent state's family runs the 32 steps of
+    ``generate`` over its 1056 tokens.  The check's own fix-ups, none
+    of them in the serving path:
 
     * an MoE model's capacity factor is replaced by E / k on both
       passes, so that no pass drops an assignment (the forward's 16
@@ -1020,36 +1233,49 @@ def decode_vs_forward(cfg, model, prompts) -> dict:
         out["replaced"] = {"capacity_factor": [cfg.capacity_factor,
                                                replaced]}
         cfg = dataclasses.replace(cfg, capacity_factor=replaced)
-    B, P = prompts.shape
-    Pf = P - 1
-    seq = torch.as_tensor(prompts, device=model.device)
-    with moe_routes() as fwd:
-        want = forward_lm(cfg, model, seq)[0][:, Pf].float()
-    _, cache = prefill(cfg, model, seq[:, :Pf])
+    B, S = seq.shape
+    Pf = S - steps
+    dev = model.device
+    extra = {k: torch.as_tensor(a, device=dev) for k, a in
+             (("patches", patches), ("frames", frames)) if a is not None}
+    seq = torch.as_tensor(seq, device=dev)
+    with moe_routes() as fwd, (contextlib.nullcontext([]) if moe
+                               else layer_gaps(cfg, S - 1)) as gaps:
+        want = forward_lm(cfg, model, seq, **extra)[0][:, Pf:].float()
+    if gaps:
+        out.update(layer_gaps=gaps, layer_gap_max=max(gaps))
+    _, cache = prefill(cfg, model, seq[:, :Pf], **extra)
     cache = grow_cache(cfg, cache, Pf + LM_GEN)
+    out["decode_vs_forward_steps"] = steps
 
     def errs(key: str, tap: bool = True):
-        with moe_routes() if tap else contextlib.nullcontext() as dec:
-            got = decode_step(cfg, model, cache, seq[:, Pf], Pf)[0].float()
-        out[f"{key}_norm_rel"] = tensor_err(got, want)[0]
-        out[f"{key}_max_rel"] = float((got - want).abs().max()
-                                      / want.abs().max())
-        out[f"{key}_by_sequence"] = ((got - want).norm(dim=-1)
-                                     / want.norm(dim=-1)).tolist()
-        return out[f"{key}_norm_rel"], dec
+        rels = []
+        for i in range(steps):
+            with moe_routes() if tap else contextlib.nullcontext() as dec:
+                got = decode_step(cfg, model, cache, seq[:, Pf + i],
+                                  Pf + i)[0].float()
+            w = want[:, i]
+            rels.append(tensor_err(got, w)[0])
+        out[f"{key}_norm_rel"] = max(rels)
+        if steps > 1:
+            out[f"{key}_by_step"] = rels
+        out[f"{key}_max_rel"] = float((got - w).abs().max() / w.abs().max())
+        out[f"{key}_by_sequence"] = ((got - w).norm(dim=-1)
+                                     / w.norm(dim=-1)).tolist()
+        return max(rels), dec
 
     key = "decode_vs_forward"
     checked, dec = errs(key)
     if cfg.kv_lora_rank:
-        positions = torch.arange(Pf, device=model.device)[None, :]
+        positions = torch.arange(Pf, device=dev)[None, :]
         for kr in cache["kr"]:
             kr[:, :Pf] = common.rope(kr[:, :Pf, None, :], positions,
                                      cfg.rope_theta)[..., 0, :]
         key += "_kr_roped"
         checked, dec = errs(key)
     if moe:
-        out.update(routing_flips(cfg, fwd, dec, B, P))
-        with pinned_routes(fwd, B, P):
+        out.update(routing_flips(cfg, fwd, dec, B, S))
+        with pinned_routes(fwd, B, S):
             checked, _ = errs(key + "_routing_pinned", tap=False)
     out["decode_vs_forward_checked"] = checked
     return out
@@ -1108,64 +1334,85 @@ def routing_flips(cfg, fwd: list, dec: list, B: int, P: int) -> dict:
             "moe_layers": len(fwd)}
 
 
-def lm_k4_checks(cfg, randn, failures: list) -> list:
-    """K4 at ``cfg``'s decode (B, D) and prefill (B·P, D) shapes in
-    bfloat16 against its plain version, with a bitwise repeat; returns
-    ``(T, x, gamma, max_abs_err)`` for each."""
+def lm_k4_widths(cfg) -> list:
+    """The row widths K4 normalises in ``cfg``'s model: d_model, and the
+    SSD mixer's gated norm at d_inner; none with LayerNorm."""
+    if cfg.norm == "layernorm":
+        return []
+    return [cfg.d_model] + ([cfg.d_inner] if cfg.family in STATEFUL else [])
+
+
+def lm_k4_checks(cfg, P: int, randn, failures: list) -> list:
+    """K4 at ``cfg``'s decode (B, D) and prefill (B·P, D) shapes for each
+    of ``lm_k4_widths`` in bfloat16 against its plain version, with a
+    bitwise repeat; returns ``(T, x, gamma, max_abs_err)`` for each."""
     import torch
 
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as k4
 
-    D = cfg.d_model
     out = []
-    for T in (LM_BATCH, LM_BATCH * LM_PROMPT):
-        x, g = randn(T, D), randn(D)
-        got, again = k4.rmsnorm(x, g), k4.rmsnorm(x, g)
-        rel, mabs = tensor_err(got, ref.rmsnorm(x, g))
-        same = torch.equal(bits(got), bits(again))
-        emit({"phase": "lm_kernel", "arch": cfg.name,
-              "kernel": "K4/rmsnorm_bf16", "shape": [T, D],
-              "dtype": "bfloat16", "norm_rel_err": rel, "max_abs_err": mabs,
-              "repeat_bitwise": same, **k4.plan(D, x.dtype, x.device)})
-        if not (rel <= BF16_KERNEL_RTOL and same):
-            failures.append(f"lm_kernel K4 {cfg.name} ({T}, {D}): error "
-                            f"{rel:.3g}, bitwise repeat {same}")
-        out.append((T, x, g, mabs))
+    for D in lm_k4_widths(cfg):
+        for T in (LM_BATCH, LM_BATCH * P):
+            x, g = randn(T, D), randn(D)
+            got, again = k4.rmsnorm(x, g), k4.rmsnorm(x, g)
+            rel, mabs = tensor_err(got, ref.rmsnorm(x, g))
+            same = torch.equal(bits(got), bits(again))
+            emit({"phase": "lm_kernel", "arch": cfg.name,
+                  "kernel": "K4/rmsnorm_bf16", "shape": [T, D],
+                  "dtype": "bfloat16", "norm_rel_err": rel,
+                  "max_abs_err": mabs, "repeat_bitwise": same,
+                  **k4.plan(D, x.dtype, x.device)})
+            if not (rel <= BF16_KERNEL_RTOL and same):
+                failures.append(f"lm_kernel K4 {cfg.name} ({T}, {D}): "
+                                f"error {rel:.3g}, bitwise repeat {same}")
+            out.append((T, x, g, mabs))
     return out
 
 
-def lm_records(cfg, randn, k4_checked: list, launches: dict,
-               failures: list, label: str = "") -> list:
-    """K4 (on ``lm_k4_checks``'s inputs) and, for GQA, K5 at ``cfg``'s
-    decode (and K4 at its prefill) shapes, each timed: the kernel
-    records, named ``<counter> (lm <label><where>)``, with the main
-    run's ``launches`` of each kernel (prefill and decode together)."""
+def lm_records(cfg, randn, k4_checked: list, k5_shapes: list,
+               launches: dict, failures: list, label: str = "") -> list:
+    """K4 (on ``lm_k4_checks``' inputs) and K5 at each of ``k5_shapes``
+    (``lm_k5_shapes``), each timed: the kernel records, named
+    ``<counter> (lm <label><where>)``, with the main run's ``launches``
+    of each kernel (prefill and decode together)."""
     import torch
 
-    from repro_torch.kernels import decode_attention as k5
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as k4
 
     F = torch.nn.functional
-    B, P, G = LM_BATCH, LM_PROMPT, LM_GEN
-    D = cfg.d_model
+    B = LM_BATCH
     timed = []
     for T, x, g, mabs in k4_checked:
+        D = x.shape[1]
+        where = "decode" if T == B else "prefill"
+        if D != cfg.d_model:
+            where += f" D {D}"
         # gamma in bfloat16, as the cast model holds it
         timed.append(
-            dict(counter="K4/rmsnorm_bf16",
-                 where="decode" if T == B else "prefill", shape=[T, D],
+            dict(counter="K4/rmsnorm_bf16", where=where, shape=[T, D],
                  err=mabs,
                  wrapper=lambda x=x, g=g: k4.rmsnorm(x, g),
                  plain=lambda x=x, g=g: ref.rmsnorm(x, g),
-                 lib=lambda x=x, g=g: F.rms_norm(x, (D,), g, eps=1e-6),
+                 lib=lambda x=x, g=g, D=D: F.rms_norm(x, (D,), g, eps=1e-6),
                  bound=bound_of(2 * 2 * T * D + 2 * D, 4 * T * D)))
-    if cfg.kv_lora_rank:            # MLA's decode is not K5's (d <= 256)
-        return lm_time(timed, launches, failures, label)
-    # K5 at the decode steps' mean KV length
-    kv_len = P + G // 2
-    shape = (B, cfg.n_heads, cfg.n_kv_heads, P + G, cfg.dh)
+    for where, shape, kv_len in k5_shapes:
+        timed += k5_timed(shape, kv_len, where, randn)
+    return lm_time(timed, launches, failures, label)
+
+
+def k5_timed(shape, kv_len: int, where: str, randn) -> list:
+    """K5's split, combine and the whole at ``shape`` (B, Hq, Hkv, S, d)
+    over ``kv_len`` rows, bfloat16, as ``lm_time`` entries: each with its
+    max abs error against its plain version, its bound and (the whole)
+    SDPA as its library call."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import ref
+
+    F = torch.nn.functional
     b, hq, hkv, S, d = shape
     q, kk, vv = randn(b, hq, d), randn(b, S, hkv, d), randn(b, S, hkv, d)
     acc, mm, ll, length = k5.split(q, kk, vv, kv_len=kv_len)
@@ -1181,27 +1428,26 @@ def lm_records(cfg, randn, k4_checked: list, launches: dict,
     b_split, b_comb, b_whole = k5_bounds(
         (b, hq, hkv, kv_len, d), "bfloat16", chunks)
     qkv = (q, kk, vv)
-    extra = dict(where="decode", shape=list(shape), kv_len=kv_len,
+    extra = dict(where=where, shape=list(shape), kv_len=kv_len,
                  chunks=chunks, chunk_len=length)
-    timed.append(dict(
-        extra, counter="K5/split_bf16", err=e_split, lib=None,
-        wrapper=lambda: k5.split(*qkv, kv_len=kv_len),
-        plain=lambda: ref.decode_attention_split(*qkv, length, kv_len=kv_len),
-        bound=b_split))
-    timed.append(dict(
-        extra, counter="K5/combine_bf16", err=e_comb, lib=None,
-        wrapper=lambda: k5.combine(*part),
-        plain=lambda: ref.decode_attention_combine(*part), bound=b_comb))
-    # K5 as a whole: a time line only, beside the library's attention
-    timed.append(dict(
-        extra, counter=None, err=e_whole,
-        wrapper=lambda: k5.decode_attention(*qkv, kv_len=kv_len),
-        plain=lambda: ref.decode_attention(*qkv, kv_len=kv_len),
-        lib=lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kk[:, :kv_len].transpose(1, 2),
-            vv[:, :kv_len].transpose(1, 2), enable_gqa=True)[:, :, 0],
-        bound=b_whole))
-    return lm_time(timed, launches, failures, label)
+    return [
+        dict(extra, counter="K5/split_bf16", err=e_split, lib=None,
+             wrapper=lambda: k5.split(*qkv, kv_len=kv_len),
+             plain=lambda: ref.decode_attention_split(*qkv, length,
+                                                      kv_len=kv_len),
+             bound=b_split),
+        dict(extra, counter="K5/combine_bf16", err=e_comb, lib=None,
+             wrapper=lambda: k5.combine(*part),
+             plain=lambda: ref.decode_attention_combine(*part),
+             bound=b_comb),
+        # K5 as a whole: a time line only, beside the library's attention
+        dict(extra, counter=None, err=e_whole,
+             wrapper=lambda: k5.decode_attention(*qkv, kv_len=kv_len),
+             plain=lambda: ref.decode_attention(*qkv, kv_len=kv_len),
+             lib=lambda: F.scaled_dot_product_attention(
+                 q[:, :, None], kk[:, :kv_len].transpose(1, 2),
+                 vv[:, :kv_len].transpose(1, 2), enable_gqa=True)[:, :, 0],
+             bound=b_whole)]
 
 
 def lm_time(timed: list, launches: dict, failures: list, label: str) -> list:

@@ -1,12 +1,10 @@
-"""Serving example: batched prefill and greedy decode against a KV cache
-for a GQA model with QKV bias (qwen2_7b at its smoke size); on the card
-K4 runs its RMSNorms and K5 its decode attention.
+"""Serving example: batched prefill and greedy decode for a GQA model
+with QKV bias against a KV cache (qwen2_7b) and for an attention-free SSM
+with an O(1) state (mamba2_2p7b), each at its smoke size; on the card K4
+runs their RMSNorms and K5 qwen2's decode attention.
 
     PYTHONPATH=src python -m repro_torch.examples.serve_lm
     PYTHONPATH=src python -m repro_torch.examples.serve_lm --device cpu
-
-The reference's example also serves mamba2_2p7b, an attention-free SSM;
-the port's SSM family is still to come (``ROADMAP.md``).
 """
 import argparse
 
@@ -17,7 +15,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda", help="'cuda' or 'cpu'")
     args = ap.parse_args(argv)
-    for arch in ("qwen2_7b",):
+    for arch in ("qwen2_7b", "mamba2_2p7b"):
         print(f"=== {arch} ===")
         serve_launcher.main([
             "--arch", arch, "--smoke", "--batch", "4",

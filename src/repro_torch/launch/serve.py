@@ -4,9 +4,10 @@ through the fusion compiler (``--blas``).
 A language model: batched prefill of random prompts, then greedy decode
 against a KV cache at the full horizon (prompt + generated tokens), the
 weights random from ``--seed`` at the config's shapes and cast once to
-its compute dtype (dense and MoE families, e.g. ``deepseek_v2_lite``,
-``grok1_314b``); K4 runs every RMSNorm and K5 every GQA decode attention
-on the card:
+its compute dtype (every family: dense, MoE, ``llava_next_34b``'s vlm
+with patch embeddings, ``mamba2_2p7b``'s SSD, ``hymba_1p5b``'s hybrid,
+``whisper_medium``'s encoder-decoder over frame embeddings); K4 runs every
+RMSNorm and K5 every GQA decode attention on the card:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \
         --batch 8 --prompt-len 1024 --gen 32
@@ -152,27 +153,38 @@ def serve_blas(args) -> dict:
             "device": str(prog.device), "hw": cc.hw.name, "cache": stats}
 
 
+#: the cache leaves whose axis 2 is the sequence (a hybrid's ``k`` and
+#: ``v`` are its ring, which keeps its W slots)
+GROWN = ("k", "v", "ckv", "kr")
+
+
 def grow_cache(cfg, cache, horizon: int) -> dict:
-    """The prefill's cache of KV length P at the full ``horizon``: a
-    ``zero_cache`` with the P positions of every leaf (axis 2 is the
-    sequence: ``k``/``v``, or MLA's ``ckv``/``kr``) copied in (the
-    reference pads it)."""
-    from repro_torch.models import zero_cache
-    any_leaf = next(iter(cache.values()))
-    full = zero_cache(cfg, any_leaf.shape[1], horizon,
-                      device=any_leaf.device)
+    """The prefill's cache of KV length P at the full ``horizon``: each
+    leaf of ``GROWN`` (but a hybrid's ring) as zeros at the horizon with
+    its P positions copied in; the SSD ``state``, the ring and Whisper's
+    cross ``xk``/``xv`` as they are.  The reference pads every leaf whose
+    axis 2 is P long, outside the hybrid family (ROADMAP.md §3)."""
+    import torch
+    out = dict(cache)
     for name, t in cache.items():
-        full[name][:, :, :t.shape[2]] = t
-    return full
+        if name in GROWN and cfg.family != "hybrid":
+            full = torch.zeros(t.shape[:2] + (horizon,) + t.shape[3:],
+                               dtype=t.dtype, device=t.device)
+            full[:, :, :t.shape[2]] = t
+            out[name] = full
+    return out
 
 
-def generate(cfg, model, prompts, gen: int) -> dict:
+def generate(cfg, model, prompts, gen: int, patches=None,
+             frames=None) -> dict:
     """The reference's ``--arch`` loop on ``model`` (cast to the compute
-    dtype): prefill the prompts (B, P), grow the cache to P + gen, take
-    the greedy token, then ``gen - 1`` decode steps.  Returns the (B,
-    gen) tokens (numpy int32), the cache, the prefill's milliseconds
-    (with the grow) and each decode step's (CUDA events on the card, so
-    a step's time includes the device waiting for the host)."""
+    dtype): prefill the prompts (B, P) (with a VLM's ``patches`` and an
+    encoder-decoder's ``frames``, numpy or tensors), grow the cache to P
+    + gen, take the greedy token, then ``gen - 1`` decode steps.  Returns
+    the (B, gen) tokens (numpy int32), the cache, the prefill's
+    milliseconds (with the grow) and each decode step's (CUDA events on
+    the card, so a step's time includes the device waiting for the
+    host)."""
     import torch
 
     from repro_torch.train import steps
@@ -188,11 +200,14 @@ def generate(cfg, model, prompts, gen: int) -> dict:
         else:
             marks.append(time.perf_counter())
 
-    tokens = torch.as_tensor(np.asarray(prompts, np.int32),
-                             device=model.device)
+    batch = {"tokens": torch.as_tensor(np.asarray(prompts, np.int32),
+                                       device=model.device)}
+    for name, a in (("patches", patches), ("frames", frames)):
+        if a is not None:
+            batch[name] = torch.as_tensor(a, device=model.device)
     decode_step = steps.make_decode_step(cfg)
     mark()
-    logits, cache = steps.make_prefill_step(cfg)(model, {"tokens": tokens})
+    logits, cache = steps.make_prefill_step(cfg)(model, batch)
     cache = grow_cache(cfg, cache, P + gen)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     mark()
@@ -208,6 +223,24 @@ def generate(cfg, model, prompts, gen: int) -> dict:
         ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
     return {"tokens": torch.stack(out, dim=1).cpu().numpy(), "cache": cache,
             "prefill_ms": ms[0], "step_ms": ms[1:]}
+
+
+def draw_inputs(cfg, batch: int, prompt_len: int, seed: int) -> dict:
+    """The reference's ``--arch`` inputs from ``np.random.default_rng(
+    seed)``: the prompts (B, P) int32, then a VLM's ``patches`` (B,
+    n_patches, D) and an encoder-decoder's ``frames`` (B, encoder_frames,
+    D), float32 standard normal, in that order (``None`` for the other
+    families)."""
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int32)
+    patches = frames = None
+    if cfg.family == "vlm":
+        patches = rng.standard_normal(
+            (batch, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        frames = rng.standard_normal(
+            (batch, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
+    return {"prompts": prompts, "patches": patches, "frames": frames}
 
 
 def load_model(cfg, seed: int, device):
@@ -226,10 +259,10 @@ def load_model(cfg, seed: int, device):
 
 
 def serve_arch(args):
-    """``--arch``: prompts from ``np.random.default_rng(seed)`` as the
-    reference draws them, a model from ``load_model``, then ``generate``;
-    prints the reference's three lines and returns the (B, gen)
-    tokens."""
+    """``--arch``: prompts (and a VLM's patches, an encoder-decoder's
+    frames) drawn as the reference draws them (``draw_inputs``), a model
+    from ``load_model``, then ``generate``; prints the reference's three
+    lines and returns the (B, gen) tokens."""
     from repro_torch.configs import get_config, smoke_config
     if args.model_parallel > 1:
         raise ValueError(f"--model-parallel {args.model_parallel}: sharded "
@@ -237,10 +270,10 @@ def serve_arch(args):
                          f"(ROADMAP.md); this path runs on one device")
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     B, P, G = args.batch, args.prompt_len, args.gen
-    rng = np.random.default_rng(args.seed)
-    prompts = rng.integers(0, cfg.vocab, (B, P)).astype(np.int32)
+    inputs = draw_inputs(cfg, B, P, args.seed)
     model = load_model(cfg, args.seed, args.device)
-    res = generate(cfg, model, prompts, G)
+    res = generate(cfg, model, inputs["prompts"], G,
+                   patches=inputs["patches"], frames=inputs["frames"])
     t_decode = sum(res["step_ms"]) / 1e3
     tput = B * (G - 1) / max(t_decode, 1e-9)
     print(f"prefill {P} toks x{B}: {res['prefill_ms']:.1f} ms")

@@ -1,6 +1,8 @@
-"""repro_torch.models — the dense and MoE (with MLA) decoders of the
-reference's model zoo (``repro.models``), on the port's kernels: K4 for
-every RMSNorm and K5 for GQA decode attention on the card."""
+"""repro_torch.models — every family of the reference's model zoo
+(``repro.models``: dense, vlm, MoE with MLA, the SSD state-space model,
+the attention-SSD hybrid and Whisper's encoder-decoder), on the port's
+kernels: K4 for every RMSNorm and K5 for GQA decode attention on the
+card."""
 from .forward import (cache_shapes, cast_params, decode_step, forward_lm,
                       prefill, zero_cache)
 from .model import LM, init_params, model_shapes

@@ -73,51 +73,63 @@ def rope(x, positions, theta: float):
 # blockwise attention (online softmax over KV blocks)
 # ---------------------------------------------------------------------------
 
-def blockwise_attention(q, k, v, *, block_kv: int = 1024,
-                        scale: float | None = None):
-    """Causal online-softmax attention streaming K and V in blocks of
-    ``bk`` rows (``block_kv``, halved until it divides Sk), so the logits
-    held at once are (B, Sq, Hq, bk) float32, never (Sq, Sk).
+def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                        block_kv: int = 1024, scale: float | None = None):
+    """Online-softmax attention streaming K and V in blocks of
+    ``block_kv`` rows, so the logits held at once are (B, Sq, Hq, bk)
+    float32, never (Sq, Sk).
 
     q, k: (B, Sq, Hq, dh), (B, Sk, Hkv, dh); v: (B, Sk, Hkv, dv); Hq %
     Hkv == 0, the G = Hq / Hkv query heads of a KV head next to each
-    other; q[0] and k[0] at position 0; the logits scaled by ``scale``
-    (``dh ** -0.5`` unless given).  Masked logits are -1e30, as in the
-    reference's ``causal=True, q_offset=0, window=0`` (the only case a
-    decoder's prefill runs).  Returns q's dtype.
+    other (they read its K and V in place, with no copy a query head);
+    q[0] and k[0] at position 0; the logits scaled by ``scale``
+    (``dh ** -0.5`` unless given).  ``causal``: query i attends keys j <=
+    i; ``window`` (> 0): only keys with i - j < window.  Masked logits
+    are -1e30, as in the reference's ``q_offset=0`` case.  Returns q's
+    dtype.
+
+    The reference halves ``block_kv`` until it divides Sk, which at
+    Whisper's 1500 encoder frames leaves blocks of 4 rows; here the last
+    block is shorter instead: the same online softmax over the same
+    keys, equal within rounding.
     """
     B, Sq, Hq, dh = q.shape
     _, Sk, Hkv, _ = k.shape
     dv = v.shape[-1]
     G = Hq // Hkv
     scale = scale if scale is not None else dh ** -0.5
-    bk = min(block_kv, Sk)
-    while Sk % bk:
-        bk //= 2
     dev = q.device
-    qh = q.to(torch.float32) * scale
+    qh = (q.to(torch.float32) * scale).reshape(B, Sq, Hkv, G, dh)
     q_pos = torch.arange(Sq, device=dev)
-    m = torch.full((B, Sq, Hq), NEG, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, Sq, Hq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, Sq, Hq, dv), dtype=torch.float32, device=dev)
-    for b0 in range(0, Sk, bk):
-        kblk, vblk = k[:, b0:b0 + bk], v[:, b0:b0 + bk]
-        if G > 1:                                     # grouped expansion
-            kblk = kblk.repeat_interleave(G, dim=2)
-            vblk = vblk.repeat_interleave(G, dim=2)
-        logits = torch.einsum("bshd,bthd->bsht", qh, kblk.to(torch.float32))
-        k_pos = b0 + torch.arange(bk, device=dev)
-        mask = (q_pos[:, None] >= k_pos[None, :])[None, :, None, :]
-        logits = torch.where(mask, logits, NEG)
+    m = torch.full((B, Sq, Hkv, G), NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Sq, Hkv, G), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Sq, Hkv, G, dv), dtype=torch.float32, device=dev)
+    for b0 in range(0, Sk, block_kv):
+        kblk = k[:, b0:b0 + block_kv].to(torch.float32)
+        vblk = v[:, b0:b0 + block_kv].to(torch.float32)
+        logits = torch.einsum("bskgd,btkd->bskgt", qh, kblk)
+        dropped = None                       # the masked (query, key) pairs
+        if causal or window:
+            gap = q_pos[:, None] - (b0 + torch.arange(kblk.shape[1],
+                                                      device=dev))
+            keep = torch.ones_like(gap, dtype=torch.bool)
+            if causal:
+                keep &= gap >= 0
+            if window:
+                keep &= gap < window
+            dropped = ~keep[None, :, None, None, :]
+            logits.masked_fill_(dropped, NEG)
         m_new = torch.maximum(m, logits.amax(-1))
-        p = torch.where(mask, torch.exp(logits - m_new[..., None]), 0.0)
+        p = logits.sub_(m_new[..., None]).exp_()
+        if dropped is not None:
+            p.masked_fill_(dropped, 0.0)
         alpha = torch.exp(m - m_new)
         l = alpha * l + p.sum(-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bsht,bthd->bshd", p, vblk.to(torch.float32))
+        acc = acc * alpha[..., None] + torch.einsum("bskgt,btkd->bskgd",
+                                                    p, vblk)
         m = m_new
     out = acc / l.clamp_min(1e-20)[..., None]
-    return out.to(q.dtype)
+    return out.reshape(B, Sq, Hq, dv).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -3,11 +3,14 @@ run both packages on the same numbers.
 
 ``params_from_reference`` takes the tree that ``repro.models.init_params``
 builds (``embed``, ``unembed``, the final norm, ``layers`` stacked
-``(L, ...)`` and an MoE model's ``head_layers``; the MoE leaves
-``router``, ``wg``/``wu``/``wd`` of (E, ·, ·) and ``*_s``), its leaves as
-numpy arrays (or anything ``np.asarray`` reads, in a dtype numpy has:
-the configs' ``param_dtype`` is float32), and returns an ``LM`` with
-every leaf copied and both stacks unstacked, in the arrays' dtype.  It
+``(L, ...)``, an MoE model's ``head_layers`` and Whisper's
+``enc_layers``, ``enc_pos`` and ``encf_*``; the MoE leaves ``router``,
+``wg``/``wu``/``wd`` of (E, ·, ·) and ``*_s``, the SSD mixer's ``ssm_*``,
+a hybrid's ``mix_*`` and a Whisper decoder's ``lnx_*`` and ``x_*``), its
+leaves as numpy arrays (or anything ``np.asarray`` reads, in a dtype
+numpy has: the configs' ``param_dtype`` is float32), and returns an
+``LM`` with every leaf copied and every stack unstacked, in the arrays'
+dtype.  It
 is cast with ``forward.cast_params``, as a loaded model is.
 """
 from __future__ import annotations
@@ -26,8 +29,8 @@ def params_from_reference(cfg, tree: dict, device="cuda") -> LM:
     another shape than ``model_shapes(cfg)`` gives."""
     dev = resolve_device(device)
     shapes = model_shapes(cfg)
-    stacks = {k: shapes.pop(k) for k in ("layers", "head_layers")
-              if k in shapes}
+    stacks = {k: shapes.pop(k) for k in ("layers", "head_layers",
+                                          "enc_layers") if k in shapes}
     if set(tree) != set(shapes) | set(stacks) or any(
             set(tree[k]) != set(s) for k, s in stacks.items()):
         raise ValueError(f"{cfg.name}: the tree's leaves are not the "
@@ -54,4 +57,5 @@ def params_from_reference(cfg, tree: dict, device="cuda") -> LM:
                 for l in range(n)]
 
     top = {k: tensor(array(k, tree[k], s)) for k, s in shapes.items()}
-    return LM(cfg, top, unstack("layers"), unstack("head_layers"))
+    return LM(cfg, top, unstack("layers"), unstack("head_layers"),
+              unstack("enc_layers"))

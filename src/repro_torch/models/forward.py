@@ -1,17 +1,24 @@
-"""The dense and MoE decoders end to end: the full-sequence forward,
-prefill and one decode step, from the reference's
-``repro.models.forward``.
+"""Every family end to end: the full-sequence forward, prefill and one
+decode step, from the reference's ``repro.models.forward``.
 
 The reference casts the parameters to ``cfg.compute_dtype`` inside every
 call (``_cast``); the port casts them once, when a model is loaded for
 serving (``cast_params``), and these functions refuse a model that was not
 cast: the same values, without a cast of every weight at every step.
 The layers run as a Python loop where the reference scans them, an MoE
-model's dense head layers first; the cache is a dict of ``k`` and ``v``,
-each (L, B, S, Hkv, dh), or for MLA of ``ckv`` (L, B, S, r) and ``kr``
-(L, B, S, rd), its index l running over the head layers and then the
-main stack, updated in place by ``decode_step`` (the reference returns a
-new one).
+model's dense head layers first.  The cache is a dict of tensors whose
+index l runs over the head layers and then the main stack, updated in
+place by ``decode_step`` (the reference returns a new one):
+
+* ``k``, ``v`` (L, B, S, Hkv, dh): the dense, vlm and GQA MoE families,
+  and a Whisper decoder's self-attention;
+* ``ckv`` (L, B, S, r), ``kr`` (L, B, S, rd): MLA;
+* ``state`` (L, B, H, P, N), float32 whatever the compute dtype: the SSD
+  mixer's (ssm, hybrid);
+* a hybrid's ``k``, ``v`` (L, B, W, Hkv, dh): a ring of W = ``window``
+  slots, position i in slot i mod W;
+* ``xk``, ``xv`` (L, B, F, Hkv, dh): a Whisper decoder's cross-attention
+  keys and values over the F encoder frames, written by the prefill.
 """
 from __future__ import annotations
 
@@ -20,9 +27,14 @@ import operator
 import torch
 
 from ..core.codegen import resolve_device
-from .common import apply_norm
+from . import ssm as ssm_lib
+from .common import apply_norm, mlp
 from .model import (_moe_or_mlp, check_family, decode_gqa_attention,
-                    decoder_layer, mla_decode_attention, new_kv, new_latent)
+                    decoder_layer, gqa_attention, hybrid_mix,
+                    mla_decode_attention, new_kv, new_latent, ssm_params)
+
+#: the cache leaves kept in float32 whatever the compute dtype
+FLOAT32_LEAVES = ("state",)
 
 
 def _compute_dtype(cfg) -> torch.dtype:
@@ -63,28 +75,87 @@ def unembed(cfg, model, x):
 # full sequence
 # ---------------------------------------------------------------------------
 
-def _layers(cfg, model, tokens, collect_cache=False):
-    """Embedding and every layer, head layers first: (x before the final
-    norm, the summed aux, each layer's cache pieces where
-    ``collect_cache``)."""
+def whisper_encode(cfg, model, frames):
+    """frames (B, F, D): the precomputed embeddings of the audio frontend
+    (a stub in the reference too).  Adds ``enc_pos``, runs the
+    bidirectional encoder (no rope) and its final norm."""
+    x = frames.to(_compute_dtype(cfg))
+    x = x + model["enc_pos"][None, :x.shape[1]]
+    for lp in model.enc_layers:
+        a = apply_norm(cfg, x, lp, "ln1")
+        x = x + gqa_attention(cfg, a, lp, causal=False, use_rope=False)[0]
+        m = apply_norm(cfg, x, lp, "ln2")
+        x = x + mlp(cfg, m, lp.get("wg"), lp["wu"], lp["wd"])
+    return apply_norm(cfg, x, model, "encf")
+
+
+def whisper_decoder_layer(cfg, x, lp, enc_out):
+    """One Whisper decoder layer over the sequence: causal self-attention
+    with rope, cross-attention to ``enc_out`` (no rope, no mask), the
+    MLP; returns (x', (k, v, xk, xv), 0.0)."""
+    h = apply_norm(cfg, x, lp, "ln1")
+    o, (k, v) = gqa_attention(cfg, h, lp)
+    x = x + o
+    hx = apply_norm(cfg, x, lp, "lnx")
+    xo, (xk, xv) = gqa_attention(cfg, hx, lp, kv_x=enc_out, causal=False,
+                                 use_rope=False, prefix="x_")
+    x = x + xo
+    h2 = apply_norm(cfg, x, lp, "ln2")
+    return x + mlp(cfg, h2, lp.get("wg"), lp["wu"], lp["wd"]), \
+        (k, v, xk, xv), 0.0
+
+
+def _embed(cfg, model, tokens, patches):
+    """The token embeddings, a VLM's ``patches`` (B, n, D) in place of
+    the first n positions."""
     x = embed_tokens(cfg, model, tokens)
-    caches, aux = [], 0.0
-    for lp, kind in model.stacks():
-        x, cache, a = decoder_layer(cfg, x, lp, kind)
+    if cfg.family == "vlm" and patches is not None:
+        n = patches.shape[1]
+        if n > x.shape[1]:
+            raise ValueError(
+                f"{cfg.name}: {n} patches do not fit a prompt of "
+                f"{x.shape[1]} tokens (the reference's sequence would grow "
+                f"to {n}; ROADMAP.md §3)")
+        x = torch.cat([patches.to(x.dtype), x[:, n:]], dim=1)
+    return x
+
+
+def _layers(cfg, model, tokens, patches=None, frames=None, collect=None):
+    """Embedding (a VLM's patches in place, Whisper's encoder run first)
+    and every layer, head layers first: (x before the final norm, the
+    summed aux); ``collect(l, pieces)`` receives each layer's cache
+    pieces where given."""
+    x = _embed(cfg, model, tokens, patches)
+    enc_out = None
+    if cfg.family == "encdec":
+        if frames is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder needs frames")
+        enc_out = whisper_encode(cfg, model, frames)
+    aux = 0.0
+    for l, (lp, kind) in enumerate(model.stacks()):
+        if enc_out is not None:
+            x, pieces, a = whisper_decoder_layer(cfg, x, lp, enc_out)
+        else:
+            x, pieces, a = decoder_layer(cfg, x, lp, kind)
         aux = aux + a
-        if collect_cache:
-            caches.append(cache)
-    return x, aux, caches
+        if collect is not None:
+            collect(l, pieces)
+    return x, aux
 
 
 @torch.no_grad()
-def forward_lm(cfg, model, tokens, *, collect_cache=False):
-    """Full-sequence forward of a cast model; tokens (B, S).  Returns
-    (logits (B, S, V), aux (the MoE layers' load-balance terms summed,
-    0.0 for a dense model), caches: a layer's (k, v) or MLA's (c_kv,
-    k_rope) where ``collect_cache``)."""
+def forward_lm(cfg, model, tokens, *, patches=None, frames=None,
+               collect_cache=False):
+    """Full-sequence forward of a cast model; tokens (B, S), a VLM's
+    ``patches`` (B, n ≤ S, D), Whisper's encoder ``frames`` (B, F, D).
+    Returns (logits (B, S, V), aux (the MoE layers' load-balance terms
+    summed, 0.0 for the other families), caches: each layer's cache
+    pieces where ``collect_cache``)."""
     _check_cast(cfg, model)
-    x, aux, caches = _layers(cfg, model, tokens, collect_cache)
+    caches = []
+    x, aux = _layers(cfg, model, tokens, patches, frames,
+                     (lambda l, c: caches.append(c)) if collect_cache
+                     else None)
     x = apply_norm(cfg, x, model, "final")
     return unembed(cfg, model, x), aux, caches
 
@@ -95,57 +166,113 @@ def forward_lm(cfg, model, tokens, *, collect_cache=False):
 
 def cache_shapes(cfg, batch: int, seq: int) -> dict:
     """The decode cache's leaves at KV length ``seq``, as the reference's
-    ``abstract_cache``: ``k`` and ``v`` (L, batch, seq, Hkv, dh), or for
-    MLA ``ckv`` (L, batch, seq, r) and ``kr`` (L, batch, seq, rd)."""
+    ``abstract_cache`` (the module's docstring lists them)."""
     check_family(cfg)
-    L = cfg.n_layers
+    L, fam = cfg.n_layers, cfg.family
+    kv = (L, batch, seq, cfg.n_kv_heads, cfg.dh)
+    state = (L, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
     if cfg.kv_lora_rank:
         return {"ckv": (L, batch, seq, cfg.kv_lora_rank),
                 "kr": (L, batch, seq, cfg.qk_rope_dim)}
-    shape = (L, batch, seq, cfg.n_kv_heads, cfg.dh)
-    return {"k": shape, "v": shape}
+    if fam == "ssm":
+        return {"state": state}
+    if fam == "hybrid":
+        ring = (L, batch, cfg.window, cfg.n_kv_heads, cfg.dh)
+        return {"k": ring, "v": ring, "state": state}
+    if fam == "encdec":
+        x = (L, batch, cfg.encoder_frames, cfg.n_kv_heads, cfg.dh)
+        return {"k": kv, "v": kv, "xk": x, "xv": x}
+    return {"k": kv, "v": kv}
+
+
+def cache_dtype(cfg, name: str) -> torch.dtype:
+    """A cache leaf's dtype: float32 for ``FLOAT32_LEAVES``, the compute
+    dtype otherwise."""
+    return torch.float32 if name in FLOAT32_LEAVES else _compute_dtype(cfg)
 
 
 def zero_cache(cfg, batch: int, seq: int, device="cuda") -> dict:
     """The decode cache at KV length ``seq`` (``cache_shapes``), zeros in
-    ``cfg.compute_dtype``."""
+    each leaf's ``cache_dtype``."""
     dev = resolve_device(device)
-    return {name: torch.zeros(shape, dtype=_compute_dtype(cfg), device=dev)
+    return {name: torch.zeros(shape, dtype=cache_dtype(cfg, name),
+                              device=dev)
             for name, shape in cache_shapes(cfg, batch, seq).items()}
+
+
+def ring_slots(pos: int, window: int) -> int:
+    """The rows of a hybrid's ring that hold keys at ``pos``: the first
+    ``min(pos + 1, W)``.
+
+    The reference attends the W slots masked by each slot's position
+    ``pos - ((pos - slot) mod W)``, kept where it is >= 0.  Before the
+    ring wraps (pos < W) slot i holds position i, so the kept slots are
+    0..pos; after it (pos >= W) every slot holds one of the last W
+    positions.  Each key was roped at its own position when it was
+    written, and a softmax does not depend on the order of its keys, so
+    K5 over those rows in slot order is the reference's attention."""
+    return min(pos + 1, window)
 
 
 # ---------------------------------------------------------------------------
 # decode step
 # ---------------------------------------------------------------------------
 
+def decode_layer(cfg, x, lp, kind: str, cache, l: int, pos: int):
+    """One layer of ``decode_step`` on x (B, 1, D) at position ``pos``:
+    writes the layer's k and v (MLA: its latent and roped rope key; a
+    hybrid: into ring slot ``pos mod W``) into ``cache[...][l]`` before
+    its attention reads them, advances its SSD state in place, and
+    returns x'."""
+    h = apply_norm(cfg, x, lp, "ln1")
+    if kind == "ssm":
+        o, _ = ssm_lib.ssm_mixer(cfg, h, ssm_params(lp),
+                                 state=cache["state"][l])
+    elif kind == "hybrid":
+        k, v = new_kv(cfg, h, lp, pos)
+        slot = pos % cfg.window
+        cache["k"][l, :, slot] = k[:, 0]
+        cache["v"][l, :, slot] = v[:, 0]
+        ao = decode_gqa_attention(cfg, h, lp, cache["k"][l], cache["v"][l],
+                                  pos, kv_len=ring_slots(pos, cfg.window))
+        so, _ = ssm_lib.ssm_mixer(cfg, h, ssm_params(lp),
+                                  state=cache["state"][l])
+        o = hybrid_mix(ao, so, lp)
+    elif cfg.kv_lora_rank:
+        ckv, kr = new_latent(cfg, h, lp, pos)
+        cache["ckv"][l, :, pos] = ckv[:, 0]
+        cache["kr"][l, :, pos] = kr[:, 0]
+        o = mla_decode_attention(cfg, h, lp, cache["ckv"][l],
+                                 cache["kr"][l], pos)
+    else:
+        k, v = new_kv(cfg, h, lp, pos)
+        cache["k"][l, :, pos] = k[:, 0]
+        cache["v"][l, :, pos] = v[:, 0]
+        o = decode_gqa_attention(cfg, h, lp, cache["k"][l], cache["v"][l],
+                                 pos)
+    x = x + o
+    if cfg.family == "encdec":
+        hx = apply_norm(cfg, x, lp, "lnx")
+        x = x + decode_gqa_attention(
+            cfg, hx, lp, cache["xk"][l], cache["xv"][l], pos,
+            kv_len=cfg.encoder_frames, use_rope=False, prefix="x_")
+    if kind != "ssm":
+        h2 = apply_norm(cfg, x, lp, "ln2")
+        x = x + _moe_or_mlp(cfg, h2, lp, kind == "moe")[0]
+    return x
+
+
 @torch.no_grad()
 def decode_step(cfg, model, cache, tokens, pos: int):
     """One token for every sequence of the batch: tokens (B,) at position
     ``pos`` (a host integer), against ``cache`` holding positions
-    ``[0, pos)``.  Writes this step's k and v (MLA: its latent and roped
-    rope key) into ``cache[...][l, :, pos]`` before the layer's attention
-    reads them, and returns (logits (B, V), cache)."""
+    ``[0, pos)``: every layer's ``decode_layer``, the cache updated in
+    place; returns (logits (B, V), cache)."""
     _check_cast(cfg, model)
     pos = operator.index(pos)
     x = embed_tokens(cfg, model, tokens[:, None])           # (B, 1, D)
     for l, (lp, kind) in enumerate(model.stacks()):
-        h = apply_norm(cfg, x, lp, "ln1")
-        if cfg.kv_lora_rank:
-            ckv, kr = new_latent(cfg, h, lp, pos)
-            cache["ckv"][l, :, pos] = ckv[:, 0]
-            cache["kr"][l, :, pos] = kr[:, 0]
-            o = mla_decode_attention(cfg, h, lp, cache["ckv"][l],
-                                     cache["kr"][l], pos)
-        else:
-            k, v = new_kv(cfg, h, lp, pos)
-            cache["k"][l, :, pos] = k[:, 0]
-            cache["v"][l, :, pos] = v[:, 0]
-            o = decode_gqa_attention(cfg, h, lp, cache["k"][l],
-                                     cache["v"][l], pos)
-        x = x + o
-        h2 = apply_norm(cfg, x, lp, "ln2")
-        m, _ = _moe_or_mlp(cfg, h2, lp, kind == "moe")
-        x = x + m
+        x = decode_layer(cfg, x, lp, kind, cache, l, pos)
     x = apply_norm(cfg, x, model, "final")
     return unembed(cfg, model, x)[:, 0], cache
 
@@ -154,18 +281,52 @@ def decode_step(cfg, model, cache, tokens, pos: int):
 # prefill
 # ---------------------------------------------------------------------------
 
+def _cache_names(cfg) -> tuple:
+    """The names of a layer's cache pieces, in the order the layer
+    returns them."""
+    if cfg.kv_lora_rank:
+        return ("ckv", "kr")
+    return {"ssm": ("state",), "hybrid": ("k", "v", "state"),
+            "encdec": ("k", "v", "xk", "xv")}.get(cfg.family, ("k", "v"))
+
+
+def write_layer(cfg, cache, l: int, pieces, S: int):
+    """Write layer l's prefill pieces over S positions (``_cache_names``
+    order) into ``cache[...][l]``: K/V rows (and MLA's) into the first S
+    rows of a cache of S or more; a hybrid's ring holds the last ``min(S,
+    W)`` positions, position i in slot i mod W (the reference's roll;
+    zeros past S while S < W); the SSD state and Whisper's cross K/V
+    whole."""
+    W = cfg.window if cfg.family == "hybrid" else 0
+    for name, t in zip(_cache_names(cfg), pieces):
+        if W and name in ("k", "v"):
+            ring = cache[name][l]
+            if S >= W:
+                t = torch.roll(t[:, S - W:], (S - W) % W, dims=1)
+            else:
+                ring[:, S:] = 0
+            ring[:, :t.shape[1]] = t
+        elif name in ("k", "v", "ckv", "kr"):
+            cache[name][l, :, :S] = t
+        else:
+            cache[name][l] = t
+
+
 @torch.no_grad()
-def prefill(cfg, model, tokens):
+def prefill(cfg, model, tokens, *, patches=None, frames=None):
     """Full-sequence forward that also builds the decode cache: returns
-    (the last position's logits (B, V), cache of KV length S).  The
-    final norm and the unembedding run on the last position alone: the
-    same rows as the reference's, without its (B, S, V) logits.  An MLA
-    cache holds ``kr`` before rope, as the reference's prefill returns
-    it (``model.mla_attention``)."""
+    (the last position's logits (B, V), the cache at KV length S).  Each
+    layer's pieces are written into the cache (``write_layer``) as the
+    layer returns them.  The final norm and the unembedding run on the
+    last position alone: the same rows as the reference's, without its
+    (B, S, V) logits.  An MLA cache holds ``kr`` before rope, as the
+    reference's prefill returns it (``model.mla_attention``)."""
     _check_cast(cfg, model)
-    x, _, caches = _layers(cfg, model, tokens, collect_cache=True)
+    B, S = tokens.shape
+    cache = {name: torch.empty(shape, dtype=cache_dtype(cfg, name),
+                               device=model.device)
+             for name, shape in cache_shapes(cfg, B, S).items()}
+    x, _ = _layers(cfg, model, tokens, patches, frames,
+                   lambda l, pieces: write_layer(cfg, cache, l, pieces, S))
     x = apply_norm(cfg, x[:, -1:].contiguous(), model, "final")
-    names = ("ckv", "kr") if cfg.kv_lora_rank else ("k", "v")
-    cache = {name: torch.stack([c[i] for c in caches])
-             for i, name in enumerate(names)}
     return unembed(cfg, model, x)[:, 0], cache

@@ -1,25 +1,28 @@
-"""The decoders of the dense and MoE families: parameter shapes,
-initialisation, attention (GQA and DeepSeek's MLA) and the layer body,
-from the reference's ``repro.models.model``.
+"""The decoders of every family, driven by the config: parameter shapes,
+initialisation, attention (GQA, with cross-attention, a sliding window
+and no rope where asked, and DeepSeek's MLA) and the layer body, from the
+reference's ``repro.models.model``.
 
 The reference keeps its parameters in a nested dict whose ``layers`` (and
-``head_layers``, an MoE model's dense layers ahead of its MoE stack) are
-stacked ``(L, ...)`` for ``lax.scan``; the port keeps them in an ``LM``
-module under the same leaf names, unstacked: one ``nn.ParameterDict`` a
-layer, walked by a Python loop.  The functions read parameters as the
-reference does (``p["wq"]``).  The parameters take no gradient: the slice
-serves; training comes with its own slice.
+``head_layers``, an MoE model's dense layers ahead of its MoE stack, and
+``enc_layers``, Whisper's encoder) are stacked ``(L, ...)`` for
+``lax.scan``; the port keeps them in an ``LM`` module under the same leaf
+names, unstacked: one ``nn.ParameterDict`` a layer, walked by a Python
+loop.  The functions read parameters as the reference does (``p["wq"]``).
+The parameters take no gradient: the port serves; training comes with its
+own slice.
 
 On the card, ``decode_gqa_attention`` runs K5 over the layer's cache slab
-in place, attending its first ``pos + 1`` rows.  MLA's absorbed decode
+in place, attending its first ``kv_len`` rows.  MLA's absorbed decode
 (``mla_decode_attention``) attends a latent of r + rd = 576 columns
 against values of r = 512 (DeepSeek-V2-Lite), which K5 (d ≤ 256, equal
 key and value widths) does not take: it is plain PyTorch, as the
 reference's is plain JAX.
 
-Families outside the slice (``ssm``, ``hybrid``, ``encdec``, ``vlm``),
-MLA outside the MoE family and sliding-window attention (hybrid's) raise
-``NotImplementedError``; ``ROADMAP.md`` lists them in order.
+Every family of the reference runs (``dense``, ``vlm``, ``moe``, ``ssm``,
+``hybrid``, ``encdec``).  MLA outside the MoE family and a sliding window
+outside the hybrid family (no config uses either) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,30 +33,36 @@ from torch import nn
 
 from ..core.codegen import resolve_device
 from ..kernels import ops
-from .common import apply_norm, blockwise_attention, mlp, moe_layer, rope
+from . import ssm as ssm_lib
+from .common import (apply_norm, blockwise_attention, mlp, moe_layer, rmsnorm,
+                     rope)
 
-#: the families this slice runs
-FAMILIES = ("dense", "moe")
+#: the kind of a family's main stack of layers
+KINDS = {"dense": "dense", "vlm": "dense", "moe": "moe", "ssm": "ssm",
+         "hybrid": "hybrid", "encdec": "dec"}
 
 
 def check_family(cfg):
-    """Raise ``NotImplementedError`` for a family the port has no path
-    for yet: the one gate of the model's entry points."""
-    if cfg.family not in FAMILIES or (cfg.kv_lora_rank
-                                      and cfg.family != "moe"):
+    """Raise for a config the port has no path for: an unknown family
+    (``ValueError``, as the reference's ``model_shapes``), MLA outside the
+    MoE family or a sliding window outside the hybrid family
+    (``NotImplementedError``): the one gate of the model's entry points."""
+    if cfg.family not in KINDS:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+    if cfg.kv_lora_rank and cfg.family != "moe":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; "
-            f"the port runs {', '.join(FAMILIES)} (ROADMAP.md lists the "
-            f"rest in order)")
-    if cfg.window:
+            f"{cfg.name}: MLA runs in the moe family only (ROADMAP.md)")
+    if cfg.window and cfg.family != "hybrid":
         raise NotImplementedError(
             f"{cfg.name}: sliding-window attention (window {cfg.window}) "
-            f"comes with the hybrid family (ROADMAP.md)")
+            f"runs in the hybrid family only, over its ring cache; no "
+            f"{cfg.family} config uses one (ROADMAP.md)")
 
 
 def main_kind(cfg) -> str:
-    """The kind of the main stack's layers: ``moe`` or ``dense``."""
-    return "moe" if cfg.family == "moe" else "dense"
+    """The kind of the main stack's layers: ``dense``, ``moe``, ``ssm``,
+    ``hybrid`` or ``dec`` (Whisper's decoder)."""
+    return KINDS[cfg.family]
 
 
 # ---------------------------------------------------------------------------
@@ -99,21 +108,38 @@ def _moe_shapes(cfg):
 
 
 def layer_shapes(cfg, kind: str = "dense"):
-    """One layer's leaves; ``kind`` is ``dense`` (the MLP) or ``moe``."""
-    ff = _moe_shapes(cfg) if kind == "moe" else _mlp_shapes(cfg, cfg.d_ff)
-    return (_norm_shapes(cfg, "ln1") | _attn_shapes(cfg)
-            | _norm_shapes(cfg, "ln2") | ff)
+    """One layer's leaves; ``kind``: ``dense`` (the MLP), ``moe``,
+    ``ssm`` (the SSD mixer alone, ``ssm_*``), ``hybrid`` (attention and
+    the mixer side by side, ``mix_*_g`` their norms), ``enc`` (Whisper's
+    encoder) or ``dec`` (its decoder: ``lnx_*`` and cross-attention
+    ``x_*``)."""
+    s = _norm_shapes(cfg, "ln1")
+    ssm = {f"ssm_{k}": v for k, v in ssm_lib.ssm_param_shapes(cfg).items()}
+    if kind == "ssm":
+        return s | ssm
+    s |= _attn_shapes(cfg)
+    if kind == "hybrid":
+        s |= ssm | {"mix_attn_g": (cfg.d_model,), "mix_ssm_g": (cfg.d_model,)}
+    if kind == "dec":
+        s |= _norm_shapes(cfg, "lnx")
+        s |= {f"x_{k}": v for k, v in _attn_shapes(cfg).items()}
+    s |= _norm_shapes(cfg, "ln2")
+    return s | (_moe_shapes(cfg) if kind == "moe"
+                else _mlp_shapes(cfg, cfg.d_ff))
 
 
 def model_shapes(cfg) -> dict:
     """The reference's shape tree: ``embed``, ``unembed`` (unless tied),
-    the final norm, ``layers`` stacked ``(L - first_dense_layers, ...)``
-    and, where ``cfg.first_dense_layers``, the dense ``head_layers``
-    stacked ``(first_dense_layers, ...)``."""
+    the final norm, ``layers`` stacked ``(L - first_dense_layers, ...)``,
+    where ``cfg.first_dense_layers`` the dense ``head_layers`` stacked
+    ``(first_dense_layers, ...)``, and for Whisper the encoder's
+    ``enc_layers`` stacked ``(encoder_layers, ...)``, its positions
+    ``enc_pos`` (encoder_frames, D) and its final norm ``encf_*``."""
     check_family(cfg)
-    tree: dict[str, Any] = {"embed": (cfg.vocab, cfg.d_model)}
+    D = cfg.d_model
+    tree: dict[str, Any] = {"embed": (cfg.vocab, D)}
     if not cfg.tie_embeddings:
-        tree["unembed"] = (cfg.d_model, cfg.vocab)
+        tree["unembed"] = (D, cfg.vocab)
     tree |= _norm_shapes(cfg, "final")
     n_main = cfg.n_layers - cfg.first_dense_layers
     tree["layers"] = {k: (n_main,) + v
@@ -122,6 +148,12 @@ def model_shapes(cfg) -> dict:
         tree["head_layers"] = {
             k: (cfg.first_dense_layers,) + v
             for k, v in layer_shapes(cfg, "dense").items()}
+    if cfg.family == "encdec":
+        tree["enc_layers"] = {k: (cfg.encoder_layers,) + v
+                              for k, v in layer_shapes(cfg, "enc").items()}
+        tree["enc_pos"] = (cfg.encoder_frames, D)
+        tree |= {f"encf_{k[6:]}": v
+                 for k, v in _norm_shapes(cfg, "final").items()}
     return tree
 
 
@@ -134,18 +166,22 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 
 
 class LM(nn.Module):
-    """A decoder's parameters under the reference's leaf names:
-    ``embed``, ``unembed`` (unless tied), ``final_g`` (and ``final_b``
-    for layernorm), ``layers``, one ``nn.ParameterDict`` a layer (``ln1_g``,
+    """A model's parameters under the reference's leaf names: ``embed``,
+    ``unembed`` (unless tied), ``final_g`` (and ``final_b`` for
+    layernorm), ``layers``, one ``nn.ParameterDict`` a layer (``ln1_g``;
     ``wq``, ``wk``, ``wv``, ``wo``, ``bq``/``bk``/``bv`` or MLA's ``wq``,
-    ``w_dkv``, ``w_kr``, ``w_uk``, ``w_uv``, ``wo``; ``ln2_g``; ``wg``,
-    ``wu``, ``wd`` or the MoE's ``router``, ``wg``/``wu``/``wd`` of (E, ·,
-    ·) and ``wg_s``/``wu_s``/``wd_s``), and ``head_layers``, the dense
-    layers ahead of an MoE stack (none for a dense model).
-    ``model["embed"]`` reads a top-level leaf as the reference reads its
-    tree."""
+    ``w_dkv``, ``w_kr``, ``w_uk``, ``w_uv``, ``wo``; the SSD mixer's
+    ``ssm_*`` and a hybrid's ``mix_attn_g``/``mix_ssm_g``; a Whisper
+    decoder's ``lnx_*`` and ``x_wq``/``x_wk``/``x_wv``/``x_wo``;
+    ``ln2_g``; ``wg``, ``wu``, ``wd`` or the MoE's ``router``,
+    ``wg``/``wu``/``wd`` of (E, ·, ·) and ``wg_s``/``wu_s``/``wd_s``),
+    ``head_layers``, the dense layers ahead of an MoE stack, and
+    ``enc_layers``, Whisper's encoder, with its ``enc_pos`` and
+    ``encf_*`` (none for the other families).  ``model["embed"]`` reads
+    a top-level leaf as the reference reads its tree."""
 
-    def __init__(self, cfg, top: dict, layers: list, head_layers=()):
+    def __init__(self, cfg, top: dict, layers: list, head_layers=(),
+                 enc_layers=()):
         super().__init__()
         self.cfg = cfg
         for name, t in top.items():
@@ -157,6 +193,7 @@ class LM(nn.Module):
                 for lp in lps)
         self.head_layers = stack(head_layers)
         self.layers = stack(layers)
+        self.enc_layers = stack(enc_layers)
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return getattr(self, name)
@@ -166,10 +203,19 @@ class LM(nn.Module):
         return self.embed.device
 
     def stacks(self):
-        """Every layer with its kind, in the order of the cache's index:
-        the dense head layers, then the main stack."""
+        """Every decoder layer with its kind, in the order of the cache's
+        index: the dense head layers, then the main stack."""
         return ([(lp, "dense") for lp in self.head_layers]
                 + [(lp, main_kind(self.cfg)) for lp in self.layers])
+
+
+def _stack_sizes(cfg) -> dict:
+    """The stacks of the parameter tree, by name, with their layer
+    counts."""
+    return {"layers": cfg.n_layers - cfg.first_dense_layers,
+            "head_layers": cfg.first_dense_layers,
+            "enc_layers": cfg.encoder_layers if cfg.family == "encdec"
+            else 0}
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -179,7 +225,8 @@ def _dtype(name: str) -> torch.dtype:
 def init_params(cfg, generator: torch.Generator, device="cuda",
                 dtype=None) -> LM:
     """Random parameters at the config's shapes on ``device``: ones for
-    ``*_g``, zeros for biases (``*_b``, ``b*``), ``0.02 · N(0, 1)`` from
+    ``*_g`` and ``ssm_D_skip``, zeros for biases (``*_b``, ``b*``),
+    ``ssm_dt_bias`` and ``ssm_A_log``, ``0.02 · N(0, 1)`` from
     ``generator`` (on ``device``) otherwise, as the reference's
     ``init_params``, each drawn in ``cfg.param_dtype`` and, where
     ``dtype`` is given, cast to it at once: the same numbers as drawing
@@ -191,9 +238,10 @@ def init_params(cfg, generator: torch.Generator, device="cuda",
     dtype = drawn if dtype is None else dtype
 
     def leaf(name, shape):
-        if name.endswith("_g"):
+        if name.endswith("_g") or name == "ssm_D_skip":
             t = torch.ones(shape, dtype=drawn, device=dev)
-        elif name.endswith("_b") or name.startswith("b"):
+        elif (name.endswith("_b") or name.startswith("b")
+              or name in ("ssm_dt_bias", "ssm_A_log")):
             t = torch.zeros(shape, dtype=drawn, device=dev)
         else:
             t = torch.randn(shape, generator=generator, dtype=drawn,
@@ -201,14 +249,13 @@ def init_params(cfg, generator: torch.Generator, device="cuda",
         return t.to(dtype)
 
     shapes = model_shapes(cfg)
-    stacked = shapes.pop("layers")
-    head = shapes.pop("head_layers", {})
+    sizes = _stack_sizes(cfg)
+    stacked = {name: shapes.pop(name, {}) for name in sizes}
     top = {k: leaf(k, s) for k, s in shapes.items()}
-    head_layers = [{k: leaf(k, s[1:]) for k, s in head.items()}
-                   for _ in range(cfg.first_dense_layers)]
-    layers = [{k: leaf(k, s[1:]) for k, s in stacked.items()}
-              for _ in range(cfg.n_layers - cfg.first_dense_layers)]
-    return LM(cfg, top, layers, head_layers)
+    stacks = {name: [{k: leaf(k, s[1:]) for k, s in stacked[name].items()}
+                     for _ in range(sizes[name])]
+              for name in ("head_layers", "layers", "enc_layers")}
+    return LM(cfg, top, **stacks)
 
 
 # ---------------------------------------------------------------------------
@@ -219,37 +266,54 @@ def _split_heads(x, n, dh):
     return x.reshape(*x.shape[:-1], n, dh)
 
 
-def gqa_attention(cfg, x, p):
-    """Causal (G)QA self-attention over the sequence from position 0
-    (prefill); returns (out, (k, v)), k after rope, for the cache."""
+def gqa_attention(cfg, x, p, *, kv_x=None, causal=True, window=0,
+                  use_rope=True, prefix=""):
+    """(G)QA attention over the sequence from position 0 (prefill):
+    queries from x, keys and values from ``kv_x`` (x unless given: a
+    Whisper decoder's cross-attention reads the encoder's output), the
+    ``prefix``'s weights (``x_`` for cross-attention; the QKV bias only
+    without one), rope where ``use_rope``, a ``causal`` mask and a
+    sliding ``window`` where asked.  Returns (out, (k, v)), k after
+    rope, for the cache."""
     B, S, _ = x.shape
     dh, Hq, Hkv = cfg.dh, cfg.n_heads, cfg.n_kv_heads
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
-    if cfg.qkv_bias:
+    kv_x = x if kv_x is None else kv_x
+    q, k, v = (x @ p[prefix + "wq"], kv_x @ p[prefix + "wk"],
+               kv_x @ p[prefix + "wv"])
+    if cfg.qkv_bias and not prefix:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = _split_heads(q, Hq, dh)
     k = _split_heads(k, Hkv, dh)
     v = _split_heads(v, Hkv, dh)
-    positions = torch.arange(S, device=x.device)[None, :]
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    o = blockwise_attention(q, k, v)
-    return o.reshape(B, S, Hq * dh) @ p["wo"], (k, v)
+    if use_rope:
+        positions = torch.arange(S, device=x.device)[None, :]
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    o = blockwise_attention(q, k, v, causal=causal, window=window)
+    return o.reshape(B, S, Hq * dh) @ p[prefix + "wo"], (k, v)
 
 
-def decode_gqa_attention(cfg, x, p, cache_k, cache_v, pos: int):
-    """One token's attention against the layer's cache ``cache_k``,
-    ``cache_v`` (B, S, Hkv, dh), which already holds this step's k and v
-    at ``pos``: K5 over its first ``pos + 1`` rows, read in place (the
-    reference masks the rows after ``pos``)."""
+def decode_gqa_attention(cfg, x, p, cache_k, cache_v, pos: int, *,
+                         kv_len: int | None = None, use_rope=True,
+                         prefix=""):
+    """One token's attention at position ``pos`` against the layer's
+    cache ``cache_k``, ``cache_v`` (B, S, Hkv, dh), which already holds
+    this step's k and v: K5 over its first ``kv_len`` rows (``pos + 1``
+    unless given), read in place, where the reference masks the rest
+    (the rows after ``pos``; a hybrid ring's unfilled slots; nothing of
+    a Whisper decoder's cross K/V, whose ``kv_valid_len`` of F - 1
+    keeps all F frames).  ``prefix`` and ``use_rope`` as in
+    ``gqa_attention``."""
     B = x.shape[0]
     dh, Hq = cfg.dh, cfg.n_heads
-    q = _split_heads(x @ p["wq"], Hq, dh)
-    if cfg.qkv_bias:
+    q = _split_heads(x @ p[prefix + "wq"], Hq, dh)
+    if cfg.qkv_bias and not prefix:
         q = q + p["bq"].reshape(1, 1, Hq, dh)
-    q = rope(q, torch.full((B, 1), pos, device=x.device), cfg.rope_theta)
-    o = ops.decode_attention(q.reshape(B, Hq, dh), cache_k, cache_v, pos + 1)
-    return o.reshape(B, 1, Hq * dh).to(x.dtype) @ p["wo"]
+    if use_rope:
+        q = rope(q, torch.full((B, 1), pos, device=x.device), cfg.rope_theta)
+    o = ops.decode_attention(q.reshape(B, Hq, dh), cache_k, cache_v,
+                             pos + 1 if kv_len is None else kv_len)
+    return o.reshape(B, 1, Hq * dh).to(x.dtype) @ p[prefix + "wo"]
 
 
 def new_kv(cfg, x, p, pos: int):
@@ -349,12 +413,33 @@ def _moe_or_mlp(cfg, x, p, is_moe: bool):
     return y.reshape(B, S, D), aux
 
 
+def ssm_params(lp) -> dict:
+    """A layer's SSD mixer parameters under the mixer's own names."""
+    return {k[4:]: v for k, v in lp.items() if k.startswith("ssm_")}
+
+
+def hybrid_mix(ao, so, lp):
+    """A hybrid layer's output: the attention's and the mixer's each
+    normalised (two K4 launches on the card), then averaged."""
+    return 0.5 * (rmsnorm(ao, lp["mix_attn_g"]) + rmsnorm(so, lp["mix_ssm_g"]))
+
+
 def decoder_layer(cfg, x, lp, kind: str = "dense"):
-    """One layer over the sequence (prefill); returns (x', cache pieces:
-    (k, v), or MLA's (c_kv, k_rope), aux)."""
+    """One layer over the sequence (prefill); returns (x', cache pieces,
+    aux): (k, v), MLA's (c_kv, k_rope), the SSD mixer's (final state,)
+    or a hybrid's (k, v, final state)."""
     h = apply_norm(cfg, x, lp, "ln1")
-    attend = mla_attention if cfg.kv_lora_rank else gqa_attention
-    o, cache = attend(cfg, h, lp)
+    if kind == "ssm":
+        o, state = ssm_lib.ssm_mixer(cfg, h, ssm_params(lp))
+        return x + o, (state,), 0.0
+    if kind == "hybrid":
+        ao, cache = gqa_attention(cfg, h, lp, window=cfg.window)
+        so, state = ssm_lib.ssm_mixer(cfg, h, ssm_params(lp))
+        o, cache = hybrid_mix(ao, so, lp), cache + (state,)
+    elif cfg.kv_lora_rank:
+        o, cache = mla_attention(cfg, h, lp)
+    else:
+        o, cache = gqa_attention(cfg, h, lp)
     x = x + o
     h2 = apply_norm(cfg, x, lp, "ln2")
     m, aux = _moe_or_mlp(cfg, h2, lp, kind == "moe")

@@ -9,10 +9,14 @@ from ..models import forward
 
 
 def make_prefill_step(cfg):
-    """serve prefill: (model, batch) -> (last logits, cache)."""
+    """serve prefill: (model, batch) -> (last logits, cache); the batch's
+    ``patches`` (a VLM) and ``frames`` (an encoder-decoder) where it has
+    them."""
 
     def prefill_step(model, batch):
-        return forward.prefill(cfg, model, batch["tokens"])
+        return forward.prefill(cfg, model, batch["tokens"],
+                               patches=batch.get("patches"),
+                               frames=batch.get("frames"))
 
     return prefill_step
 

@@ -188,7 +188,14 @@ KV_LEN_CASES = [(8, 32, 8, 1056, 128, 1), (8, 32, 8, 1056, 128, 1025),
                 (2, 8, 2, 256, 64, 64), (1, 1, 1, 4099, 48, 2049),
                 # Grok-1's decode step (48 heads over 8, G = 6) at the
                 # decode steps' mean KV length
-                (8, 48, 8, 1056, 128, 1040)]
+                (8, 48, 8, 1056, 128, 1040),
+                # LLaVA-NeXT-34B's (56 heads over 8, G = 7), Hymba-1.5B's
+                # ring of 1024 slots after the wrap (G = 5, d 64) and
+                # before it, Whisper-medium's self- and cross-attention
+                # (G = 1, d 64; the cross K/V over all 1500 frames)
+                (8, 56, 8, 1056, 128, 1040), (8, 25, 5, 1024, 64, 1024),
+                (8, 25, 5, 1024, 64, 700), (8, 16, 16, 224, 64, 208),
+                (8, 16, 16, 1500, 64, 1500)]
 
 
 @pytest.mark.gpu
@@ -281,7 +288,11 @@ def test_decode_attention_unaligned_views_take_the_element_path(cuda):
     (8, 2048, torch.bfloat16, "registers"),
     (8192, 2048, torch.bfloat16, "registers"),
     (8, 6144, torch.bfloat16, "registers"),
-    (8192, 6144, torch.bfloat16, "registers")])
+    (8192, 6144, torch.bfloat16, "registers"),
+    # LLaVA-NeXT-34B's d_model 7168, Mamba-2-2.7B's 2560 and its gated
+    # norm's d_inner 5120, Hymba-1.5B's 1600 and its d_inner 3200
+    *[(T, D, torch.bfloat16, "registers") for D in (7168, 5120, 2560, 3200,
+                                                    1600) for T in (8, 8192)]])
 def test_rmsnorm_kernel_paths_match_ref_and_repeat_bitwise(T, D, dtype,
                                                            path, cuda):
     """K4 on its register path (rows of up to 1024 packs) and its general
@@ -799,3 +810,58 @@ def test_moe_decode_step_replays_as_one_cuda_graph_bitwise(arch, cuda):
     assert torch.equal(_bits(replayed), _bits(eager))
     for k, t in cache.items():
         assert torch.equal(_bits(t[:, :, 32]), _bits(rows[k]))
+
+
+#: the last four families: each decode step's hand-kernel launches (K4 a
+#: RMSNorm, K5's split and combine a GQA attention), as ``chip_smoke.py``
+#: counts them at full width
+FAMILY_ARCHS = ["llava_next_34b", "mamba2_2p7b", "hymba_1p5b",
+                "whisper_medium"]
+
+
+def _family_launches(cfg) -> dict:
+    L = cfg.n_layers
+    return {"llava_next_34b": {"K4/rmsnorm_bf16": 2 * L + 1,
+                               "K5/split_bf16": L, "K5/combine_bf16": L},
+            "mamba2_2p7b": {"K4/rmsnorm_bf16": 2 * L + 1},
+            "hymba_1p5b": {"K4/rmsnorm_bf16": 5 * L + 1,
+                           "K5/split_bf16": L, "K5/combine_bf16": L},
+            "whisper_medium": {"K5/split_bf16": 2 * L,
+                               "K5/combine_bf16": 2 * L}}[cfg.name[:-6]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_decode_on_the_card(arch, cuda):
+    """Each family at its smoke size, bfloat16, B 8: a prefill of 32
+    (hymba's window: the ring full), then 8 decode steps (past the wrap),
+    each launching the family's K4 and K5 counts, repeated from the same
+    cache bitwise (the SSD state restored first), and within 5e-2 of the
+    forward over 40 tokens (the same patches or frames)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.serve import draw_inputs, grow_cache, load_model
+    from repro_torch.models import decode_step, forward_lm, prefill
+    cfg = smoke_config(arch)
+    P, steps = 32, 8
+    model = load_model(cfg, 0, "cuda")
+    x = draw_inputs(cfg, 8, P + steps, 0)
+    toks = torch.as_tensor(x["prompts"], device="cuda")
+    extra = {k: torch.as_tensor(x[k], device="cuda")
+             for k in ("patches", "frames") if x[k] is not None}
+    want = forward_lm(cfg, model, toks, **extra)[0].float()
+    _, cache = prefill(cfg, model, toks[:, :P], **extra)
+    cache = grow_cache(cfg, cache, P + steps)
+    for i in range(steps):
+        before = {k: t.clone() for k, t in cache.items()}
+        LAUNCHES.reset()
+        got, _ = decode_step(cfg, model, cache, toks[:, P + i], P + i)
+        torch.cuda.synchronize()
+        assert dict(LAUNCHES.by_kernel) == _family_launches(cfg), i
+        after = {k: t.clone() for k, t in cache.items()}
+        for k, t in cache.items():
+            t.copy_(before[k])
+        again, _ = decode_step(cfg, model, cache, toks[:, P + i], P + i)
+        assert torch.equal(_bits(got), _bits(again)), i
+        for k, t in cache.items():
+            assert torch.equal(_bits(t), _bits(after[k])), (i, k)
+        assert _rel(got, want[:, P + i]) <= 5e-2, i

@@ -296,7 +296,9 @@ def test_mla_decode_attention_matches_the_reference(pos):
     kr = rng.standard_normal((B, 40, cfg.qk_rope_dim)).astype(np.float32)
     want = ref_model.mla_decode_attention(
         rcfg, jnp.asarray(x), ref_p, jnp.asarray(ckv), jnp.asarray(kr), pos)
-    ckv_t, kr_t = torch.from_numpy(ckv), torch.from_numpy(kr)
+    # copies: the reference's arrays may alias the numpy buffers and be
+    # computed after the NaNs are written
+    ckv_t, kr_t = torch.tensor(ckv), torch.tensor(kr)
     ckv_t[:, pos + 1:] = float("nan")
     kr_t[:, pos + 1:] = float("nan")
     got = port_model.mla_decode_attention(cfg, torch.from_numpy(x), p,
