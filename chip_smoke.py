@@ -34,7 +34,15 @@ inputs made from a seed:
   at full width, its depth cut 64 -> 2; then the last four families at
   their full width and depth: LLaVA-NeXT-34B (vlm, 576 patch
   embeddings), Mamba-2-2.7B (ssm), Hymba-1.5B (hybrid, a ring of 1024
-  slots) and Whisper-medium (encdec, 1500 frames, prompt 192).
+  slots) and Whisper-medium (encdec, 1500 frames, prompt 192); each
+  ``generate`` runs its first decode step eagerly and replays it as one
+  captured CUDA graph at every later position (the position a device
+  tensor; K5 reads ``kv_len`` from device memory);
+* training, ``launch.train``'s path (``train.steps.make_train_step`` on
+  the synthetic pipeline): Llama-3-8B at its full width, its depth cut
+  32 -> 4, 8 sequences of 1024 tokens, 8 steps, K4 and K7 on the
+  forward (with plain float32 backwards) and K6 on every AdamW leaf;
+  then int8 moments at depth 2 for 4 steps.
 
 Phases, each printed as JSON lines:
 
@@ -60,7 +68,16 @@ Phases, each printed as JSON lines:
    (bfloat16, 1e-3) and 777 (float32, 1e-4), K4 on (8, 4096) and (8192,
    4096) bfloat16 (1e-3), each with a bitwise repeat; K4 and K5 at the
    decode's and prefill's shapes timed beside their bounds, their plain
-   versions, ``F.rms_norm`` and SDPA.  Then qwen2_7b (28 heads over 4,
+   versions, ``F.rms_norm`` and SDPA.  ``generate`` captures one graph
+   (``captures``) and replays it for steps 2-31 (``step_ms``, their
+   median beside ``first_step_ms``, the eager step); its first 4 steps
+   are run again on the eager path (``eager_steps``: the same prefill
+   and horizon, no capture) and the tokens must be equal
+   (``replay_vs_eager_tokens_equal``; ``eager_step_ms``).  K5 with
+   ``kv_len`` in device memory at every shape ``lm_k5_shapes`` lists,
+   at the steps' mean ``kv_len`` and at half a chunk (every chunk but
+   the first empty), against its plain version (1e-3, the split's
+   partials too) with a bitwise repeat, and timed at Llama's shape.  Then qwen2_7b (28 heads over 4,
    QKV bias) at full width and depth 2: the same run, launch counts and
    checks, K5 at (8, 28, 4, 1056, 128), K4 on (8, 3584) and (8192,
    3584) (448 of 512 eight-element packs a row: the tail-masked path).
@@ -105,6 +122,21 @@ Phases, each printed as JSON lines:
    1056, 128), the ring (8, 25, 5, 1024, 64), Whisper's self (8, 16,
    16, 224, 64) and cross (8, 16, 16, 1500, 64): each against its plain
    version with a bitwise repeat, and timed;
+   train: ``train_run`` builds the state (``launch.train.build_state``:
+   float32 masters, the bfloat16 copy, float32 moments), holds K7's
+   per-row losses on the first step's logits against its plain version
+   (1e-3, bitwise repeat, ``F.cross_entropy`` 2e-2 on the unmasked
+   rows) and times it, then runs the 8 steps with the counts set to 0
+   just before and read just after (K4, K6, K7 must launch; the launches
+   of one step), each step's ms, tokens a second, the peak, the bf16
+   matmul flops counted from the code (``train_matmul_flops``) over the
+   dense peak, the losses (the last below the first), one more step
+   traced (``trace``: busy share, device time by kernel); K6 on the first
+   step's first MLP leaf against its plain version (1e-5) and timed on
+   the largest leaf beside its bound, its plain version and fused
+   ``torch.optim.AdamW``; the int8-moment run; the K4 and K7 backward
+   against autograd through the plain versions at (8192, 4096) and
+   (8192, 128256) bfloat16 (1e-3, ``train_backward``);
 3. kernel: every K1 group's kernel against K1's plain tiled version on
    the same inputs on the card, and a second launch of it bitwise equal
    to the first (the groups whose reduce axes K1 cuts into slices
@@ -234,8 +266,9 @@ outputs.
 
 The last lines are the ``{"kernels": [...]}`` record (the main path's
 K1 groups and hand kernels, then the engine's, the float16 path's and
-the autotune winners' K1 groups, then K4 and K5 on the LM serving path,
-each with the launches of its own counted run) and
+the autotune winners' K1 groups, then K4 and K5 on the LM serving path
+and K6 and K7 on the training path, each with the launches of its own
+counted run) and
 ``{"ok": true, "device": {...}}``; the card's ``nvidia-smi`` line is in
 the first (``device``) record.  Any failed
 phase ends the run with exit code 1 and no result line; so does a
@@ -391,6 +424,21 @@ DRIFTING = (VLM_ARCH, SSM_ARCH, HYBRID_ARCH)
 #: decode against forward on the logits, the reference's bound for the
 #: same check (tests/test_models.py:64-88)
 DECODE_VS_FORWARD = 5e-2
+#: decode steps of the eager path held against ``generate``'s replay
+EAGER_STEPS = 4
+#: the train phase: Llama-3-8B at full width (d_model 4096, 32 heads over
+#: 8, d_ff 14336, vocab 128256), its depth cut 32 -> 4 (the float32
+#: masters, the bfloat16 copy and the float32 moments of 32 layers need
+#: about 160 GB), B 8 sequences of 1024 tokens from the synthetic
+#: pipeline at ``--seed``, 8 steps at ``launch.train``'s default rate
+TRAIN_ARCH, TRAIN_DEPTH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = (
+    "llama3_8b", 4, 8, 1024, 8)
+TRAIN_LR = 3e-3
+#: ... and the int8 moments (Grok-1's setting, which cannot train on one
+#: card): the same model at depth 2 for 4 steps
+TRAIN_INT8_DEPTH, TRAIN_INT8_STEPS = 2, 4
+#: K6 on the first step against its plain version, float32
+K6_TRAIN_RTOL = 1e-5
 #: H100 SXM bfloat16 on the tensor cores, dense
 BF16_OPS_PER_S = 989e12
 #: float16 output against float64: 11 bits of mantissa
@@ -932,19 +980,31 @@ def lm_run(args, arch: str, depth, failures: list, smi_line: str) -> list:
     if warm["patches"] is not None:             # 8 patches in 16 tokens
         warm["patches"] = warm["patches"][:, :8]
     generate(cfg, model, prompts[:, :16], 2, **warm)        # warm-up
+    # the eager path's first steps, held against the replay below
+    eager = eager_steps(cfg, model, prompts, G, extra)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    # the main path: counts set to 0 just before, read just after
+    # the main path: counts set to 0 just before, read just after; the
+    # first step eager, the rest replaying its one CUDA graph
     LAUNCHES.reset()
     res = generate(cfg, model, prompts, G, **extra)
     torch.cuda.synchronize()
     main_launches = dict(LAUNCHES.by_kernel)
     peak_serve = torch.cuda.max_memory_allocated() - base
     toks, prefill_ms, steps_ms = res["tokens"], res["prefill_ms"], \
-        res["step_ms"]
-    decode_s = sum(steps_ms) / 1e3
+        res["step_ms"][1:]
+    first_ms, captures = res["step_ms"][0], res["captures"]
+    decode_s = sum(res["step_ms"]) / 1e3
     tokens_ok = toks.shape == (B, G) and bool(
         ((toks >= 0) & (toks < cfg.vocab)).all())
+    if captures != 1:
+        failures.append(f"lm {arch}: generate captured {captures} graphs, "
+                        f"want 1")
+    replay_vs_eager = bool(np.array_equal(toks[:, :EAGER_STEPS + 1],
+                                          eager["tokens"]))
+    if not replay_vs_eager:
+        failures.append(f"lm {arch}: the replayed tokens differ from the "
+                        f"eager path's over the first {EAGER_STEPS} steps")
 
     # one more step at the cache's last row: counted, with every plain
     # version forbidden, repeated, then timed as one graph, then traced
@@ -1057,8 +1117,13 @@ def lm_run(args, arch: str, depth, failures: list, smi_line: str) -> list:
           "prefill_ms": prefill_ms,
           "step_ms_median": float(np.median(steps_ms)),
           "step_ms_min": min(steps_ms), "step_ms_max": max(steps_ms),
-          "step_ms": steps_ms,
-          "decode_tok_s": B * len(steps_ms) / decode_s,
+          "step_ms": steps_ms, "first_step_ms": first_ms,
+          "captures": captures,
+          "eager_step_ms_median": float(np.median(eager["step_ms"])),
+          "eager_step_ms": eager["step_ms"],
+          "replay_vs_eager_tokens_equal": replay_vs_eager,
+          "replay_over_bound": float(np.median(steps_ms)) / bound_ms,
+          "decode_tok_s": B * (len(steps_ms) + 1) / decode_s,
           "bound_ms_per_step": bound_ms, "bound_tok_s": B / bound_ms * 1e3,
           "bound_by": last[1], "bound_bytes_last_step": last[2], **moe_rec,
           "step_device_ms": step_dev_ms, "step_timed_by": step_how,
@@ -1091,31 +1156,386 @@ def lm_run(args, arch: str, depth, failures: list, smi_line: str) -> list:
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    for shape, kv_len, dt in checks:
+    # ... and with kv_len in device memory, as the replayed step reads
+    # it: every shape the decode gives K5, at the steps' mean kv_len and
+    # at half a chunk (all chunks but the first empty)
+    for _, shape, kv_len in k5_shapes:
+        b, hq, hkv, S, d = shape
+        c5 = k5.config(hq // hkv, d, torch.bfloat16, torch.device("cuda"))
+        length = k5.chunk_plan(k5.ctas_per_chunk(b, hkv, c5), S,
+                               c5["ctas_per_sm"] * c5["sms"], c5["tile"])[1]
+        checks += [(shape, kv_len, "bfloat16", "device"),
+                   (shape, max(1, length // 2), "bfloat16", "device")]
+    for shape, kv_len, dt, *where in checks:
         b, hq, hkv, S, d = shape
         tdt = getattr(torch, dt)
         q, kk, vv = (randn(b, hq, d, dtype=tdt),
                      randn(b, S, hkv, d, dtype=tdt),
                      randn(b, S, hkv, d, dtype=tdt))
         tol = BF16_KERNEL_RTOL if dt == "bfloat16" else RTOL
-        got = k5.decode_attention(q, kk, vv, kv_len=kv_len)
-        again = k5.decode_attention(q, kk, vv, kv_len=kv_len)
+        kl = (torch.full((), kv_len, dtype=torch.int32, device="cuda")
+              if where else kv_len)
+        got = k5.decode_attention(q, kk, vv, kv_len=kl)
+        again = k5.decode_attention(q, kk, vv, kv_len=kl)
         rel, mabs = tensor_err(got, ref.decode_attention(
-            q, kk, vv, kv_len=kv_len))
+            q, kk, vv, kv_len=kl))
         same = torch.equal(bits(got), bits(again))
-        emit({"phase": "lm_kernel", "arch": arch, "kernel": "K5",
-              "shape": list(shape), "kv_len": kv_len, "dtype": dt,
-              "norm_rel_err": rel, "max_abs_err": mabs,
-              "repeat_bitwise": same})
+        rec = {"phase": "lm_kernel", "arch": arch, "kernel": "K5",
+               "shape": list(shape), "kv_len": kv_len, "dtype": dt,
+               "kv_len_on_device": bool(where), "norm_rel_err": rel,
+               "max_abs_err": mabs, "repeat_bitwise": same}
+        if where:
+            acc, mm, ll, length = k5.split(q, kk, vv, kv_len=kl)
+            rows = acc.shape[0] // (b * hkv)
+            e_split = max(tensor_err(x[torch.isfinite(y)],
+                                     y[torch.isfinite(y)])[1]
+                          for x, y in zip((acc, mm, ll),
+                                          ref.decode_attention_split(
+                                              q, kk, vv, length, kv_len=kl)))
+            empty = rows - -(-kv_len // length)
+            rec.update(chunks=rows, chunk_len=length, empty_chunks=empty,
+                       split_max_abs_err=e_split)
+            same = same and e_split <= BF16_KERNEL_RTOL
+        emit(rec)
         if not (rel <= tol and same):
-            failures.append(f"lm_kernel K5 {shape} kv_len {kv_len} {dt}: "
-                            f"error {rel:.3g} (tol {tol}), bitwise "
-                            f"repeat {same}")
+            failures.append(f"lm_kernel K5 {shape} kv_len {kv_len} {dt} "
+                            f"{where}: error {rel:.3g} (tol {tol}), bitwise "
+                            f"repeat and split {same}")
     k4_inputs = lm_k4_checks(cfg, P, randn, failures)
     if arch == LM_ARCH2:
         return []
     return lm_records(cfg, randn, k4_inputs, k5_shapes, main_launches,
-                      failures, label="" if arch == LM_ARCH else f"{arch} ")
+                      failures, label="" if arch == LM_ARCH else f"{arch} ",
+                      device_kv=arch == LM_ARCH)
+
+
+def eager_steps(cfg, model, prompts, G: int, extra: dict) -> dict:
+    """``generate``'s first ``EAGER_STEPS`` decode steps on the eager path:
+    the same prefill, the cache grown to the same horizon P + G (so K5
+    plans the same chunks), ``train.steps.DecodeReplay`` with no capture;
+    the (B, EAGER_STEPS + 1) tokens and each step's ms (CUDA events)."""
+    import torch
+
+    from repro_torch.launch.serve import grow_cache
+    from repro_torch.train import steps
+
+    batch = {"tokens": torch.as_tensor(prompts, device=model.device)}
+    batch |= {k: torch.as_tensor(a, device=model.device)
+              for k, a in extra.items() if a is not None}
+    logits, cache = steps.make_prefill_step(cfg)(model, batch)
+    cache = grow_cache(cfg, cache, prompts.shape[1] + G)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    replay = steps.DecodeReplay(cfg, model, cache, tok, prompts.shape[1])
+    out, ms = [tok], []
+    for _ in range(EAGER_STEPS):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out.append(replay())
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    return {"tokens": torch.stack(out, 1).cpu().numpy(), "step_ms": ms}
+
+
+def train_matmul_flops(cfg, B: int, S: int) -> dict:
+    """The bfloat16 matmul flops of one train step of ``cfg`` on B
+    sequences of S tokens, counted from the code: each decoder layer's
+    2-D weights (2 T · size a forward pass) and the unembedding; the
+    backward twice the forward; the layers' forward once more (the
+    backward's recompute under ``cfg.remat``).  The blockwise attention's
+    float32 matmuls (q kᵀ and p v over every (query, key) block: 4 B S²
+    Hq dh a layer a pass) are counted apart."""
+    from repro_torch.models import model_shapes
+    shapes = model_shapes(cfg)
+    T = B * S
+    layer = sum(math.prod(s[1:]) for s in shapes["layers"].values()
+                if len(s) == 3)
+    fwd_layers = 2 * T * layer * shapes["layers"]["wq"][0]
+    fwd_head = 2 * T * math.prod(shapes.get("unembed", shapes["embed"]))
+    passes = 3 + bool(cfg.remat)
+    attn = 4 * B * S * S * cfg.n_heads * cfg.dh * cfg.n_layers * passes
+    return {"bf16_matmul_flops": 3 * (fwd_layers + fwd_head)
+            + (fwd_layers if cfg.remat else 0),
+            "f32_attention_flops": attn}
+
+
+def train_run(args, depth: int, steps: int, moments: str, failures: list,
+              smi_line: str, checks: bool) -> tuple[dict, list]:
+    """``TRAIN_ARCH`` at full width and ``depth`` layers with
+    ``opt_moment_dtype=moments``: ``launch.train.build_state`` from
+    ``--seed``, ``steps`` steps of ``train.steps.make_train_step`` on the
+    synthetic pipeline's batches (B ``TRAIN_BATCH`` x ``TRAIN_SEQ``), the
+    counts set to 0 just before the steps and read just after; each
+    step's ms (CUDA events, the host reading the loss as the launcher
+    does), tokens a second, the peak, the launches of one step, the
+    matmul flop share of the dense bfloat16 peak, the losses.  With
+    ``checks``, before the first step K7's per-row losses on the step's
+    logits against its plain version (and timed beside its bound, its
+    plain version and ``F.cross_entropy``), and on the first step K6 on
+    the first MLP leaf against its plain version; after the steps K6
+    timed on the largest leaf, and one more step traced by
+    ``torch.profiler`` (busy share, device time by kernel).  Returns (the
+    phase line, the kernel records)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core import LAUNCHES
+    from repro_torch.core.timing import device_ms, graph_ms, time_ms
+    from repro_torch.data import make_batch_fn, shard_batch
+    from repro_torch.kernels import adamw as k6
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import softmax_xent as k7
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import forward_lm
+    from repro_torch.optim import AdamWHyper
+    from repro_torch.optim import adamw as adamw_mod
+    from repro_torch.train.steps import make_train_step
+
+    F = torch.nn.functional
+    cfg, reduced = lm_config(get_config(TRAIN_ARCH), depth)
+    cfg = dataclasses.replace(cfg, opt_moment_dtype=moments)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = build_state(cfg, args.seed, "cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in state["params"].values())
+    hyper = AdamWHyper(lr=TRAIN_LR, warmup_steps=max(1, steps // 20),
+                       total_steps=steps)
+    step = make_train_step(cfg, hyper)
+    get = make_batch_fn(cfg, ShapeConfig("chip", S, B, "train"))
+    batches = [shard_batch(get(i), "cuda") for i in range(steps)]
+    records, line = [], {}
+    if checks:      # K7 on the first step's logits
+        with torch.no_grad():
+            logits = forward_lm(cfg, state["params_c"], batches[0]["tokens"]
+                                )[0].reshape(-1, cfg.vocab)
+        labels = batches[0]["labels"].reshape(-1)
+        rows = k7.softmax_xent_rows(logits, labels)
+        again = k7.softmax_xent_rows(logits, labels)
+        rel, mabs = tensor_err(rows, ref.softmax_xent_rows(logits, labels))
+        same = torch.equal(bits(rows), bits(again))
+        valid = labels >= 0
+        lab64 = labels.long()
+        lib = F.cross_entropy(logits, lab64, ignore_index=-1,
+                              reduction="none")
+        lib_err = tensor_err(lib[valid], rows[valid])[0]
+        b_ms, b_by = k7_bound(*logits.shape, "bfloat16", label_bytes=4)
+        ms, how = graph_ms(lambda: k7.softmax_xent_rows(logits, labels))
+        rec7 = {"name": "K7/xent_bf16 (train, lm_loss)", "route": "cuda",
+                "source": HAND["K7/xent_bf16"][0],
+                "replaces": HAND["K7/xent_bf16"][1], "max_abs_err": mabs,
+                "ms": ms,
+                "plain_ms": time_ms(lambda: ref.softmax_xent_rows(
+                    logits, labels), max_reps=5),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": graph_ms(lambda: F.cross_entropy(
+                    logits, lab64, ignore_index=-1, reduction="none"))[0]}
+        emit({"phase": "train_kernel", "kernel": "K7/xent_bf16",
+              "shape": list(logits.shape), "norm_rel_err": rel,
+              "repeat_bitwise": same, "library_norm_rel_err": lib_err,
+              "timed_by": how, "bound_share": b_ms / ms,
+              "masked_rows": int((~valid).sum())})
+        if not (rel <= BF16_KERNEL_RTOL and same and lib_err <= BF16_RTOL):
+            failures.append(f"train K7: error {rel:.3g}, bitwise repeat "
+                            f"{same}, against the library {lib_err:.3g}")
+        del logits, rows, again, lib
+
+    tap = {}
+    update = adamw_mod._update
+
+    def tapped(p, g, m, v, *rest):
+        out = update(p, g, m, v, *rest)
+        if checks and not tap and tuple(p.shape) == (cfg.d_model,
+                                                     cfg.d_ff):
+            tap.update(args=[t.clone() for t in (p, g, m, v)],
+                       lr=rest[1].clone(), step=rest[2].clone(),
+                       out=[t.clone() for t in out])
+        return out
+
+    ms, losses, per_step = [], [], {}
+    adamw_mod._update = tapped
+    try:
+        LAUNCHES.reset()
+        for i in range(steps):
+            before = dict(LAUNCHES.by_kernel)
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            state, met = step(state, batches[i])
+            b.record()
+            losses.append(float(met["loss"]))
+            ms.append(a.elapsed_time(b))
+            if i == 1:
+                per_step = {k: n - before.get(k, 0)
+                            for k, n in LAUNCHES.by_kernel.items()
+                            if n - before.get(k, 0)}
+        torch.cuda.synchronize()
+        main_launches = dict(LAUNCHES.by_kernel)
+    finally:
+        adamw_mod._update = update
+    trace = None
+    if checks:      # one more step, traced: where a step's time goes
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = step(state, batches[-1])
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        trace = device_busy(prof)
+        busy_us = trace.pop("busy_us")
+        trace.update(traced_step_ms=traced_s * 1e3,
+                     traced_busy_share=None if busy_us is None
+                     else busy_us / 1e6 / traced_s)
+    peak = torch.cuda.max_memory_allocated() - base
+    flops = train_matmul_flops(cfg, B, S)
+    step_ms = float(np.median(ms[1:]))
+    for k in ("K4/rmsnorm_bf16", "K6/adamw_f32", "K7/xent_bf16"):
+        if not main_launches.get(k):
+            failures.append(f"train depth {depth}: {k} was not launched")
+    if not losses[-1] < losses[0] or not all(map(math.isfinite, losses)):
+        failures.append(f"train depth {depth} {moments}: the loss did not "
+                        f"fall: {losses}")
+    line = {"phase": "train", "arch": TRAIN_ARCH, "nvidia_smi": smi_line,
+            "reduced": reduced, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+            "params": n_params, "opt_moment_dtype": moments,
+            "batch": B, "seq": S, "steps": steps, "lr": TRAIN_LR,
+            "build_s": build_s, "step_ms": ms,
+            "step_ms_median": step_ms, "first_step_ms": ms[0],
+            "tokens_per_s": B * S / step_ms * 1e3,
+            "peak_bytes": peak, "base_bytes": base, **flops,
+            "bf16_peak_share": flops["bf16_matmul_flops"]
+            / (step_ms / 1e3 * BF16_OPS_PER_S),
+            "launches_per_step": per_step, "main_launches": main_launches,
+            "losses": losses, "trace": trace}
+    if checks:      # K6 on the first step, then timed on the largest leaf
+        p, g, m, v = tap["args"]
+        want = ref.adamw(p, g, m, v, lr=tap["lr"], beta1=hyper.beta1,
+                         beta2=hyper.beta2, eps=hyper.eps,
+                         weight_decay=hyper.weight_decay, step=tap["step"])
+        errs = [tensor_err(x, y) for x, y in zip(tap["out"], want)]
+        line["k6_first_step"] = {"shape": list(p.shape),
+                                 "norm_rel_err": [e[0] for e in errs],
+                                 "max_abs_err": [e[1] for e in errs]}
+        if not max(e[0] for e in errs) <= K6_TRAIN_RTOL:
+            failures.append(f"train K6: error {errs} against its plain "
+                            f"version")
+        del tap, p, g, m, v, want
+        name = max(state["params"], key=lambda n: state["params"][n].numel())
+        p = state["params"][name].reshape(-1)
+        m, v = (state["opt"][k][name].reshape(-1) for k in ("m", "v"))
+        g = torch.randn_like(p).mul_(1e-3)
+        h = k6.hyper(lr=TRAIN_LR, beta1=hyper.beta1, beta2=hyper.beta2,
+                     eps=hyper.eps, weight_decay=hyper.weight_decay,
+                     step=steps + 1, device=p.device)
+        got = k6.adamw(p, g, m, v, h)
+        want = ref.adamw(p, g, m, v, lr=TRAIN_LR, beta1=hyper.beta1,
+                         beta2=hyper.beta2, eps=hyper.eps,
+                         weight_decay=hyper.weight_decay, step=steps + 1)
+        mabs = max(tensor_err(x, y)[1] for x, y in zip(got, want))
+        del got, want
+        k6_ms, how = graph_ms(lambda: k6.adamw(p, g, m, v, h))
+        b_ms, b_by = k6_bound(p.numel(), "float32")
+        lib = fused_adamw_step(p, g, m, v, steps + 1)
+        records.append({
+            "name": f"K6/adamw_f32 (train, {name})", "route": "cuda",
+            "source": HAND["K6/adamw_f32"][0],
+            "replaces": HAND["K6/adamw_f32"][1],
+            "launches": main_launches.get("K6/adamw_f32", 0),
+            "max_abs_err": mabs, "ms": k6_ms,
+            "plain_ms": time_ms(lambda: ref.adamw(
+                p, g, m, v, lr=TRAIN_LR, beta1=hyper.beta1,
+                beta2=hyper.beta2, eps=hyper.eps,
+                weight_decay=hyper.weight_decay, step=steps + 1),
+                max_reps=3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": device_ms(lib)})
+        emit({"phase": "time", "path": "train", **records[-1],
+              "timed_by": how, "bound_share": b_ms / k6_ms,
+              "numel": p.numel()})
+        del lib, g
+        rec7["launches"] = main_launches.get("K7/xent_bf16", 0)
+        emit({"phase": "time", "path": "train", **rec7,
+              "bound_share": rec7["bound_ms"] / rec7["ms"]})
+        records.append(rec7)
+    del state, batches
+    torch.cuda.empty_cache()
+    return line, records
+
+
+def train_backward_checks(args, failures: list) -> dict:
+    """The K4 and K7 backward of the training forward (``kernels.grad``:
+    the kernel forward, a plain float32 backward) against autograd
+    through the plain versions, at the train step's shapes: K4 on
+    (B·S, d_model) bfloat16, K7 on (B·S, vocab) bfloat16 with the
+    pipeline's masked last positions and ``lm_loss``'s mean weights;
+    both sides compute in float32 and round the gradients once to
+    bfloat16, so they are held to ``BF16_KERNEL_RTOL``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import grad, ref
+
+    cfg = get_config(TRAIN_ARCH)
+    T = TRAIN_BATCH * TRAIN_SEQ
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(torch.bfloat16)
+
+    out = {}
+    x, gam, dy = randn(T, cfg.d_model), 1 + randn(cfg.d_model, scale=0.1), \
+        randn(T, cfg.d_model)
+    # autograd through a plain version takes its gradients in float32
+    # and rounds them once to the bfloat16 inputs' dtype, as the kernels'
+    # backward does
+    xk, gk = x.clone().requires_grad_(), gam.clone().requires_grad_()
+    grad.rmsnorm(xk, gk).backward(dy)
+    xr, gr = x.clone().requires_grad_(), gam.clone().requires_grad_()
+    ref.rmsnorm(xr, gr).backward(dy)
+    out["K4"] = [tensor_err(xk.grad, xr.grad)[0],
+                 tensor_err(gk.grad, gr.grad)[0]]
+    del x, dy, xk, xr
+    logits = randn(T, cfg.vocab, scale=2.0)
+    labels = torch.randint(0, cfg.vocab, (T,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    labels[TRAIN_SEQ - 1::TRAIN_SEQ] = -1
+    mask = (labels >= 0).float()
+    dl = mask / mask.sum()
+    lk = logits.clone().requires_grad_()
+    grad.softmax_xent_rows(lk, labels).backward(dl)
+    lr_ = logits.clone().requires_grad_()
+    ref.softmax_xent_rows(lr_, labels).backward(dl)
+    out["K7"] = [tensor_err(lk.grad, lr_.grad)[0]]
+    emit({"phase": "train_backward", "k4_shape": [T, cfg.d_model],
+          "k7_shape": [T, cfg.vocab], "norm_rel_err": out})
+    worst = max(max(v) for v in out.values())
+    if not worst <= BF16_KERNEL_RTOL:
+        failures.append(f"train backward: {out} against autograd through "
+                        f"the plain versions")
+    return out
+
+
+def train_phase(args, failures: list, smi_line: str) -> list:
+    """Phase ``train``: ``train_run`` at ``TRAIN_DEPTH`` with float32
+    moments and the checks, at ``TRAIN_INT8_DEPTH`` with int8 moments,
+    and ``train_backward_checks``; returns the kernel records."""
+    line, records = train_run(args, TRAIN_DEPTH, TRAIN_STEPS, "float32",
+                              failures, smi_line, checks=True)
+    emit(line)
+    line, _ = train_run(args, TRAIN_INT8_DEPTH, TRAIN_INT8_STEPS, "int8",
+                        failures, smi_line, checks=False)
+    emit(line)
+    train_backward_checks(args, failures)
+    return records
 
 
 class moe_routes:
@@ -1371,11 +1791,13 @@ def lm_k4_checks(cfg, P: int, randn, failures: list) -> list:
 
 
 def lm_records(cfg, randn, k4_checked: list, k5_shapes: list,
-               launches: dict, failures: list, label: str = "") -> list:
+               launches: dict, failures: list, label: str = "",
+               device_kv: bool = False) -> list:
     """K4 (on ``lm_k4_checks``' inputs) and K5 at each of ``k5_shapes``
-    (``lm_k5_shapes``), each timed: the kernel records, named
-    ``<counter> (lm <label><where>)``, with the main run's ``launches``
-    of each kernel (prefill and decode together)."""
+    (``lm_k5_shapes``; ``device_kv``: also with ``kv_len`` read from
+    device memory), each timed: the kernel records, named ``<counter>
+    (lm <label><where>)``, with the main run's ``launches`` of each
+    kernel (prefill and decode together)."""
     import torch
 
     from repro_torch.kernels import ref
@@ -1399,14 +1821,20 @@ def lm_records(cfg, randn, k4_checked: list, k5_shapes: list,
                  bound=bound_of(2 * 2 * T * D + 2 * D, 4 * T * D)))
     for where, shape, kv_len in k5_shapes:
         timed += k5_timed(shape, kv_len, where, randn)
+        if device_kv:
+            timed += k5_timed(shape, kv_len, where + ", kv_len on device",
+                              randn, on_device=True)
     return lm_time(timed, launches, failures, label)
 
 
-def k5_timed(shape, kv_len: int, where: str, randn) -> list:
+def k5_timed(shape, kv_len: int, where: str, randn,
+             on_device: bool = False) -> list:
     """K5's split, combine and the whole at ``shape`` (B, Hq, Hkv, S, d)
     over ``kv_len`` rows, bfloat16, as ``lm_time`` entries: each with its
     max abs error against its plain version, its bound and (the whole)
-    SDPA as its library call."""
+    SDPA as its library call.  ``on_device``: ``kv_len`` read from device
+    memory, the chunks planned for all S (those past it empty), as the
+    replayed decode step runs K5."""
     import torch
 
     from repro_torch.kernels import decode_attention as k5
@@ -1415,20 +1843,23 @@ def k5_timed(shape, kv_len: int, where: str, randn) -> list:
     F = torch.nn.functional
     b, hq, hkv, S, d = shape
     q, kk, vv = randn(b, hq, d), randn(b, S, hkv, d), randn(b, S, hkv, d)
+    host_len = kv_len
+    if on_device:
+        kv_len = torch.full((), kv_len, dtype=torch.int32, device="cuda")
     acc, mm, ll, length = k5.split(q, kk, vv, kv_len=kv_len)
     chunks = acc.shape[0] // (b * hkv)
-    e_split = max(tensor_err(x, y)[1] for x, y in zip(
-        (acc, mm, ll), ref.decode_attention_split(q, kk, vv, length,
-                                                  kv_len=kv_len)))
+    e_split = max(tensor_err(x[torch.isfinite(y)], y[torch.isfinite(y)])[1]
+                  for x, y in zip((acc, mm, ll), ref.decode_attention_split(
+                      q, kk, vv, length, kv_len=kv_len)))
     part = (acc, mm, ll, b, hq, torch.bfloat16)
     o = k5.combine(*part)
     e_comb = tensor_err(o, ref.decode_attention_combine(*part))[1]
     e_whole = tensor_err(k5.decode_attention(q, kk, vv, kv_len=kv_len),
                          ref.decode_attention(q, kk, vv, kv_len=kv_len))[1]
     b_split, b_comb, b_whole = k5_bounds(
-        (b, hq, hkv, kv_len, d), "bfloat16", chunks)
+        (b, hq, hkv, host_len, d), "bfloat16", chunks)
     qkv = (q, kk, vv)
-    extra = dict(where=where, shape=list(shape), kv_len=kv_len,
+    extra = dict(where=where, shape=list(shape), kv_len=host_len,
                  chunks=chunks, chunk_len=length)
     return [
         dict(extra, counter="K5/split_bf16", err=e_split, lib=None,
@@ -1445,8 +1876,8 @@ def k5_timed(shape, kv_len: int, where: str, randn) -> list:
              wrapper=lambda: k5.decode_attention(*qkv, kv_len=kv_len),
              plain=lambda: ref.decode_attention(*qkv, kv_len=kv_len),
              lib=lambda: F.scaled_dot_product_attention(
-                 q[:, :, None], kk[:, :kv_len].transpose(1, 2),
-                 vv[:, :kv_len].transpose(1, 2), enable_gqa=True)[:, :, 0],
+                 q[:, :, None], kk[:, :host_len].transpose(1, 2),
+                 vv[:, :host_len].transpose(1, 2), enable_gqa=True)[:, :, 0],
              bound=b_whole)]
 
 
@@ -1663,6 +2094,10 @@ def main(argv=None):
     # -- 2. lm: serve --arch at Llama-3-8B's full width and depth, while the
     # card holds nothing else (the float32 check loads 32 GB of weights)
     lm_recs = lm_phase(args, failures, smi_line)
+    if failures:
+        fail("; ".join(failures))
+    # -- train: Llama-3-8B's full width at depth 4, then int8 moments
+    lm_recs += train_phase(args, failures, smi_line)
     if failures:
         fail("; ".join(failures))
 

@@ -46,6 +46,7 @@ import json
 import logging
 import os
 import tempfile
+import time
 from typing import Any
 
 from .plan import ExecutionPlan, PackedPlan
@@ -57,6 +58,8 @@ _ENV_DIR = "REPRO_PLAN_CACHE_DIR"
 #: window for queue-wait percentiles: big enough for a stable p99 over a
 #: serving pass, bounded so a long-lived engine never grows unboundedly
 _QUEUE_WAIT_WINDOW = 4096
+#: age past which a ``.tmp`` file in the disk dir counts as orphaned
+TMP_MAX_AGE_S = 3600.0
 
 
 @dataclasses.dataclass
@@ -151,6 +154,12 @@ class _LRU:
         """Snapshot of (key, value) pairs, LRU order (no touch)."""
         return list(self._d.items())
 
+    def __len__(self):
+        return len(self._d)
+
+    def clear(self):
+        self._d.clear()
+
 
 class PlanCache:
     def __init__(self, capacity: int = 256, disk_dir: str | None = None):
@@ -211,6 +220,25 @@ class PlanCache:
         except OSError:
             pass
 
+    def _gc_tmp(self, max_age_s: float = TMP_MAX_AGE_S):
+        """Remove the ``.tmp`` files older than ``max_age_s`` that writers
+        killed between ``mkstemp`` and ``os.replace`` left in the cache
+        directory; called on every disk publish (the rare write path)."""
+        try:
+            names = os.listdir(self.disk_dir)
+        except OSError:
+            return
+        now = time.time()
+        for name in names:
+            if not name.endswith(".tmp"):
+                continue
+            p = os.path.join(self.disk_dir, name)
+            try:
+                if now - os.path.getmtime(p) > max_age_s:
+                    os.unlink(p)
+            except OSError:
+                pass
+
     def _publish(self, path: str, text: str) -> bool:
         """First-writer-wins atomic disk publish; returns True on a
         fresh write.  A broken cache dir degrades to a no-op, never
@@ -220,6 +248,7 @@ class PlanCache:
         tmp = None
         try:
             os.makedirs(self.disk_dir, exist_ok=True)
+            self._gc_tmp()
             fd, tmp = tempfile.mkstemp(dir=self.disk_dir, suffix=".tmp")
             with os.fdopen(fd, "w") as f:
                 f.write(text)
@@ -386,6 +415,15 @@ class PlanCache:
         path = self._meas_path(key)
         if path:
             self._unlink(path)
+
+    def clear(self):
+        """Empty every in-memory layer and reset ``stats``; the disk dir
+        is left as it is (other processes share it)."""
+        self._programs.clear()
+        self._plans.clear()
+        self._packs.clear()
+        self._measurements.clear()
+        self.stats = CacheStats()
 
 
 _default: PlanCache | None = None

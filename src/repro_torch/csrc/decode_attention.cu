@@ -59,7 +59,11 @@
 // Only the valid prefix [0, kv_len) of each batch's S rows is read and
 // chunked (a KV cache allocated at its full horizon and filled up to the
 // decode position; S stays the row count of a batch's slab), so a decode
-// step attends its cache in place, without a copy of the prefix.  Tails
+// step attends its cache in place, without a copy of the prefix.
+// kv_len is a host integer, or is read from device memory: then the
+// chunks are planned once for all S and a chunk past kv_len writes empty
+// partials (m = -inf, l = 0, acc = 0) that the combine skips, so one
+// captured CUDA graph of a decode step serves every position.  Tails
 // of kv_len and d are masked; any d up to D_MAX is taken; no atomics:
 // the same inputs give the same bits every run.
 
@@ -264,6 +268,22 @@ __device__ __forceinline__ void merge_slots(
   }
 }
 
+// A chunk that starts at or past kv_len (read from device memory, the
+// chunks planned for the cache's whole S): its partials are empty, m =
+// -inf, l = 0, acc = 0, which the combine skips.  Every thread of the
+// CTA calls it.
+__device__ __forceinline__ void empty_partial(
+    int gn, int d, long long at, int G, int g0, float* __restrict__ acc_part,
+    float* __restrict__ m_part, float* __restrict__ l_part) {
+  const long long base = at * G + g0;
+  for (int o = threadIdx.x; o < gn * d; o += blockDim.x)
+    acc_part[base * d + o] = 0.0f;
+  if (threadIdx.x < gn) {
+    m_part[base + threadIdx.x] = -CUDART_INF_F;
+    l_part[base + threadIdx.x] = 0.0f;
+  }
+}
+
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -354,7 +374,8 @@ __global__ void __launch_bounds__(MMA_WARPS * 32) decode_attention_split_mma(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, float* __restrict__ acc_part,
     float* __restrict__ m_part, float* __restrict__ l_part, int S,
-    int kv_len, int Hkv, int G, int d, int chunks, int len, float scale,
+    int kv_len, const int* __restrict__ kv_len_dev, int Hkv, int G, int d,
+    int chunks, int len, float scale,
     int groups, int gh,
     int ts, int stages, int pitch, int body) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -372,7 +393,14 @@ __global__ void __launch_bounds__(MMA_WARPS * 32) decode_attention_split_mma(
   const int gn = G - g0 < gh ? G - g0 : gh;
   (void)ts;  // the CTA's rows a tile: MMA_WARPS * MMA_ROWS
 
+  // a device kv_len past S (the host's kv_len then) reads no row past S
+  if (kv_len_dev != nullptr) kv_len = min(*kv_len_dev, kv_len);
   const long long s0 = (long long)c * len;
+  if (s0 >= kv_len) {
+    empty_partial(gn, d, (long long)bh * chunks + c, G, g0, acc_part, m_part,
+                  l_part);
+    return;
+  }
   const long long s1 = s0 + len < kv_len ? s0 + len : kv_len;
   const int nb = (int)((s1 - s0 + MMA_ROWS - 1) / MMA_ROWS);
   const int mine = nb > warp ? (nb - warp + MMA_WARPS - 1) / MMA_WARPS : 0;
@@ -544,7 +572,8 @@ __global__ void __launch_bounds__(NT, GH <= 4 ? 2 : 1) decode_attention_split(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, float* __restrict__ acc_part,
     float* __restrict__ m_part, float* __restrict__ l_part, int S,
-    int kv_len, int Hkv, int G, int d, int chunks, int len, float scale,
+    int kv_len, const int* __restrict__ kv_len_dev, int Hkv, int G, int d,
+    int chunks, int len, float scale,
     int groups, int gh,
     int ts, int stages, int pitch, int body) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -568,9 +597,16 @@ __global__ void __launch_bounds__(NT, GH <= 4 ? 2 : 1) decode_attention_split(
   const int g0 = hgi * gh;
   const int gn = G - g0 < gh ? G - g0 : gh;  // heads of this CTA, <= GH
 
+  // a device kv_len past S (the host's kv_len then) reads no row past S
+  if (kv_len_dev != nullptr) kv_len = min(*kv_len_dev, kv_len);
+  const long long s0 = (long long)c * len;
+  if (s0 >= kv_len) {
+    empty_partial(gn, d, (long long)bh * chunks + c, G, g0, acc_part, m_part,
+                  l_part);
+    return;
+  }
   T* ring = reinterpret_cast<T*>(smem);
   const int tile = ts * d;  // elements of one K (or V) tile
-  const long long s0 = (long long)c * len;
   const long long s1 = s0 + len < kv_len ? s0 + len : kv_len;
   const int ntiles = (int)((s1 - s0 + ts - 1) / ts);
   const long long row_stride = (long long)Hkv * d;
@@ -789,13 +825,15 @@ __global__ void __launch_bounds__(COMBINE_WARPS * 32)
     float mb = mw;
 #pragma unroll
     for (int u = 0; u < CB; ++u) mb = fmaxf(mb, mc[u]);
-    const float alpha = expf(mw - mb);  // 0 on the first batch
+    // 0 on the first batch; an empty chunk (m = -inf) weighs 0, and
+    // exp(-inf - (-inf)) is never formed
+    const float alpha = mb == -CUDART_INF_F ? 1.0f : expf(mw - mb);
     lw *= alpha;
 #pragma unroll
     for (int x = 0; x < XD; ++x) o[x] *= alpha;
 #pragma unroll
     for (int u = 0; u < CB; ++u) {
-      const float w = expf(mc[u] - mb);  // 0 past the last chunk
+      const float w = mc[u] == -CUDART_INF_F ? 0.0f : expf(mc[u] - mb);
       lw += lc[u] * w;
 #pragma unroll
       for (int x = 0; x < XD; ++x) o[x] += a[u][x] * w;
@@ -818,7 +856,7 @@ __global__ void __launch_bounds__(COMBINE_WARPS * 32)
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
-    const float f = lane < warps ? expf(mv - M) : 0.0f;
+    const float f = lane < warps && mv != -CUDART_INF_F ? expf(mv - M) : 0.0f;
     const float L = hk::warp_sum(lane < warps ? red_l[lane] * f : 0.0f);
     red_m[lane] = f / L;
   }
@@ -944,11 +982,16 @@ extern "C" int decode_attention_config(int G, int d, int bf16,
 // the slab's row count, the stride from one batch to the next);
 // acc_part: (B * Hkv * chunks, G, d) and m_part, l_part:
 // (B * Hkv * chunks, G) float32; chunks of len positions cover kv_len,
-// none empty.
+// none empty.  Where kv_len_dev is not null, kv_len is read from it on
+// the device (1 <= *kv_len_dev <= S, a decode position held on the card,
+// so one captured graph serves every step): the host's kv_len must then
+// be S, the chunks cover all S, and those past *kv_len_dev are empty.
 extern "C" int decode_attention_split_launch(
     const void* q, const void* k, const void* v, void* acc_part,
     void* m_part, void* l_part, int B, int Hq, int Hkv, int S, int kv_len,
-    int d, int chunks, int len, float scale, int bf16, void* stream) {
+    int d, int chunks, int len, float scale, int bf16, const void* kv_len_dev,
+    void* stream) {
+  if (kv_len_dev != nullptr && kv_len != S) return (int)cudaErrorInvalidValue;
   if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || kv_len < 1 || kv_len > S ||
       d < 1 || d > D_MAX || chunks < 1 || len < 1 ||
       (long long)chunks * len < kv_len ||
@@ -964,7 +1007,8 @@ extern "C" int decode_attention_split_launch(
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   void* args[] = {(void*)&q,          (void*)&k,      (void*)&v,
                   (void*)&acc_part,   (void*)&m_part, (void*)&l_part,
-                  (void*)&S,          (void*)&kv_len, (void*)&Hkv,
+                  (void*)&S,          (void*)&kv_len, (void*)&kv_len_dev,
+                  (void*)&Hkv,
                   (void*)&G,
                   (void*)&d,          (void*)&chunks, (void*)&len,
                   (void*)&scale,      (void*)&cfg.groups,

@@ -17,7 +17,12 @@ split's configuration on the card (``config``).  The plain versions are
 ``ref.decode_attention_split`` / ``ref.decode_attention_combine`` (each
 kernel).  ``kv_len`` (at most S; default S) attends only the first
 ``kv_len`` rows of each batch's K and V: a decode cache allocated at its
-full horizon and filled up to the step's position, read in place.
+full horizon and filled up to the step's position, read in place.  It is
+a host integer, or a 0-d int32 tensor on q's device that the split reads
+from device memory when it runs: then the chunks are planned once for
+all S, a chunk past ``kv_len`` writes empty partials (m = -inf, l = 0,
+acc = 0) that the combine skips, and one captured CUDA graph of a decode
+step serves every position.
 """
 from __future__ import annotations
 
@@ -52,7 +57,7 @@ def _launchers():
         ptr, i = ctypes.c_void_p, ctypes.c_int
         _fns = (_build.c_function(lib, "decode_attention_split_launch",
                                   [ptr] * 6 + [i] * 8
-                                  + [ctypes.c_float, i, ptr]),
+                                  + [ctypes.c_float, i, ptr, ptr]),
                 _build.c_function(lib, "decode_attention_combine_launch",
                                   [ptr] * 4 + [i] * 6 + [ptr]),
                 _build.c_function(lib, "decode_attention_config",
@@ -99,11 +104,22 @@ def check_heads(Hq: int, Hkv: int):
                          f"a multiple of Hkv = {Hkv} KV heads")
 
 
-def check_kv_len(kv_len, S: int) -> int:
+def check_kv_len(kv_len, S: int, device: torch.device | None = None):
     """The rows of the cache to attend: ``kv_len`` (a host integer,
-    1 <= kv_len <= S), S where it is None."""
+    1 <= kv_len <= S), S where it is None; or a 0-d int32 tensor on
+    ``device`` (where given), returned as it is: its value stays on the
+    device, unchecked (1 <= kv_len <= S is the caller's)."""
     if kv_len is None:
         return S
+    if isinstance(kv_len, torch.Tensor):
+        if kv_len.shape != () or kv_len.dtype != torch.int32:
+            raise ValueError(f"decode_attention: a kv_len tensor must be "
+                             f"0-d int32, got {tuple(kv_len.shape)} "
+                             f"{kv_len.dtype}")
+        if device is not None and kv_len.device != device:
+            raise ValueError(f"decode_attention: kv_len is on "
+                             f"{kv_len.device}, q on {device}")
+        return kv_len
     kv_len = operator.index(kv_len)
     if not 1 <= kv_len <= S:
         raise ValueError(f"decode_attention: kv_len = {kv_len} is outside "
@@ -131,13 +147,16 @@ def _check(q, k, v):
 def split(q, k, v, scale: float | None = None, *, kv_len=None):
     """The split kernel: per (b, h_kv, chunk of the first ``kv_len``
     rows) float32 partials ``acc`` (B·Hkv·chunks, G, d), ``m`` and ``l``
-    (B·Hkv·chunks, G), and the chunk length."""
+    (B·Hkv·chunks, G), and the chunk length.  With a device ``kv_len``
+    the chunks cover all S, those past it empty."""
     B, Hq, Hkv, S, d = _check(q, k, v)
-    kv_len = check_kv_len(kv_len, S)
+    kv_len = check_kv_len(kv_len, S, q.device)
+    on_device = isinstance(kv_len, torch.Tensor)
+    planned = S if on_device else kv_len
     G = Hq // Hkv
     bf16 = int(q.dtype == torch.bfloat16)
     cfg = config(G, d, q.dtype, q.device)
-    chunks, length = chunk_plan(ctas_per_chunk(B, Hkv, cfg), kv_len,
+    chunks, length = chunk_plan(ctas_per_chunk(B, Hkv, cfg), planned,
                                 cfg["ctas_per_sm"] * cfg["sms"],
                                 cfg["tile"])
     rows = B * Hkv * chunks
@@ -147,7 +166,8 @@ def split(q, k, v, scale: float | None = None, *, kv_len=None):
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     _launch.launch(NAMES[q.dtype][0], _launchers()[0],
                    *(t.data_ptr() for t in (q, k, v, acc, m, l)),
-                   B, Hq, Hkv, S, kv_len, d, chunks, length, scale, bf16,
+                   B, Hq, Hkv, S, planned, d, chunks, length, scale, bf16,
+                   kv_len.data_ptr() if on_device else None,
                    device=q.device)
     return acc, m, l, length
 
@@ -180,7 +200,7 @@ def combine(acc, m, l, B: int, Hq: int, dtype=torch.float32):
 def decode_attention(q, k, v, scale: float | None = None, *, kv_len=None):
     """q: (B, Hq, d); k, v: (B, S, Hkv, d); all float32 or all bfloat16
     on one CUDA device, Hq a multiple of Hkv, d <= D_MAX; attends the
-    first ``kv_len`` rows (default S).  Returns (B, Hq, d) in q's
-    dtype."""
+    first ``kv_len`` rows (default S; a host integer or a 0-d int32
+    device tensor).  Returns (B, Hq, d) in q's dtype."""
     acc, m, l, _ = split(q, k, v, scale, kv_len=kv_len)
     return combine(acc, m, l, q.shape[0], q.shape[1], q.dtype)

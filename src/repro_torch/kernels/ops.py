@@ -1,7 +1,8 @@
 """Public API over the hand kernels, with the reference's names and
 argument order (``repro.kernels.ops``): ``rmsnorm`` (K4), ``bicgk`` (K2),
 ``gemver`` (K3), ``adamw_update`` (K6), ``softmax_xent`` (K7) and
-``decode_attention`` (K5).
+``decode_attention`` (K5); and ``softmax_xent_rows``, K7's per-row losses
+(the training loss masks and averages them, ``models.forward.lm_loss``).
 
 Tensors on a CUDA device always launch the kernel; tensors on the CPU
 run the plain version in ``kernels.ref``.  Nothing falls back: a failed
@@ -77,6 +78,18 @@ def adamw_update(p, g, m, v, *, lr, beta1=0.9, beta2=0.95, eps=1e-8,
     return tuple(o.reshape(p.shape) for o in outs)
 
 
+def softmax_xent_rows(logits, labels):
+    """Per-row losses ``logsumexp(x_t) - x_t[label_t]`` (T,) float32;
+    logits (T, V), labels (T,) (a label outside [0, V) reads no
+    column)."""
+    if _on_cpu(logits, labels):
+        return ref.softmax_xent_rows(logits, labels)
+    if logits.dim() != 2:
+        raise ValueError(f"softmax_xent_rows: logits must be 2-D (T, V) on "
+                         f"CUDA, got shape {tuple(logits.shape)}")
+    return _xent.softmax_xent_rows(logits, labels)
+
+
 def softmax_xent(logits, labels):
     """Mean token cross-entropy; logits (T, V), labels (T,)."""
     if _on_cpu(logits, labels):
@@ -89,11 +102,12 @@ def softmax_xent(logits, labels):
 
 def decode_attention(q, k, v, kv_len=None):
     """q: (B, Hq, d); k, v: (B, S, Hkv, d) -> (B, Hq, d), attending the
-    first ``kv_len`` rows of k and v (a host integer, 1 <= kv_len <= S;
-    default S): the valid prefix of a cache allocated at its full
-    horizon, read in place."""
+    first ``kv_len`` rows of k and v (a host integer, 1 <= kv_len <= S,
+    or a 0-d int32 tensor on q's device holding one; default S): the
+    valid prefix of a cache allocated at its full horizon, read in
+    place."""
     _attn.check_heads(q.shape[1], k.shape[2])
-    kv_len = _attn.check_kv_len(kv_len, k.shape[1])
+    kv_len = _attn.check_kv_len(kv_len, k.shape[1], q.device)
     if _on_cpu(q, k, v):
         return ref.decode_attention(q, k, v, kv_len=kv_len)
     return _attn.decode_attention(q, k, v, kv_len=kv_len)

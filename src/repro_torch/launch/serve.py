@@ -26,7 +26,10 @@ Python):
         --n 4096 --requests 100
 
 Mixed sequences and sizes through the batched ``ServingEngine`` (shape
-buckets, padding or masking, batched and packed dispatches):
+buckets, padding or masking, batched and packed dispatches), the
+reference's workload: request i is sequence i mod their count at size i
+mod the ``--sizes`` count (default 256,1000,1024,2048; ``--quick``
+64,100,128):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --blas GEMVER,BiCGK \
         --engine --sizes 1000,4096 --requests 64
@@ -175,54 +178,66 @@ def grow_cache(cfg, cache, horizon: int) -> dict:
     return out
 
 
-def generate(cfg, model, prompts, gen: int, patches=None,
-             frames=None) -> dict:
+def generate(cfg, model, prompts, gen: int, patches=None, frames=None, *,
+             graph: bool = True) -> dict:
     """The reference's ``--arch`` loop on ``model`` (cast to the compute
     dtype): prefill the prompts (B, P) (with a VLM's ``patches`` and an
     encoder-decoder's ``frames``, numpy or tensors), grow the cache to P
-    + gen, take the greedy token, then ``gen - 1`` decode steps.  Returns
-    the (B, gen) tokens (numpy int32), the cache, the prefill's
-    milliseconds (with the grow) and each decode step's (CUDA events on
-    the card, so a step's time includes the device waiting for the
-    host)."""
+    + gen, take the greedy token, then ``gen - 1`` decode steps with the
+    position on the device (``train.steps.DecodeReplay``).  On the card
+    the first step runs eagerly and the rest replay it as one CUDA graph,
+    captured once; ``graph=False`` runs every step eagerly (the same
+    kernels; the CPU always does).  Returns the (B, gen) tokens (numpy
+    int32), the cache, the prefill's milliseconds (with the grow), each
+    decode step's (CUDA events on the card, so a step's time includes
+    the device waiting for the host; the capture lies outside them) and
+    the number of captures."""
     import torch
 
     from repro_torch.train import steps
 
     B, P = prompts.shape
     on_cuda = model.device.type == "cuda"
-    marks = []
+    spans = []
 
-    def mark():
+    def span():
+        """A (start, stop) pair of marks: CUDA events or host clocks."""
         if on_cuda:
-            marks.append(torch.cuda.Event(enable_timing=True))
-            marks[-1].record()
-        else:
-            marks.append(time.perf_counter())
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            spans.append(ev)
+            ev[0].record()
+            return ev[1].record
+        spans.append([time.perf_counter(), None])
+        return lambda s=spans[-1]: s.__setitem__(1, time.perf_counter())
 
     batch = {"tokens": torch.as_tensor(np.asarray(prompts, np.int32),
                                        device=model.device)}
     for name, a in (("patches", patches), ("frames", frames)):
         if a is not None:
             batch[name] = torch.as_tensor(a, device=model.device)
-    decode_step = steps.make_decode_step(cfg)
-    mark()
+    stop = span()
     logits, cache = steps.make_prefill_step(cfg)(model, batch)
     cache = grow_cache(cfg, cache, P + gen)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    mark()
+    stop()
+    del logits
     out = [tok]
+    replay = steps.DecodeReplay(cfg, model, cache, tok, P)
     for i in range(gen - 1):
-        tok, logits, cache = decode_step(model, cache, tok, P + i)
-        out.append(tok)
-        mark()
+        stop = span()
+        out.append(replay())
+        stop()
+        if i == 0 and graph and on_cuda and gen > 2:
+            replay.capture()
     if on_cuda:
-        marks[-1].synchronize()
-        ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        spans[-1][1].synchronize()
+        ms = [a.elapsed_time(b) for a, b in spans]
     else:
-        ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+        ms = [(b - a) * 1e3 for a, b in spans]
     return {"tokens": torch.stack(out, dim=1).cpu().numpy(), "cache": cache,
-            "prefill_ms": ms[0], "step_ms": ms[1:]}
+            "prefill_ms": ms[0], "step_ms": ms[1:],
+            "captures": replay.captures}
 
 
 def draw_inputs(cfg, batch: int, prompt_len: int, seed: int) -> dict:
@@ -285,7 +300,8 @@ def serve_arch(args):
 
 
 def engine_stream(ranges, requests: int, seed: int = 0) -> list:
-    """A mixed-size request stream: ``(sequence, n)`` pairs, the
+    """The stream of ``chip_smoke.py``'s engine phase (``--engine``
+    serves ``engine_requests``): ``(sequence, n)`` pairs, the
     sequences of ``ranges`` (``{name: (lo, hi)}``) in turn.  Each request
     draws, from ``seed``, its power-of-two bucket uniformly among those
     its sequence's range reaches, then n uniformly inside that bucket
@@ -306,15 +322,31 @@ def engine_stream(ranges, requests: int, seed: int = 0) -> list:
 
 
 def engine_workload(stream, seed: int = 0) -> list:
-    """``(sequence, n, inputs)`` tuples for an ``engine_stream``, numpy
+    """``(sequence, n, inputs)`` tuples for a stream of ``(sequence,
+    n)`` (``engine_requests``, ``engine_stream``), request i's numpy
     inputs made from ``seed + i`` (host arrays, as users send them)."""
     from repro_torch.programs import REGISTRY, make_inputs
     return [(nm, n, make_inputs(REGISTRY[nm], n, seed=seed + i))
             for i, (nm, n) in enumerate(stream)]
 
 
+#: ``--engine``'s request sizes: the reference's defaults, and ``--quick``'s
+ENGINE_SIZES = (256, 1000, 1024, 2048)
+QUICK_SIZES = (64, 100, 128)
+
+
+def engine_requests(names, sizes, requests: int) -> list:
+    """The reference's ``--engine`` workload: request i is
+    ``(names[i % len(names)], sizes[i % len(sizes)])`` (its inputs come
+    from ``seed + i``, ``engine_workload``)."""
+    return [(names[i % len(names)], sizes[i % len(sizes)])
+            for i in range(requests)]
+
+
 def serve_engine(args) -> dict:
-    """A mixed-size workload through the batched ``ServingEngine``."""
+    """A mixed-size workload through the batched ``ServingEngine``: the
+    reference's (``engine_requests`` over ``--sizes``, the exact list of
+    sizes, or the defaults or ``--quick``'s)."""
     from repro_torch.core import V5E, FusionCompiler
     from repro_torch.programs import REGISTRY
     from repro_torch.serving import ServingEngine
@@ -324,10 +356,12 @@ def serve_engine(args) -> dict:
         if nm not in REGISTRY:
             raise SystemExit(f"unknown sequence {nm!r}; "
                              f"choose from {', '.join(REGISTRY)}")
-    sizes = [int(s) for s in args.sizes.split(",")]
-    lo, hi = min(sizes), max(sizes)
-    stream = engine_stream({nm: (lo, hi) for nm in names}, args.requests,
-                           args.seed)
+    if args.sizes:
+        sizes = [int(s) for s in args.sizes.split(",")]
+    else:
+        sizes = list(QUICK_SIZES if args.quick else ENGINE_SIZES)
+    lo = min(sizes)
+    stream = engine_requests(names, sizes, args.requests)
     mode = "autotune" if args.autotune else args.mode
     cc = FusionCompiler(backend=args.backend, device=args.device,
                         hw="calibrate" if args.autotune else V5E,
@@ -338,9 +372,7 @@ def serve_engine(args) -> dict:
                            mode=mode)
     t0 = time.perf_counter()
     # warm packs once over the full key set, not per sequence
-    buckets = {nm: engine.warm(nm, [n for s, n in stream if s == nm],
-                               trace_packs=False)
-               for nm in names if any(s == nm for s, _ in stream)}
+    buckets = {nm: engine.warm(nm, sizes, trace_packs=False) for nm in names}
     engine.warm_packs()
     t_warm = time.perf_counter() - t0
 
@@ -355,7 +387,7 @@ def serve_engine(args) -> dict:
         else 0.0
     rps = len(results) / max(t_serve, 1e-9)
     st = engine.stats()
-    print(f"engine {','.join(names)} sizes={lo}..{hi} buckets={buckets} "
+    print(f"engine {','.join(names)} sizes={sizes} buckets={buckets} "
           f"device={engine.device}: warm {t_warm*1e3:.1f} ms, "
           f"{len(results)} requests in {t_serve*1e3:.1f} ms "
           f"({t_serve / max(len(results), 1) * 1e6:.1f} us/req)")
@@ -404,10 +436,12 @@ def main(argv=None):
                     help="candidates --autotune measures (default 8)")
     ap.add_argument("--requests", type=int, default=100)
     ap.add_argument("--n", type=int, default=1024)
-    ap.add_argument("--sizes", default="256,2048",
-                    help="with --engine: request sizes; each request's n "
-                    "is drawn from the smallest to the largest of them, "
-                    "its power-of-two bucket first (default 256,2048)")
+    ap.add_argument("--sizes",
+                    help="with --engine: comma-separated request sizes, "
+                    "request i of size i mod their count (default "
+                    "256,1000,1024,2048; --quick: 64,100,128)")
+    ap.add_argument("--quick", action="store_true",
+                    help="with --engine: the small sizes 64,100,128")
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--max-pack", type=int, default=8,
                     help="with --engine: most (sequence, bucket) batches "

@@ -4,8 +4,8 @@ the attention-SSD hybrid and Whisper's encoder-decoder), on the port's
 kernels: K4 for every RMSNorm and K5 for GQA decode attention on the
 card."""
 from .forward import (cache_shapes, cast_params, decode_step, forward_lm,
-                      prefill, zero_cache)
+                      lm_loss, prefill, zero_cache)
 from .model import LM, init_params, model_shapes
 
 __all__ = ["LM", "cache_shapes", "cast_params", "decode_step", "forward_lm",
-           "init_params", "model_shapes", "prefill", "zero_cache"]
+           "init_params", "lm_loss", "model_shapes", "prefill", "zero_cache"]

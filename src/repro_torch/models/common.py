@@ -2,8 +2,8 @@
 MLP and the MoE layer, from the reference's ``repro.models.common``.
 
 Plain functions on tensors.  ``rmsnorm`` goes through
-``kernels.ops.rmsnorm``: K4 on a CUDA tensor, K4's plain version on a CPU
-tensor.  ``blockwise_attention`` and ``moe_layer`` are plain PyTorch, as
+``kernels.ops.rmsnorm`` (``kernels.grad`` where autograd needs it): K4 on
+a CUDA tensor, K4's plain version on a CPU tensor.  ``blockwise_attention`` and ``moe_layer`` are plain PyTorch, as
 the reference's are plain JAX: no Pallas kernel stands behind them.  The
 reference's sharding helpers (``constrain``, ``pspec``, ``resolve_axis``,
 ``set_tensor_parallel``) are the identity on one device; they come with
@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels import ops
+from ..kernels import grad
 
 #: the mask value of the reference's online softmax
 NEG = -1e30
@@ -29,8 +29,9 @@ def rmsnorm(x, gamma, eps: float = 1e-6):
     The statistics and the products are float32, rounded once to x's
     dtype; the reference rounds rsqrt to x's dtype and multiplies in it,
     which is the same in float32 and within bfloat16's rounding in
-    bfloat16."""
-    return ops.rmsnorm(x, gamma, eps)
+    bfloat16.  Differentiable on the training forward (``kernels.grad``:
+    K4 forward, a plain float32 backward)."""
+    return grad.rmsnorm(x, gamma, eps)
 
 
 def layernorm(x, gamma, beta, eps: float = 1e-5):
@@ -120,9 +121,14 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
             dropped = ~keep[None, :, None, None, :]
             logits.masked_fill_(dropped, NEG)
         m_new = torch.maximum(m, logits.amax(-1))
-        p = logits.sub_(m_new[..., None]).exp_()
-        if dropped is not None:
-            p.masked_fill_(dropped, 0.0)
+        if torch.is_grad_enabled():     # training: autograd keeps logits
+            p = torch.exp(logits - m_new[..., None])
+            if dropped is not None:
+                p = p.masked_fill(dropped, 0.0)
+        else:
+            p = logits.sub_(m_new[..., None]).exp_()
+            if dropped is not None:
+                p.masked_fill_(dropped, 0.0)
         alpha = torch.exp(m - m_new)
         l = alpha * l + p.sum(-1)
         acc = acc * alpha[..., None] + torch.einsum("bskgt,btkd->bskgd",

@@ -12,6 +12,12 @@ numpy has: the configs' ``param_dtype`` is float32), and returns an
 ``LM`` with every leaf copied and every stack unstacked, in the arrays'
 dtype.  It
 is cast with ``forward.cast_params``, as a loaded model is.
+
+``train_state_from_reference`` carries the reference's train state
+across (``repro.launch.train.build_state``'s: float32 ``params``, the
+optimizer's ``m`` and ``v``, float32 or int8 ``{"q", "scale"}`` leaves
+stacked as the parameters are, and its ``step``) into the port's
+(``train.steps.init_train_state``'s: leaves by parameter name).
 """
 from __future__ import annotations
 
@@ -59,3 +65,41 @@ def params_from_reference(cfg, tree: dict, device="cuda") -> LM:
     top = {k: tensor(array(k, tree[k], s)) for k, s in shapes.items()}
     return LM(cfg, top, unstack("layers"), unstack("head_layers"),
               unstack("enc_layers"))
+
+
+def _by_name(tree: dict, name: str):
+    """The reference's leaf for the port's parameter ``name`` (``embed``,
+    ``layers.3.wq``): a top-level leaf, or layer l of a stacked one; a
+    ``{"q", "scale"}`` moment leaf as the same dict of layer l."""
+    parts = name.split(".")
+    if len(parts) == 1:
+        return tree[name]
+    stack, l, leaf = parts
+    a = tree[stack][leaf]
+    if isinstance(a, dict):
+        return {k: np.asarray(v)[int(l)] for k, v in a.items()}
+    return np.asarray(a)[int(l)]
+
+
+def train_state_from_reference(cfg, state: dict, device="cuda") -> dict:
+    """The port's train state on ``device`` holding a copy of the
+    reference's ``state`` (``params``, ``opt`` with ``m``, ``v``,
+    ``step``; its ``params_c`` is made again from the masters, as the
+    reference makes it)."""
+    from ..train.steps import init_train_state
+    dev = resolve_device(device)
+    out = init_train_state(cfg, params_from_reference(cfg, state["params"],
+                                                      dev))
+
+    def tensor(a):
+        if isinstance(a, dict):
+            return {k: tensor(v) for k, v in a.items()}
+        return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+    opt = state["opt"]
+    for key in ("m", "v"):
+        out["opt"][key] = {n: tensor(_by_name(opt[key], n))
+                           for n in out["params"]}
+    out["opt"]["step"] = torch.tensor(int(np.asarray(opt["step"])),
+                                      dtype=torch.int32, device=dev)
+    return out

@@ -1,5 +1,6 @@
-"""Every family end to end: the full-sequence forward, prefill and one
-decode step, from the reference's ``repro.models.forward``.
+"""Every family end to end: the full-sequence forward, the training loss
+(``lm_loss``), prefill and one decode step, from the reference's
+``repro.models.forward``.
 
 The reference casts the parameters to ``cfg.compute_dtype`` inside every
 call (``_cast``); the port casts them once, when a model is loaded for
@@ -25,8 +26,10 @@ from __future__ import annotations
 import operator
 
 import torch
+import torch.utils.checkpoint
 
 from ..core.codegen import resolve_device
+from ..kernels import grad
 from . import ssm as ssm_lib
 from .common import apply_norm, mlp
 from .model import (_moe_or_mlp, check_family, decode_gqa_attention,
@@ -120,11 +123,15 @@ def _embed(cfg, model, tokens, patches):
     return x
 
 
-def _layers(cfg, model, tokens, patches=None, frames=None, collect=None):
+def _layers(cfg, model, tokens, patches=None, frames=None, collect=None,
+            remat: bool = False):
     """Embedding (a VLM's patches in place, Whisper's encoder run first)
     and every layer, head layers first: (x before the final norm, the
     summed aux); ``collect(l, pieces)`` receives each layer's cache
-    pieces where given."""
+    pieces where given.  ``remat``: each decoder layer under activation
+    checkpointing (its activations recomputed in the backward), as the
+    reference's ``cfg.remat`` wraps its scanned layer in
+    ``jax.checkpoint``."""
     x = _embed(cfg, model, tokens, patches)
     enc_out = None
     if cfg.family == "encdec":
@@ -133,13 +140,20 @@ def _layers(cfg, model, tokens, patches=None, frames=None, collect=None):
         enc_out = whisper_encode(cfg, model, frames)
     aux = 0.0
     for l, (lp, kind) in enumerate(model.stacks()):
-        if enc_out is not None:
-            x, pieces, a = whisper_decoder_layer(cfg, x, lp, enc_out)
+        def layer(x, lp=lp, kind=kind):
+            if enc_out is not None:
+                return whisper_decoder_layer(cfg, x, lp, enc_out)
+            return decoder_layer(cfg, x, lp, kind)
+        if remat:
+            # the layer bound now: the backward recomputes it later
+            x, a = torch.utils.checkpoint.checkpoint(
+                lambda x, layer=layer: layer(x)[0::2], x,
+                use_reentrant=False)
         else:
-            x, pieces, a = decoder_layer(cfg, x, lp, kind)
+            x, pieces, a = layer(x)
+            if collect is not None:
+                collect(l, pieces)
         aux = aux + a
-        if collect is not None:
-            collect(l, pieces)
     return x, aux
 
 
@@ -158,6 +172,33 @@ def forward_lm(cfg, model, tokens, *, patches=None, frames=None,
                      else None)
     x = apply_norm(cfg, x, model, "final")
     return unembed(cfg, model, x), aux, caches
+
+
+def lm_loss(cfg, model, batch):
+    """Mean next-token cross-entropy of a cast ``model`` on ``batch``
+    (``tokens``, ``labels`` (B, S), and ``patches``/``frames`` where the
+    family takes them), with gradients where the model's leaves take
+    them: returns (loss, {"xent", "aux"}), the reference's ``lm_loss``.
+
+    The per-row ``logsumexp(x_t) - x_t[label_t]`` comes from K7
+    (``kernels.grad.softmax_xent_rows``: the kernel forward, a plain
+    float32 backward) over the (B·S, V) logits, where the reference
+    builds it from ``logsumexp`` and ``take_along_axis``; then the
+    reference's mask ``labels >= 0`` (a label of -1 reads no column and
+    is masked out), its mean over the mask and ``+ 0.01 · aux``.  The
+    layers run under activation checkpointing where ``cfg.remat`` and
+    autograd is on."""
+    _check_cast(cfg, model)
+    remat = cfg.remat and torch.is_grad_enabled()
+    x, aux = _layers(cfg, model, batch["tokens"], batch.get("patches"),
+                     batch.get("frames"), remat=remat)
+    logits = unembed(cfg, model, apply_norm(cfg, x, model, "final"))
+    labels = batch["labels"].reshape(-1)
+    rows = grad.softmax_xent_rows(logits.reshape(-1, logits.shape[-1]),
+                                  labels)
+    mask = (labels >= 0).to(torch.float32)
+    xent = torch.sum(rows * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return xent + 0.01 * aux, {"xent": xent, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -200,9 +241,9 @@ def zero_cache(cfg, batch: int, seq: int, device="cuda") -> dict:
             for name, shape in cache_shapes(cfg, batch, seq).items()}
 
 
-def ring_slots(pos: int, window: int) -> int:
+def ring_slots(pos, window: int):
     """The rows of a hybrid's ring that hold keys at ``pos``: the first
-    ``min(pos + 1, W)``.
+    ``min(pos + 1, W)`` (device arithmetic where ``pos`` is a tensor).
 
     The reference attends the W slots masked by each slot's position
     ``pos - ((pos - slot) mod W)``, kept where it is >= 0.  Before the
@@ -211,19 +252,32 @@ def ring_slots(pos: int, window: int) -> int:
     positions.  Each key was roped at its own position when it was
     written, and a softmax does not depend on the order of its keys, so
     K5 over those rows in slot order is the reference's attention."""
+    if isinstance(pos, torch.Tensor):
+        return torch.clamp(pos + 1, max=window)
     return min(pos + 1, window)
+
+
+def write_row(leaf, pos, row):
+    """Write ``row`` (B, 1, ...) into row ``pos`` of ``leaf`` (B, S, ...)
+    in place: an indexed copy where ``pos`` is a device tensor (a captured
+    step writes wherever the position then is), plain indexing for a
+    host integer."""
+    if isinstance(pos, torch.Tensor):
+        leaf.index_copy_(1, pos.reshape(1).long(), row.to(leaf.dtype))
+    else:
+        leaf[:, pos] = row[:, 0]
 
 
 # ---------------------------------------------------------------------------
 # decode step
 # ---------------------------------------------------------------------------
 
-def decode_layer(cfg, x, lp, kind: str, cache, l: int, pos: int):
-    """One layer of ``decode_step`` on x (B, 1, D) at position ``pos``:
-    writes the layer's k and v (MLA: its latent and roped rope key; a
-    hybrid: into ring slot ``pos mod W``) into ``cache[...][l]`` before
-    its attention reads them, advances its SSD state in place, and
-    returns x'."""
+def decode_layer(cfg, x, lp, kind: str, cache, l: int, pos):
+    """One layer of ``decode_step`` on x (B, 1, D) at position ``pos`` (a
+    host integer or a 0-d int32 device tensor): writes the layer's k and
+    v (MLA: its latent and roped rope key; a hybrid: into ring slot
+    ``pos mod W``) into ``cache[...][l]`` before its attention reads
+    them, advances its SSD state in place, and returns x'."""
     h = apply_norm(cfg, x, lp, "ln1")
     if kind == "ssm":
         o, _ = ssm_lib.ssm_mixer(cfg, h, ssm_params(lp),
@@ -231,8 +285,8 @@ def decode_layer(cfg, x, lp, kind: str, cache, l: int, pos: int):
     elif kind == "hybrid":
         k, v = new_kv(cfg, h, lp, pos)
         slot = pos % cfg.window
-        cache["k"][l, :, slot] = k[:, 0]
-        cache["v"][l, :, slot] = v[:, 0]
+        write_row(cache["k"][l], slot, k)
+        write_row(cache["v"][l], slot, v)
         ao = decode_gqa_attention(cfg, h, lp, cache["k"][l], cache["v"][l],
                                   pos, kv_len=ring_slots(pos, cfg.window))
         so, _ = ssm_lib.ssm_mixer(cfg, h, ssm_params(lp),
@@ -240,14 +294,14 @@ def decode_layer(cfg, x, lp, kind: str, cache, l: int, pos: int):
         o = hybrid_mix(ao, so, lp)
     elif cfg.kv_lora_rank:
         ckv, kr = new_latent(cfg, h, lp, pos)
-        cache["ckv"][l, :, pos] = ckv[:, 0]
-        cache["kr"][l, :, pos] = kr[:, 0]
+        write_row(cache["ckv"][l], pos, ckv)
+        write_row(cache["kr"][l], pos, kr)
         o = mla_decode_attention(cfg, h, lp, cache["ckv"][l],
                                  cache["kr"][l], pos)
     else:
         k, v = new_kv(cfg, h, lp, pos)
-        cache["k"][l, :, pos] = k[:, 0]
-        cache["v"][l, :, pos] = v[:, 0]
+        write_row(cache["k"][l], pos, k)
+        write_row(cache["v"][l], pos, v)
         o = decode_gqa_attention(cfg, h, lp, cache["k"][l], cache["v"][l],
                                  pos)
     x = x + o
@@ -263,13 +317,23 @@ def decode_layer(cfg, x, lp, kind: str, cache, l: int, pos: int):
 
 
 @torch.no_grad()
-def decode_step(cfg, model, cache, tokens, pos: int):
+def decode_step(cfg, model, cache, tokens, pos):
     """One token for every sequence of the batch: tokens (B,) at position
-    ``pos`` (a host integer), against ``cache`` holding positions
-    ``[0, pos)``: every layer's ``decode_layer``, the cache updated in
-    place; returns (logits (B, V), cache)."""
+    ``pos``, against ``cache`` holding positions ``[0, pos)``: every
+    layer's ``decode_layer``, the cache updated in place; returns (logits
+    (B, V), cache).  ``pos`` is a host integer, or a 0-d int32 tensor on
+    the model's device, as the reference traces it: no shape and no
+    host value then depends on it, so the step can be captured as one
+    CUDA graph and replayed at every position."""
     _check_cast(cfg, model)
-    pos = operator.index(pos)
+    if isinstance(pos, torch.Tensor):
+        if pos.shape != () or pos.dtype != torch.int32 \
+                or pos.device != model.device:
+            raise ValueError(f"decode_step: pos must be a 0-d int32 tensor "
+                             f"on {model.device}, got {tuple(pos.shape)} "
+                             f"{pos.dtype} on {pos.device}")
+    else:
+        pos = operator.index(pos)
     x = embed_tokens(cfg, model, tokens[:, None])           # (B, 1, D)
     for l, (lp, kind) in enumerate(model.stacks()):
         x = decode_layer(cfg, x, lp, kind, cache, l, pos)

@@ -9,8 +9,8 @@ The reference keeps its parameters in a nested dict whose ``layers`` (and
 ``lax.scan``; the port keeps them in an ``LM`` module under the same leaf
 names, unstacked: one ``nn.ParameterDict`` a layer, walked by a Python
 loop.  The functions read parameters as the reference does (``p["wq"]``).
-The parameters take no gradient: the port serves; training comes with its
-own slice.
+The parameters take no gradient, but in a training copy (``LM.map``,
+``train.steps.init_train_state``).
 
 On the card, ``decode_gqa_attention`` runs K5 over the layer's cache slab
 in place, attending its first ``kv_len`` rows.  MLA's absorbed decode
@@ -208,6 +208,22 @@ class LM(nn.Module):
         return ([(lp, "dense") for lp in self.head_layers]
                 + [(lp, main_kind(self.cfg)) for lp in self.layers])
 
+    def leaves(self) -> dict:
+        """Every parameter's tensor by name (``named_parameters``):
+        ``embed``, ``layers.0.wq``, ..."""
+        return {n: p.data for n, p in self.named_parameters()}
+
+    def map(self, fn, requires_grad: bool = False) -> "LM":
+        """A new ``LM`` of the same config whose leaves are ``fn(leaf)``,
+        taking gradients where ``requires_grad`` (a training copy)."""
+        def stack(lps):
+            return [{k: fn(t.data) for k, t in lp.items()} for lp in lps]
+        out = LM(self.cfg, {n: fn(getattr(self, n).data)
+                            for n, _ in self.named_parameters(recurse=False)},
+                 stack(self.layers), stack(self.head_layers),
+                 stack(self.enc_layers))
+        return out.requires_grad_(requires_grad)
+
 
 def _stack_sizes(cfg) -> dict:
     """The stacks of the parameter tree, by name, with their layer
@@ -266,6 +282,15 @@ def _split_heads(x, n, dh):
     return x.reshape(*x.shape[:-1], n, dh)
 
 
+def step_positions(pos, B: int, device) -> torch.Tensor:
+    """The (B, 1) positions of a decode step at ``pos``: a host integer,
+    or a 0-d integer tensor on the device, expanded (its value never
+    reaches the host, so a captured step serves every position)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(1, 1).expand(B, 1)
+    return torch.full((B, 1), pos, device=device)
+
+
 def gqa_attention(cfg, x, p, *, kv_x=None, causal=True, window=0,
                   use_rope=True, prefix=""):
     """(G)QA attention over the sequence from position 0 (prefill):
@@ -293,30 +318,30 @@ def gqa_attention(cfg, x, p, *, kv_x=None, causal=True, window=0,
     return o.reshape(B, S, Hq * dh) @ p[prefix + "wo"], (k, v)
 
 
-def decode_gqa_attention(cfg, x, p, cache_k, cache_v, pos: int, *,
-                         kv_len: int | None = None, use_rope=True,
-                         prefix=""):
-    """One token's attention at position ``pos`` against the layer's
-    cache ``cache_k``, ``cache_v`` (B, S, Hkv, dh), which already holds
-    this step's k and v: K5 over its first ``kv_len`` rows (``pos + 1``
-    unless given), read in place, where the reference masks the rest
-    (the rows after ``pos``; a hybrid ring's unfilled slots; nothing of
-    a Whisper decoder's cross K/V, whose ``kv_valid_len`` of F - 1
-    keeps all F frames).  ``prefix`` and ``use_rope`` as in
-    ``gqa_attention``."""
+def decode_gqa_attention(cfg, x, p, cache_k, cache_v, pos, *,
+                         kv_len=None, use_rope=True, prefix=""):
+    """One token's attention at position ``pos`` (a host integer or a 0-d
+    int32 device tensor) against the layer's cache ``cache_k``,
+    ``cache_v`` (B, S, Hkv, dh), which already holds this step's k and
+    v: K5 over its first ``kv_len`` rows (``pos + 1`` unless given; a
+    tensor where ``pos`` is one, so K5 reads it from device memory),
+    read in place, where the reference masks the rest (the rows after
+    ``pos``; a hybrid ring's unfilled slots; nothing of a Whisper
+    decoder's cross K/V, whose ``kv_valid_len`` of F - 1 keeps all F
+    frames).  ``prefix`` and ``use_rope`` as in ``gqa_attention``."""
     B = x.shape[0]
     dh, Hq = cfg.dh, cfg.n_heads
     q = _split_heads(x @ p[prefix + "wq"], Hq, dh)
     if cfg.qkv_bias and not prefix:
         q = q + p["bq"].reshape(1, 1, Hq, dh)
     if use_rope:
-        q = rope(q, torch.full((B, 1), pos, device=x.device), cfg.rope_theta)
+        q = rope(q, step_positions(pos, B, x.device), cfg.rope_theta)
     o = ops.decode_attention(q.reshape(B, Hq, dh), cache_k, cache_v,
                              pos + 1 if kv_len is None else kv_len)
     return o.reshape(B, 1, Hq * dh).to(x.dtype) @ p[prefix + "wo"]
 
 
-def new_kv(cfg, x, p, pos: int):
+def new_kv(cfg, x, p, pos):
     """This step's k (after rope) and v, (B, 1, Hkv, dh) each."""
     B = x.shape[0]
     dh, Hkv = cfg.dh, cfg.n_kv_heads
@@ -325,7 +350,7 @@ def new_kv(cfg, x, p, pos: int):
     if cfg.qkv_bias:
         k = k + p["bk"].reshape(1, 1, Hkv, dh)
         v = v + p["bv"].reshape(1, 1, Hkv, dh)
-    k = rope(k, torch.full((B, 1), pos, device=x.device), cfg.rope_theta)
+    k = rope(k, step_positions(pos, B, x.device), cfg.rope_theta)
     return k, v
 
 
@@ -354,13 +379,14 @@ def mla_attention(cfg, x, p):
     return o.reshape(B, S, Hq * vd) @ p["wo"], (c_kv, k_rope)
 
 
-def mla_decode_attention(cfg, x, p, cache_ckv, cache_kr, pos: int):
+def mla_decode_attention(cfg, x, p, cache_ckv, cache_kr, pos):
     """One token's MLA against the layer's latent cache ``cache_ckv`` (B,
     S, r) and rope keys ``cache_kr`` (B, S, rd), which already hold this
-    step's rows at ``pos``: the absorbed form (``w_uk`` folded into the
-    query, ``w_uv`` applied after), scores and values in float32 over
-    the first ``pos + 1`` rows, read in place (the reference masks the
-    rows after ``pos``)."""
+    step's rows at ``pos`` (a host integer or a 0-d device tensor): the
+    absorbed form (``w_uk`` folded into the query, ``w_uv`` applied
+    after), scores and values in float32 over all S rows, those after
+    ``pos`` masked, as the reference computes it (no shape depends on
+    ``pos``), and never read into the output."""
     B = x.shape[0]
     Hq = cfg.n_heads
     nd, rd, vd, r = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
@@ -368,27 +394,30 @@ def mla_decode_attention(cfg, x, p, cache_ckv, cache_kr, pos: int):
     f32 = torch.float32
     q = _split_heads(x @ p["wq"], Hq, nd + rd)
     q_nope, q_rope = q[..., :nd], q[..., nd:]
-    q_rope = rope(q_rope, torch.full((B, 1), pos, device=x.device),
-                  cfg.rope_theta)
+    q_rope = rope(q_rope, step_positions(pos, B, x.device), cfg.rope_theta)
     q_lat = torch.einsum("bshd,rhd->bshr", q_nope,
                          p["w_uk"].reshape(r, Hq, nd))      # (B, 1, Hq, r)
-    ckv = cache_ckv[:, :pos + 1].to(f32)
-    kr = cache_kr[:, :pos + 1].to(f32)
+    # the rows after pos are masked out of the scores and zeroed in the
+    # values, so whatever they hold never reaches the output
+    after = torch.arange(cache_ckv.shape[1], device=x.device) > pos
+    ckv = cache_ckv.to(f32).masked_fill(after[:, None], 0.0)
     scores = (torch.einsum("bshr,btr->bhst", q_lat.to(f32), ckv)
-              + torch.einsum("bshd,btd->bhst", q_rope.to(f32), kr))
-    w = torch.softmax(scores * (nd + rd) ** -0.5, dim=-1)
+              + torch.einsum("bshd,btd->bhst", q_rope.to(f32),
+                             cache_kr.to(f32)))
+    w = torch.softmax((scores * (nd + rd) ** -0.5).masked_fill(
+        after, -torch.inf), dim=-1)
     o_lat = torch.einsum("bhst,btr->bshr", w, ckv)
     o = torch.einsum("bshr,rhd->bshd", o_lat,
                      p["w_uv"].reshape(r, Hq, vd).to(f32))
     return o.reshape(B, 1, Hq * vd).to(x.dtype) @ p["wo"]
 
 
-def new_latent(cfg, x, p, pos: int):
+def new_latent(cfg, x, p, pos):
     """This step's MLA cache rows: the latent (B, 1, r) and the rope key
     after rope (B, 1, rd)."""
     B = x.shape[0]
     kr = rope((x @ p["w_kr"])[..., None, :],
-              torch.full((B, 1), pos, device=x.device), cfg.rope_theta)
+              step_positions(pos, B, x.device), cfg.rope_theta)
     return x @ p["w_dkv"], kr[..., 0, :]
 
 

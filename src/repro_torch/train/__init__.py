@@ -1,2 +1,1 @@
-"""repro_torch.train — the serving steps of the reference's
-``repro.train.steps``; the train step comes with the training slice."""
+"""repro_torch.train — the train step and the serving steps."""

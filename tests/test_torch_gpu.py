@@ -865,3 +865,144 @@ def test_family_decode_on_the_card(arch, cuda):
         for k, t in cache.items():
             assert torch.equal(_bits(t), _bits(after[k])), (i, k)
         assert _rel(got, want[:, P + i]) <= 5e-2, i
+
+
+#: K5 with ``kv_len`` in device memory (chunks planned for all S, the
+#: ones past ``kv_len`` empty): (B, Hq, Hkv, S, d, kv_len) — Llama-3-8B's
+#: step at the horizon 1056 after one row, mid-way and full; Hymba's ring;
+#: Whisper's self-attention over 224 rows; one head over 4099 rows
+DEVICE_KV_CASES = [(8, 32, 8, 1056, 128, 1), (8, 32, 8, 1056, 128, 300),
+                   (8, 32, 8, 1056, 128, 1056), (8, 25, 5, 1024, 64, 130),
+                   (8, 16, 16, 224, 64, 17), (1, 1, 1, 4099, 48, 2049)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,S,d,kv_len", DEVICE_KV_CASES)
+def test_decode_attention_device_kv_len_on_gpu(B, Hq, Hkv, S, d, kv_len,
+                                               dtype, cuda):
+    """K5 reading ``kv_len`` from device memory: its split partials (the
+    empty chunks m = -inf, l = 0, acc = 0) and its output against the
+    plain versions, NaN rows past ``kv_len`` never read, a bitwise
+    repeat, the same output as the host-integer ``kv_len`` within the
+    tolerance, and one CUDA graph replayed at another ``kv_len``."""
+    rng = np.random.default_rng(S + kv_len)
+    q = _randn(rng, B, Hq, d, dtype=dtype, scale=0.5)
+    k = _randn(rng, B, S, Hkv, d, dtype=dtype, scale=0.2)
+    v = _randn(rng, B, S, Hkv, d, dtype=dtype)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    tol = 1e-3 if dtype == torch.bfloat16 else 1e-4
+    kn, vn = k.clone(), v.clone()
+    kn[:, kv_len:] = float("nan")
+    vn[:, kv_len:] = float("nan")
+    acc, m, l, length = k5.split(q, kn, vn, kv_len=kl)
+    chunks = acc.shape[0] // (B * Hkv)
+    assert chunks == -(-S // length)
+    for got, w in zip((acc, m, l), ref.decode_attention_split(
+            q, k, v, length, kv_len=kl)):
+        fin = torch.isfinite(w)
+        assert torch.equal(torch.isfinite(got), fin)
+        assert torch.equal(got[~fin], w[~fin])
+        assert _rel(got[fin], w[fin]) <= 1e-4
+    got = ops.decode_attention(q, kn, vn, kl)
+    again = ops.decode_attention(q, kn, vn, kl)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(_bits(got), _bits(again))
+    assert _rel(got, ref.decode_attention(q, k, v, kv_len=kv_len)) <= tol
+    assert _rel(got, ops.decode_attention(q, k, v, kv_len)) <= tol
+    # one graph, two positions
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention(q, k, v, kl)
+    for n in (kv_len, max(1, kv_len // 2), S):
+        kl.fill_(n)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _rel(out, ref.decode_attention(q, k, v, kv_len=n)) <= tol, n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3_8b", "qwen2_7b", "granite3_8b",
+                                  "granite_34b", "deepseek_v2_lite",
+                                  "grok1_314b", "llava_next_34b",
+                                  "mamba2_2p7b", "hymba_1p5b",
+                                  "whisper_medium"])
+def test_generate_replays_one_graph_equal_to_eager(arch, cuda):
+    """``generate`` at the smoke size, bfloat16, B 8: one capture, every
+    later step replayed, the tokens and the cache equal to the eager
+    path's (``graph=False``: the same kernels) bitwise, and each replay
+    counting the step's kernels."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.serve import draw_inputs, generate, load_model
+    cfg = smoke_config(arch)
+    model = load_model(cfg, 0, "cuda")
+    x = draw_inputs(cfg, 8, 40, 0)
+    kw = dict(patches=x["patches"], frames=x["frames"])
+    eager = generate(cfg, model, x["prompts"], 12, graph=False, **kw)
+    LAUNCHES.reset()
+    replayed = generate(cfg, model, x["prompts"], 12, **kw)
+    assert (eager["captures"], replayed["captures"]) == (0, 1)
+    assert np.array_equal(replayed["tokens"], eager["tokens"])
+    for k, t in replayed["cache"].items():
+        assert torch.equal(_bits(t), _bits(eager["cache"][k])), k
+    assert LAUNCHES.total > 0 or cfg.norm == "layernorm"
+
+
+@pytest.mark.gpu
+def test_k7_masked_labels_read_no_column_on_gpu(cuda):
+    rng = np.random.default_rng(5)
+    x = _randn(rng, 64, 1000, dtype=torch.bfloat16)
+    labels = torch.as_tensor(rng.integers(-1, 1000, 64), device="cuda")
+    labels[::7] = -1
+    got = k7.softmax_xent_rows(x, labels)
+    want = ref.softmax_xent_rows(x, labels)
+    assert _rel(got, want) <= 1e-5
+    lse = torch.logsumexp(x.float(), -1)
+    assert _rel(got[labels < 0], lse[labels < 0]) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moments", ["float32", "int8"])
+def test_train_steps_on_gpu(moments, cuda):
+    """``launch.train``'s path at the smoke size on the card: K4 and K7
+    on the forward (K4 again in the backward's recompute) and K6 once a
+    leaf a step; the first step's loss within 1e-2 of the same step on
+    the CPU (bfloat16 matmuls); the loss falls over 12 steps."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, smoke_config
+    from repro_torch.data import make_batch_fn, shard_batch
+    from repro_torch.launch.train import build_state
+    from repro_torch.optim import AdamWHyper
+    from repro_torch.train.steps import make_train_step
+    cfg = dataclasses.replace(smoke_config("llama3_8b"),
+                              opt_moment_dtype=moments)
+    h = AdamWHyper(lr=3e-3, warmup_steps=1, total_steps=12)
+    get = make_batch_fn(cfg, ShapeConfig("t", 64, 8, "train"))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        state = build_state(cfg, 0, "cpu")
+        if dev == "cuda":
+            state = {"params": {n: t.cuda() for n, t in
+                                state["params"].items()},
+                     "params_c": state["params_c"].cuda(),
+                     "opt": {k: ({n: (t.cuda() if isinstance(t, torch.Tensor)
+                                      else {q: u.cuda() for q, u in t.items()})
+                                  for n, t in o.items()}
+                                 if isinstance(o, dict) else o.cuda())
+                             for k, o in state["opt"].items()}}
+        step = make_train_step(cfg, h)
+        LAUNCHES.reset()
+        state, met = step(state, shard_batch(get(0), dev))
+        losses[dev] = [float(met["loss"])]
+        if dev == "cuda":
+            n_leaves = len(state["params"])
+            counts = dict(LAUNCHES.by_kernel)
+            assert counts.get("K6/adamw_f32") == n_leaves
+            assert counts.get("K7/xent_bf16") == 1
+            assert counts.get("K4/rmsnorm_bf16", 0) >= 2 * cfg.n_layers + 1
+            for i in range(1, 12):
+                state, met = step(state, shard_batch(get(i), dev))
+                losses[dev].append(float(met["loss"]))
+    assert abs(losses["cuda"][0] - losses["cpu"][0]) <= 1e-2 * losses["cpu"][0]
+    assert losses["cuda"][-1] < losses["cuda"][0]

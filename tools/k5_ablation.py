@@ -77,7 +77,7 @@ def main():
         libs[name] = (
             _build.c_function(lib, "decode_attention_split_launch",
                               [ptr] * 6 + [i] * 8 + [ctypes.c_float, i,
-                                                     ptr]),
+                                                     ptr, ptr]),
             _build.c_function(lib, "decode_attention_combine_launch",
                               [ptr] * 4 + [i] * 6 + [ptr]),
             _build.c_function(lib, "decode_attention_config",
