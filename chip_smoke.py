@@ -42,7 +42,12 @@ inputs made from a seed:
   the synthetic pipeline): Llama-3-8B at its full width, its depth cut
   32 -> 4, 8 sequences of 1024 tokens, 8 steps, K4 and K7 on the
   forward (with plain float32 backwards) and K6 on every AdamW leaf;
-  then int8 moments at depth 2 for 4 steps.
+  then int8 moments at depth 2 for 4 steps, checkpointed after step 2
+  (``ckpt.AsyncCheckpointer``) and restored into a fresh state, which
+  trains steps 2-3 again;
+* replica-sharded serving: the engine's stream through
+  ``ShardedServingEngine`` over ``launch.mesh.make_data_mesh()`` and
+  over two replicas on the one card.
 
 Phases, each printed as JSON lines:
 
@@ -136,7 +141,17 @@ Phases, each printed as JSON lines:
    the largest leaf beside its bound, its plain version and fused
    ``torch.optim.AdamW``; the int8-moment run; the K4 and K7 backward
    against autograd through the plain versions at (8192, 4096) and
-   (8192, 128256) bfloat16 (1e-3, ``train_backward``);
+   (8192, 128256) bfloat16 (1e-3, ``train_backward``); each ``lm`` and
+   ``train`` line prints ``launch.costmodel``'s bound on one card beside
+   the smoke's own bound and the measured step (not held);
+   ckpt: on the int8 run (``ckpt_check``), the state saved after step 2
+   under a temporary directory (removed after): bytes on disk (~12.0
+   GB), the stall on the caller's thread, the writer's seconds and GB/s,
+   restore's seconds, the free bytes there; a state built from another
+   seed restored at step 2 trains steps 2-3 again, the counts set to 0
+   just before (K4, K6, K7 must launch): masters, the bf16 copy,
+   moments, ``step`` and both losses bitwise the run's; one byte of a
+   small leaf's file flipped, ``restore`` must raise ``IOError``;
 3. kernel: every K1 group's kernel against K1's plain tiled version on
    the same inputs on the card, and a second launch of it bitwise equal
    to the first (the groups whose reduce axes K1 cuts into slices
@@ -185,7 +200,15 @@ Phases, each printed as JSON lines:
    stream unpacked (max_pack 1); a graph replay bitwise equal to the
    eager run of the same staged batch; each engine kernel on one staged
    batch against its plain batched version (the group's dense function,
-   request by request), and timed;
+   request by request), and timed; then sharded (``sharded_phase``):
+   the same stream through ``ShardedServingEngine`` over
+   ``make_data_mesh()`` (one replica on one card: the base engine's
+   programs under its keys) and over ``make_mesh((2,), ("data",),
+   [cuda:0, cuda:0])`` (each dispatch two row blocks, each its
+   replica's batched K1 launches), each warmed, then one drain counted:
+   every request bitwise the base engine's, every engine kernel
+   launched, ``replica_rows`` front-loaded as ``replica_fill`` gives, µs
+   a request beside the base engine's;
 9. fp16: AXPYDOT (2**24) and GEMVER (4096, A and the u, v vectors scaled
    by n**-0.5 to stay inside float16's range) in float16 through K1,
    ``best`` and ``unfused``: launches counted (each group once), outputs
@@ -359,6 +382,8 @@ K6_HYPERS = dict(lr=1e-3, beta1=0.9, beta2=0.95, eps=1e-8,
 XENT = (8192, 128256)
 #: the engine phase: requests, largest batch, most members a pack
 ENGINE_REQUESTS, ENGINE_BATCH, ENGINE_PACK = 64, 8, 8
+#: rounds of the sharded phase's timed drains, each engine in turn
+SHARDED_ROUNDS = 5
 #: arrival rate of the engine phase's open-loop run (requests a second)
 OPEN_LOOP_HZ = 2000.0
 #: float16 through K1: AXPYDOT over 2**24, GEMVER at 4096
@@ -437,6 +462,13 @@ TRAIN_LR = 3e-3
 #: ... and the int8 moments (Grok-1's setting, which cannot train on one
 #: card): the same model at depth 2 for 4 steps
 TRAIN_INT8_DEPTH, TRAIN_INT8_STEPS = 2, 4
+#: the ckpt phase on that run: ``AsyncCheckpointer.save`` after step 2,
+#: a fresh state restored there trains steps 2-3 again (depth 4 with
+#: float32 moments would write 26.9 GB)
+CKPT_AT = 2
+#: the leaf whose file the ckpt phase corrupts: a small one (4096 int8
+#: moments), early in ``restore``'s order
+CKPT_VICTIM = "opt/m/final_g/q"
 #: K6 on the first step against its plain version, float32
 K6_TRAIN_RTOL = 1e-5
 #: H100 SXM bfloat16 on the tensor cores, dense
@@ -468,6 +500,111 @@ def engine_ranges(args) -> dict:
 #: inputs (AXPYDOT's r = (w - alpha v) . u)
 CANCELLING = {("AXPYDOT", 1): lambda w, v, u, alpha:
               float(abs((w - alpha * v) * u).sum())}
+
+
+def sharded_phase(engine, reqs, results, base_us: float, failures: list,
+                  smi_line: str):
+    """Phase ``sharded``: the engine phase's stream through
+    ``ShardedServingEngine`` on the engine's compiler, first over
+    ``make_data_mesh()`` (every GPU: one replica on one card, which must
+    be the base engine: the same programs under the same keys), then
+    over ``make_mesh((2,), ("data",), [cuda:0, cuda:0])`` (two replicas
+    on the one card: each dispatch split into two row blocks, each
+    block its replica's batched K1 launches).  Each engine is warmed as
+    the base engine is (``warm``, two drains), then one drain run with
+    the counts set to 0 just before and read just after: every request
+    bitwise the base engine's, every engine kernel launched,
+    ``replica_rows`` the front-loaded fill ``replica_fill`` gives.  Then
+    ``SHARDED_ROUNDS`` rounds of one closed-loop drain on each engine in
+    turn (the base engine first): µs a request, each engine's median
+    beside the base engine's (no limit set)."""
+    import torch
+
+    from repro_torch.core import LAUNCHES
+    from repro_torch.launch.mesh import make_data_mesh, make_mesh
+    from repro_torch.serving import ShardedServingEngine, replica_fill
+
+    meshes = {"data_mesh": make_data_mesh(),
+              "two_on_cuda0": make_mesh((2,), ("data",),
+                                        devices=["cuda:0", "cuda:0"])}
+    line = {"phase": "sharded", "nvidia_smi": smi_line,
+            "requests": len(reqs), "base_us_per_request": base_us}
+    engines = {}
+    for tag, mesh in meshes.items():
+        eng = ShardedServingEngine(mesh, compiler=engine.compiler,
+                                   max_batch=ENGINE_BATCH, min_bucket=64,
+                                   registry=engine.registry)
+        t0 = time.perf_counter()
+        for s_ in sorted({s_ for s_, _, _ in reqs}):
+            eng.warm(s_, [n for t, n, _ in reqs if t == s_],
+                     trace_packs=False)
+        for _ in range(2):
+            eng.serve(reqs)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        rows0 = list(eng.replica_rows)
+        disp0 = eng.n_dispatches
+        LAUNCHES.reset()
+        base_rid = eng._rid
+        out = eng.serve(reqs)
+        launches = dict(LAUNCHES.by_kernel)
+        got = {r.rid - base_rid: r for r in out}
+        bitwise = all(
+            torch.equal(a.view(torch.int32), b.view(torch.int32))
+            for i, r in enumerate(results)
+            for a, b in zip(r.outputs, got[i].outputs))
+        rows = [a - b for a, b in zip(eng.replica_rows, rows0)]
+        # the fill each dispatch's chunk gives, key by key
+        want_rows = [0] * eng.n_replicas
+        counts = {}
+        for s_, n, _ in reqs:
+            key = (s_, eng.bucket_of(n))
+            counts[key] = counts.get(key, 0) + 1
+        for k in counts.values():
+            for i in range(0, k, eng.max_batch):
+                c = min(eng.max_batch, k - i)
+                for j, f in enumerate(replica_fill(
+                        c, eng._dispatch_batch(c), eng.n_replicas)):
+                    want_rows[j] += f
+        used = {fn.__self__.name for p in eng._programs.values()
+                for fn in p.group_fns}
+        never = sorted(k for k in used if not launches.get(k))
+        same_programs = (sorted(eng._programs) == sorted(engine._programs)
+                         and all(eng._programs[k] is engine._programs[k]
+                                 for k in engine._programs))
+        st = eng.stats()
+        rec = {"n_replicas": eng.n_replicas, "max_batch": eng.max_batch,
+               "devices": [str(d) for d in mesh.devices], "warm_s": warm_s,
+               "n_dispatches": eng.n_dispatches - disp0,
+               "replica_rows": rows, "replica_rows_expected": want_rows,
+               "bitwise_vs_base": bitwise, "launches": launches,
+               "kernels_never_launched": never,
+               "graph_captures": st["graph_captures"],
+               "graphs_per_input_set": st["graphs_per_input_set"]}
+        if eng.n_replicas == 1:
+            rec["same_programs_as_base"] = same_programs
+        line[tag] = rec
+        if not (bitwise and not never and rows == want_rows
+                and rows == sorted(rows, reverse=True)
+                and (eng.n_replicas > 1 or same_programs)):
+            failures.append(f"sharded {tag}: bitwise {bitwise}, never "
+                            f"launched {never}, rows {rows} (want "
+                            f"{want_rows}), same programs {same_programs}")
+        engines[tag] = eng
+        del out, got
+    us = {tag: [] for tag in ("base", *engines)}
+    for _ in range(SHARDED_ROUNDS):
+        for tag, eng in (("base", engine), *engines.items()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.serve(reqs)
+            us[tag].append((time.perf_counter() - t0) / len(reqs) * 1e6)
+    line["us_per_request"] = us
+    line["us_per_request_median"] = {k: sorted(v)[len(v) // 2]
+                                     for k, v in us.items()}
+    del engines
+    torch.cuda.empty_cache()
+    emit(line)
 
 
 def fp16_inputs(name: str, n: int, seed: int = 0) -> dict:
@@ -789,6 +926,22 @@ def lm_step_bound(cfg, B: int, kv_len: int, experts=None):
     return ms, by, nbytes
 
 
+def cost_terms(cfg, seq: int, batch: int, kind: str) -> dict:
+    """``launch.costmodel.estimate(cfg, shape).terms(1)`` in ms: the
+    closed-form step bound on one card (the data sheet's 989 TFLOP/s
+    bf16 and 3.35 TB/s), printed beside the smoke's own bounds and the
+    measured step, not held."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.costmodel import estimate
+    t = estimate(cfg, ShapeConfig("chip", seq, batch, kind)).terms(1)
+    return {"kind": kind, "seq": seq, "batch": batch,
+            "t_compute_ms": t["t_compute_s"] * 1e3,
+            "t_memory_ms": t["t_memory_s"] * 1e3,
+            "step_lower_bound_ms": t["step_lower_bound_s"] * 1e3,
+            "dominant": t["dominant"],
+            "roofline_fraction": t["roofline_fraction"]}
+
+
 def device_busy(prof) -> dict:
     """From a ``torch.profiler`` run: the device's busy time (the union of
     its kernels' intervals, µs) and the kernels' device time by name,
@@ -1076,6 +1229,8 @@ def lm_run(args, arch: str, depth, failures: list, smi_line: str) -> list:
     bounds = [lm_step_bound(cfg, B, n, experts)[0] for n in kv_lens]
     bound_ms = sum(bounds) / len(bounds)
     last = lm_step_bound(cfg, B, kv_lens[-1], experts)
+    cost = cost_terms(cfg, kv_lens[-1], B, "decode") | {
+        "lm_step_bound_ms": last[0]}
     if moe:
         all_e = lm_step_bound(cfg, B, kv_lens[-1])
         moe_rec.update(bound_bytes=last[2],
@@ -1126,6 +1281,7 @@ def lm_run(args, arch: str, depth, failures: list, smi_line: str) -> list:
           "decode_tok_s": B * (len(steps_ms) + 1) / decode_s,
           "bound_ms_per_step": bound_ms, "bound_tok_s": B / bound_ms * 1e3,
           "bound_by": last[1], "bound_bytes_last_step": last[2], **moe_rec,
+          "costmodel_last_step": cost,
           "step_device_ms": step_dev_ms, "step_timed_by": step_how,
           "traced_step_ms": traced_s * 1e3,
           "traced_busy_ms": None if busy_us is None else busy_us / 1e3,
@@ -1260,7 +1416,7 @@ def train_matmul_flops(cfg, B: int, S: int) -> dict:
 
 
 def train_run(args, depth: int, steps: int, moments: str, failures: list,
-              smi_line: str, checks: bool) -> tuple[dict, list]:
+              smi_line: str, checks: bool, ckpt=None) -> tuple[dict, list]:
     """``TRAIN_ARCH`` at full width and ``depth`` layers with
     ``opt_moment_dtype=moments``: ``launch.train.build_state`` from
     ``--seed``, ``steps`` steps of ``train.steps.make_train_step`` on the
@@ -1274,8 +1430,9 @@ def train_run(args, depth: int, steps: int, moments: str, failures: list,
     plain version and ``F.cross_entropy``), and on the first step K6 on
     the first MLP leaf against its plain version; after the steps K6
     timed on the largest leaf, and one more step traced by
-    ``torch.profiler`` (busy share, device time by kernel).  Returns (the
-    phase line, the kernel records)."""
+    ``torch.profiler`` (busy share, device time by kernel).  ``ckpt`` (a
+    ``ckpt_check``) sees the state after every step and the run's end.
+    Returns (the phase line, the kernel records)."""
     import dataclasses
 
     import numpy as np
@@ -1371,6 +1528,8 @@ def train_run(args, depth: int, steps: int, moments: str, failures: list,
             b.record()
             losses.append(float(met["loss"]))
             ms.append(a.elapsed_time(b))
+            if ckpt is not None:
+                ckpt.after_step(i, cfg, state)
             if i == 1:
                 per_step = {k: n - before.get(k, 0)
                             for k, n in LAUNCHES.by_kernel.items()
@@ -1414,7 +1573,9 @@ def train_run(args, depth: int, steps: int, moments: str, failures: list,
             "bf16_peak_share": flops["bf16_matmul_flops"]
             / (step_ms / 1e3 * BF16_OPS_PER_S),
             "launches_per_step": per_step, "main_launches": main_launches,
-            "losses": losses, "trace": trace}
+            "losses": losses, "trace": trace,
+            "costmodel": cost_terms(cfg, S, B, "train") | {
+                "measured_step_ms": step_ms}}
     if checks:      # K6 on the first step, then timed on the largest leaf
         p, g, m, v = tap["args"]
         want = ref.adamw(p, g, m, v, lr=tap["lr"], beta1=hyper.beta1,
@@ -1465,6 +1626,8 @@ def train_run(args, depth: int, steps: int, moments: str, failures: list,
         emit({"phase": "time", "path": "train", **rec7,
               "bound_share": rec7["bound_ms"] / rec7["ms"]})
         records.append(rec7)
+    if ckpt is not None:
+        ckpt.finish(args, cfg, state, step, batches, losses, failures)
     del state, batches
     torch.cuda.empty_cache()
     return line, records
@@ -1524,6 +1687,140 @@ def train_backward_checks(args, failures: list) -> dict:
     return out
 
 
+class ckpt_check:
+    """Phase ``ckpt`` on the train phase's int8 run (``train_run`` calls
+    ``after_step`` and ``finish``): after step ``at`` the state goes to
+    ``AsyncCheckpointer.save`` under a temporary directory (the stall on
+    this thread timed), and the run trains on; at its end the writer is
+    closed (its seconds and GB/s from ``timings``), a state built from
+    another seed is restored at ``at`` (timed) and trains the same
+    steps: masters, the bf16 copy, moments, ``step`` and the losses must
+    be bitwise the run's, and the restored steps launch K4, K6 and K7.
+    Then one byte of ``CKPT_VICTIM``'s file is flipped and ``restore``
+    must raise ``IOError``.  ``cleanup`` removes the directory."""
+
+    def __init__(self, at: int, smi_line: str):
+        self.at, self.dir, self.ck = at, None, None
+        self.line = {"phase": "ckpt", "nvidia_smi": smi_line, "at": at}
+
+    def after_step(self, i: int, cfg, state):
+        import shutil
+        import tempfile
+
+        import torch
+
+        from repro_torch.ckpt import AsyncCheckpointer
+        if i + 1 != self.at:
+            return
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        self.line.update(dir=self.dir,
+                         free_bytes=shutil.disk_usage(self.dir).free)
+        self.ck = AsyncCheckpointer(os.path.join(self.dir, "ck"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.ck.save(self.at, state, {"arch": cfg.name})
+        self.line["stall_ms"] = (time.perf_counter() - t0) * 1e3
+
+    def finish(self, args, cfg, state, step, batches, losses, failures):
+        import json
+
+        import torch
+
+        from repro_torch.ckpt import restore
+        from repro_torch.ckpt.checkpoint import _flatten
+        from repro_torch.core import LAUNCHES
+        from repro_torch.launch.train import build_state
+        t0 = time.perf_counter()
+        self.ck.close()
+        close_s = time.perf_counter() - t0
+        d = os.path.join(self.dir, "ck", f"step_{self.at:08d}")
+        with open(os.path.join(d, "manifest.json")) as f:
+            manifest = json.load(f)
+        sizes = {k: os.path.getsize(os.path.join(d, m["file"]))
+                 for k, m in manifest["leaves"].items()}
+        timing = self.ck.timings[self.at]
+        total = sum(sizes.values())
+        part = {name: sum(n for k, n in sizes.items()
+                          if k.startswith(prefix))
+                for name, prefix in (("masters", "params/"),
+                                     ("bf16_copy", "params_c/"),
+                                     ("moments", "opt/m/"),
+                                     ("moments_v", "opt/v/"))}
+        torch.cuda.empty_cache()
+        fresh = build_state(cfg, args.seed + 1, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh, at, extra = restore(os.path.join(self.dir, "ck"), fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        LAUNCHES.reset()
+        again = []
+        for i in range(at, len(losses)):
+            fresh, met = step(fresh, batches[i])
+            again.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES.by_kernel)
+
+        def bits(t):
+            t = t.detach()
+            return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+        a, b = dict(_flatten(state)), dict(_flatten(fresh))
+        differ = [k for k in a if not torch.equal(bits(a[k]), bits(b[k]))]
+        groups = {g: all(k not in differ for k in a if k.startswith(p))
+                  for g, p in (("masters", "params/"),
+                               ("bf16_copy", "params_c/"),
+                               ("moments", "opt/m/"), ("moments_v", "opt/v/"),
+                               ("step", "opt/step"))}
+        del fresh, a, b
+        torch.cuda.empty_cache()
+        victim = os.path.join(d, manifest["leaves"][CKPT_VICTIM]["file"])
+        with open(victim, "r+b") as f:
+            f.seek(-1, os.SEEK_END)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_END)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        raised = None
+        try:
+            restore(os.path.join(self.dir, "ck"),
+                    {"opt": {"m": {"final_g": {
+                        "q": torch.empty(state["opt"]["m"]["final_g"]["q"]
+                                         .shape, dtype=torch.int8,
+                                         device="cuda")}}}})
+        except IOError as e:
+            raised = str(e)
+        losses_equal = again == losses[at:]
+        self.line.update(
+            bytes_on_disk=total, gb_on_disk=total / 1e9,
+            gb_by_part={k: v / 1e9 for k, v in part.items()},
+            leaves=len(sizes), snapshot_wait_s=timing["snapshot_s"],
+            write_s=timing["write_s"],
+            write_gb_s=total / 1e9 / timing["write_s"],
+            close_wait_s=close_s, restore_s=restore_s,
+            restore_gb_s=total / 1e9 / restore_s, restored_step=at,
+            extra=extra, losses=losses[at:], restored_losses=again,
+            losses_bitwise=losses_equal, bitwise=groups,
+            leaves_differing=differ[:8], restored_launches=launches,
+            corruption_raised=raised)
+        if not (losses_equal and not differ and at == self.at):
+            failures.append(f"ckpt: the restored run differs: losses "
+                            f"{again} against {losses[at:]}, leaves "
+                            f"{differ[:8]}")
+        for k in ("K4/rmsnorm_bf16", "K6/adamw_f32", "K7/xent_bf16"):
+            if not launches.get(k):
+                failures.append(f"ckpt: {k} was not launched after the "
+                                f"restore")
+        if raised is None:
+            failures.append(f"ckpt: restore of a corrupted "
+                            f"{CKPT_VICTIM} raised no IOError")
+
+    def cleanup(self):
+        import shutil
+        if self.ck is not None:
+            self.ck.close()
+        if self.dir is not None:
+            shutil.rmtree(self.dir)
+
+
 def train_phase(args, failures: list, smi_line: str) -> list:
     """Phase ``train``: ``train_run`` at ``TRAIN_DEPTH`` with float32
     moments and the checks, at ``TRAIN_INT8_DEPTH`` with int8 moments,
@@ -1531,9 +1828,14 @@ def train_phase(args, failures: list, smi_line: str) -> list:
     line, records = train_run(args, TRAIN_DEPTH, TRAIN_STEPS, "float32",
                               failures, smi_line, checks=True)
     emit(line)
-    line, _ = train_run(args, TRAIN_INT8_DEPTH, TRAIN_INT8_STEPS, "int8",
-                        failures, smi_line, checks=False)
+    ckpt = ckpt_check(CKPT_AT, smi_line)
+    try:
+        line, _ = train_run(args, TRAIN_INT8_DEPTH, TRAIN_INT8_STEPS, "int8",
+                            failures, smi_line, checks=False, ckpt=ckpt)
+    finally:
+        ckpt.cleanup()
     emit(line)
+    emit(ckpt.line)
     train_backward_checks(args, failures)
     return records
 
@@ -2665,7 +2967,7 @@ def main(argv=None):
     packed_ok = all(torch.equal(bits(o), bits(u)) for r, q in
                     zip(results, unpacked) for o, u in zip(r.outputs,
                                                             q.outputs))
-    del results, unpacked
+    del unpacked
     # a graph replay against the eager run of the same staged batch
     replay_ok = True
     for (s_, b), prog in engine_progs.items():
@@ -2721,6 +3023,12 @@ def main(argv=None):
                      (not never, f"kernels never launched: {never}")):
         if not ok:
             failures.append(f"engine: {what}")
+    if failures:
+        fail("; ".join(failures))
+    # -- sharded: the same stream over a replica mesh -----------------------
+    sharded_phase(engine, reqs, results, t_serve / len(stream) * 1e6,
+                  failures, smi_line)
+    del results
     if failures:
         fail("; ".join(failures))
 

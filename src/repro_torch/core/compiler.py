@@ -548,6 +548,72 @@ class FusionCompiler:
                 bucket, hit=False, seconds=time.perf_counter() - t0)
         return prog
 
+    def compile_sharded(self, script, input_shapes: dict[str, Sequence[int]],
+                        mesh, axis: str = "data", max_batch: int = 8,
+                        mode="best", backend: str | None = None,
+                        bucket: str | None = None):
+        """Sharded variant of :meth:`compile_batched` for replica-sharded
+        serving: the batched program spread over the ``axis`` replicas
+        of ``mesh`` (``dist.sharding.shard_program``), so one global
+        batch runs as contiguous per-replica row blocks, each on its
+        replica's device, with no communication between them.
+
+        Args:
+          script, input_shapes, mode, backend, bucket: as
+            :meth:`compile_batched`.
+          mesh: a ``launch.mesh.Mesh`` holding the replica axis
+            (``make_data_mesh()`` for a pure replica mesh).
+          axis: the mesh axis to spread the batch over.
+          max_batch: the largest global batch (a cache-key component,
+            as the reference's).
+
+        Returns:
+          A ``dist.sharding.ShardedProgram`` whose batch sizes must be
+          multiples of the replica count (``ShardedServingEngine``
+          quantizes its dispatches so), or, when ``axis`` has size 1,
+          exactly :meth:`compile_batched`'s program.  The plan layer is
+          shared with the other entry points; the program layer keys on
+          ``("sharded", mode, max_batch, axis, mesh_fingerprint)``, so
+          meshes over other devices never alias.
+
+        Raises:
+          ValueError: as :meth:`compile`, or when ``mesh`` lacks
+            ``axis``.
+        """
+        from ..dist.sharding import (mesh_axis_sizes, mesh_fingerprint,
+                                     shard_program)
+
+        backend = backend or self.backend
+        self._check_backend(backend)
+        mode_key = self._mode_key(mode)
+        bucket = bucket or self._bucket_label(input_shapes)
+        sizes = mesh_axis_sizes(mesh)
+        if axis not in sizes:
+            raise ValueError(f"mesh {tuple(sizes)} has no {axis!r} axis")
+        if sizes[axis] == 1:
+            return self.compile_batched(script, input_shapes, mode=mode,
+                                        backend=backend, bucket=bucket)
+        t0 = time.perf_counter()
+        cache = self.cache
+        pkey = None
+        if cache is not None:
+            pkey = self._program_key(
+                script, input_shapes, backend,
+                ("sharded", mode_key, max_batch, axis,
+                 mesh_fingerprint(mesh)))
+            if pkey is not None:
+                prog = cache.get_program(pkey)
+                if prog is not None:
+                    cache.stats.record_bucket(
+                        bucket, hit=True, seconds=time.perf_counter() - t0)
+                    return prog
+        base = self.compile_batched(script, input_shapes, mode=mode,
+                                    backend=backend, bucket=bucket)
+        prog = shard_program(base, mesh, axis)
+        if cache is not None and pkey is not None:
+            cache.put_program(pkey, prog)
+        return prog
+
     def compile_packed(self, members, mode="best",
                        backend: str | None = None, bucket: str | None = None
                        ) -> codegen.PackedDispatch:

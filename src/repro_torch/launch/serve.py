@@ -34,6 +34,15 @@ mod the ``--sizes`` count (default 256,1000,1024,2048; ``--quick``
     PYTHONPATH=src python -m repro_torch.launch.serve --blas GEMVER,BiCGK \
         --engine --sizes 1000,4096 --requests 64
 
+Replica-sharded serving: ``--engine --sharded`` spreads every dispatch
+over the ``data`` axis of a replica mesh (``launch.mesh.make_data_mesh``)
+of ``--devices`` replicas on ``--device`` (default every GPU present;
+on the CPU, one), each replica running its contiguous row block of the
+batch:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --blas GEMVER \
+        --engine --sharded --devices 8 --requests 32 --quick --device cpu
+
 Empirical search: ``--autotune`` compiles under constants calibrated on
 the device (``hw="calibrate"``) and measures the ``--budget`` best
 predicted candidates, timing each group of each one on the card; with
@@ -280,9 +289,10 @@ def serve_arch(args):
     lines and returns the (B, gen) tokens."""
     from repro_torch.configs import get_config, smoke_config
     if args.model_parallel > 1:
-        raise ValueError(f"--model-parallel {args.model_parallel}: sharded "
-                         f"serving comes with the port's dist slice "
-                         f"(ROADMAP.md); this path runs on one device")
+        raise ValueError(f"--model-parallel {args.model_parallel}: "
+                         f"tensor-parallel serving comes with the port's "
+                         f"SPMD slice of dist (ROADMAP.md); this path runs "
+                         f"on one device")
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     B, P, G = args.batch, args.prompt_len, args.gen
     inputs = draw_inputs(cfg, B, P, args.seed)
@@ -349,7 +359,7 @@ def serve_engine(args) -> dict:
     sizes, or the defaults or ``--quick``'s)."""
     from repro_torch.core import V5E, FusionCompiler
     from repro_torch.programs import REGISTRY
-    from repro_torch.serving import ServingEngine
+    from repro_torch.serving import ServingEngine, ShardedServingEngine
 
     names = [s.strip() for s in args.blas.split(",")]
     for nm in names:
@@ -366,14 +376,25 @@ def serve_engine(args) -> dict:
     cc = FusionCompiler(backend=args.backend, device=args.device,
                         hw="calibrate" if args.autotune else V5E,
                         autotune_budget=args.budget)
-    engine = ServingEngine(compiler=cc, max_batch=args.max_batch,
-                           min_bucket=1 << (min(64, lo).bit_length() - 1),
-                           registry=REGISTRY, max_pack=args.max_pack,
-                           mode=mode)
+    min_bucket = 1 << (min(64, lo).bit_length() - 1)
+    if args.sharded:
+        from repro_torch.launch.mesh import make_data_mesh
+        # the sharded engine pins max_pack to 1 (ShardedServingEngine)
+        engine = ShardedServingEngine(
+            make_data_mesh(args.devices or None, device=args.device),
+            compiler=cc, max_batch=args.max_batch, min_bucket=min_bucket,
+            registry=REGISTRY, mode=mode)
+        print(f"sharded engine: {engine.n_replicas} replicas, "
+              f"max_batch {engine.max_batch}")
+    else:
+        engine = ServingEngine(compiler=cc, max_batch=args.max_batch,
+                               min_bucket=min_bucket, registry=REGISTRY,
+                               max_pack=args.max_pack, mode=mode)
     t0 = time.perf_counter()
     # warm packs once over the full key set, not per sequence
     buckets = {nm: engine.warm(nm, sizes, trace_packs=False) for nm in names}
-    engine.warm_packs()
+    if not args.sharded:
+        engine.warm_packs()
     t_warm = time.perf_counter() - t0
 
     workload = engine_workload(stream, args.seed)
@@ -403,6 +424,8 @@ def serve_engine(args) -> dict:
               f"{st['n_packed_members']} member batches "
               f"(max_pack {st['max_pack']})")
     print(f"  bucket stats: {st['cache']['buckets']}")
+    if args.sharded:
+        print(f"  replica rows: {st['replica_rows']}")
     return {"throughput_rps": rps, "p50_s": p50, "p99_s": p99,
             "t_warm_s": t_warm, "t_serve_s": t_serve,
             "n_results": len(results), "stats": st}
@@ -442,6 +465,12 @@ def main(argv=None):
                     "256,1000,1024,2048; --quick: 64,100,128)")
     ap.add_argument("--quick", action="store_true",
                     help="with --engine: the small sizes 64,100,128")
+    ap.add_argument("--sharded", action="store_true",
+                    help="with --engine: spread every dispatch over a "
+                    "replica mesh of --devices replicas")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="with --engine --sharded: replicas on --device "
+                    "(default: every GPU present; on the CPU, 1)")
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--max-pack", type=int, default=8,
                     help="with --engine: most (sequence, bucket) batches "
@@ -465,6 +494,8 @@ def main(argv=None):
             "RPL401", "cli.--backend",
             f"unknown backend {args.backend!r}",
             f"valid backends: {', '.join(KNOWN_BACKENDS)}")
+    if (args.sharded or args.devices) and not (args.engine and args.sharded):
+        ap.error("--sharded and --devices go with --engine --sharded")
     if args.blas:
         return serve_engine(args) if args.engine else serve_blas(args)
     if not args.arch:

@@ -1,18 +1,22 @@
 """Training launcher, from the reference's ``repro.launch.train``: random
 initialisation from ``--seed``, the synthetic data pipeline, the train
 step (K4 every RMSNorm and K7 the loss on the forward, K6 each AdamW
-leaf), the straggler watchdog and the preemption guard around the step
-loop, on one device.
+leaf), asynchronous checkpoints, the straggler watchdog and the
+preemption guard around the step loop, exact resume, on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_8b \
-        --smoke --steps 200 --batch 8 --seq 128
+        --smoke --steps 200 --batch 8 --seq 128 --ckpt-dir ck --resume
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_8b \
         --smoke --device cpu
 
-Runs on the GPU unless ``--device cpu``.  Not yet here: ``--mesh pod`` /
-``multipod`` and ``--model-parallel`` > 1 (the port's ``dist`` slice),
-``--ckpt-dir`` and ``--resume`` (its ``ckpt/checkpoint.py`` slice); each
-raises, naming the slice that brings it.
+``--ckpt-dir`` saves the state every ``--ckpt-every`` steps (at step + 1)
+and when a preemption signal arrives, before the loop exits;
+``--resume`` restores the newest checkpoint there and trains on from its
+step (the learning rate follows from the restored optimizer step, the
+batches are keyed on (seed, step)).  Runs on the GPU unless ``--device
+cpu``.  Not yet here: ``--mesh pod`` / ``multipod`` and
+``--model-parallel`` > 1 (the port's SPMD slice); each raises, naming
+the slice that brings it.
 """
 from __future__ import annotations
 
@@ -42,16 +46,12 @@ def _refuse(args):
     """Raise for the flags whose slice of the port has not landed."""
     if args.mesh != "host":
         raise ValueError(f"--mesh {args.mesh}: the production meshes come "
-                         f"with the port's dist slice (ROADMAP.md); this "
-                         f"path trains on one device (--mesh host)")
+                         f"with the port's SPMD slice of dist (ROADMAP.md); "
+                         f"this path trains on one device (--mesh host)")
     if args.model_parallel > 1:
         raise ValueError(f"--model-parallel {args.model_parallel}: sharded "
-                         f"training comes with the port's dist slice "
-                         f"(ROADMAP.md); this path runs on one device")
-    if args.ckpt_dir or args.resume:
-        raise ValueError("--ckpt-dir and --resume: checkpointing and exact "
-                         "resume come with the port's ckpt/checkpoint.py "
-                         "slice (ROADMAP.md)")
+                         f"training comes with the port's SPMD slice of "
+                         f"dist (ROADMAP.md); this path runs on one device")
 
 
 def main(argv=None):
@@ -77,7 +77,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     _refuse(args)
 
-    from repro_torch.ckpt import PreemptionGuard, StepWatchdog
+    from repro_torch.ckpt import (AsyncCheckpointer, PreemptionGuard,
+                                  StepWatchdog, latest_step, restore)
     from repro_torch.configs import ShapeConfig, get_config, smoke_config
     from repro_torch.data import make_batch_fn, shard_batch
     from repro_torch.optim import AdamWHyper
@@ -91,13 +92,19 @@ def main(argv=None):
     dev = state["params_c"].device
     print(f"device: {dev}  params: "
           f"{sum(p.numel() for p in state['params'].values())}")
+    start = 0
+    if args.resume and args.ckpt_dir and \
+            latest_step(args.ckpt_dir) is not None:
+        state, start, _ = restore(args.ckpt_dir, state)
+        print(f"resumed from step {start}")
     train_step = steps_lib.make_train_step(cfg, hyper, accum=args.accum)
     get_batch = make_batch_fn(cfg, shape)
 
+    ckpt = AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None
     watchdog = StepWatchdog()
     history = []
     with PreemptionGuard() as guard:
-        for step in range(args.steps):
+        for step in range(start, args.steps):
             t0 = time.perf_counter()
             batch = shard_batch(get_batch(step), dev)
             state, metrics = train_step(state, batch)
@@ -111,9 +118,15 @@ def main(argv=None):
                       f"{dt*1e3:.0f}ms"
                       + (" [straggler]" if flagged else ""))
             history.append({"step": step, "loss": loss, "dt": dt})
+            if ckpt and (step + 1) % args.ckpt_every == 0:
+                ckpt.save(step + 1, state, {"arch": cfg.name})
             if guard.requested:
-                print("preemption requested: exit")
+                print("preemption requested: checkpointing + exit")
+                if ckpt:
+                    ckpt.save(step + 1, state, {"arch": cfg.name})
                 break
+    if ckpt:
+        ckpt.close()
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:
             json.dump(history, f)

@@ -369,8 +369,16 @@ class ServingEngine:
                         singles.extend(part)
         return packs, singles
 
+    def _dispatch_batch(self, k: int) -> int:
+        """Quantized dispatch size for ``k`` queued requests."""
+        return _pow2_batch(k, self.max_batch)
+
+    def _note_dispatch(self, n_real: int, batch: int) -> None:
+        """Telemetry hook: one dispatch of ``batch`` rows, ``n_real``
+        of them real requests (subclasses track replica routing)."""
+
     def _trace_sizes(self) -> list[int]:
-        """Every batch size ``drain`` can dispatch."""
+        """Every batch size ``_dispatch_batch`` can produce."""
         sizes, bs = {self.max_batch}, 1
         while bs < self.max_batch:
             sizes.add(bs)
@@ -526,8 +534,7 @@ class ServingEngine:
         for key, reqs in groups.items():
             for i in range(0, len(reqs), self.max_batch):
                 chunk = reqs[i:i + self.max_batch]
-                units.append((key, chunk,
-                              _pow2_batch(len(chunk), self.max_batch)))
+                units.append((key, chunk, self._dispatch_batch(len(chunk))))
         packs, singles = self._form_packs(units, cold)
 
         in_flight = []
@@ -542,6 +549,7 @@ class ServingEngine:
             self.n_packed_dispatches += 1
             self.n_packed_members += len(pack_units)
             for (key, chunk, batch), outs in zip(pack_units, outs_list):
+                self._note_dispatch(len(chunk), batch)
                 waits = self._record_waits(chunk, t_disp)
                 in_flight.append((key[1], chunk, outs, waits))
         for key, chunk, batch in singles:
@@ -551,6 +559,7 @@ class ServingEngine:
             outs = _own(outs if isinstance(outs, tuple) else (outs,),
                         len(chunk))
             self.n_dispatches += 1
+            self._note_dispatch(len(chunk), batch)
             waits = self._record_waits(chunk, t_disp)
             in_flight.append((key[1], chunk, outs, waits))
 
@@ -632,3 +641,129 @@ class ServingEngine:
                            if cache is not None else None),
             "cache": cache.stats.as_dict() if cache is not None else None,
         }
+
+
+# ---------------------------------------------------------------------------
+# replica-sharded serving
+# ---------------------------------------------------------------------------
+
+def replica_fill(n_real: int, batch: int, n_replicas: int) -> list[int]:
+    """Real rows landing on each replica of a sharded dispatch.
+
+    A dispatch of ``batch`` rows splits into contiguous blocks of
+    ``batch // n_replicas``: replica ``j`` runs rows
+    ``[j*batch/R, (j+1)*batch/R)``.  The first ``n_real`` rows are real
+    requests, the rest padding, so the fill is front-loaded: with an
+    uneven queue one replica runs partly full and later ones may run
+    padding alone.
+
+    >>> replica_fill(5, 8, 4)      # 5 requests, 2-row blocks
+    [2, 2, 1, 0]
+    """
+    per = batch // n_replicas
+    return [max(0, min(per, n_real - j * per)) for j in range(n_replicas)]
+
+
+class ShardedServingEngine(ServingEngine):
+    """The batched engine with every dispatch spread over the ``data``
+    axis of a mesh, from the reference's ``ShardedServingEngine``.
+
+    Same bucketing, padding and batching as ``ServingEngine``; the
+    differences are (1) programs come from
+    ``FusionCompiler.compile_sharded``, so one global batch runs as
+    contiguous per-replica row blocks, each on its replica's device,
+    with no communication between replicas, and (2) dispatch sizes
+    quantize to ``n_replicas * 2**i`` so every replica gets an equal
+    block (``replica_fill`` describes the routing,
+    ``stats()['replica_rows']`` tracks it).  On a one-replica mesh this
+    is exactly the base engine: the same programs, the same keys.
+
+    Numerics: a row's result does not depend on the block it runs in
+    (K1's batched launch computes each request as its single launch
+    does; on the CPU the plain version runs request by request), so
+    every request is bitwise what the single engine gives.
+
+    Packing is off (``max_pack`` is pinned to 1), as in the reference: a
+    packed program is one dispatch over several members' batches, not
+    spread over the mesh, so it would bypass the replicas.
+
+    Args:
+      mesh: a ``launch.mesh.Mesh`` with the replica axis (default:
+        ``make_data_mesh()`` over every GPU present).
+      axis: the replica axis (default ``"data"``).
+      compiler, max_batch, min_bucket, registry, mode, backend: as
+        ``ServingEngine``; ``max_batch`` rounds up to ``n_replicas``
+        times a power of two.
+    """
+
+    def __init__(self, mesh=None, *, compiler: FusionCompiler | None = None,
+                 max_batch: int = 8, min_bucket: int = 128,
+                 registry: Mapping[str, Any] | None = None,
+                 axis: str = "data", mode: str = "best",
+                 backend: str | None = None):
+        from ..dist.sharding import mesh_axis_sizes
+        if mesh is None:
+            from ..launch.mesh import make_data_mesh
+            mesh = make_data_mesh()
+        sizes = mesh_axis_sizes(mesh)
+        if axis not in sizes:
+            raise ValueError(f"mesh {tuple(sizes)} has no {axis!r} axis")
+        self.mesh = mesh
+        self.axis = axis
+        self.n_replicas = sizes[axis]
+        # per-replica row blocks are powers of two; global batch sizes
+        # are n_replicas * block, so every replica gets an equal block
+        self.rows_cap = _pow2_batch(
+            max(1, -(-max_batch // self.n_replicas)), max_batch)
+        super().__init__(compiler=compiler,
+                         max_batch=self.n_replicas * self.rows_cap,
+                         min_bucket=min_bucket, registry=registry,
+                         mode=mode, max_pack=1, backend=backend)
+        self.replica_rows = [0] * self.n_replicas
+
+    def _get_program(self, sequence: str, bucket: int):
+        if self.n_replicas == 1:             # the base engine's programs
+            return super()._get_program(sequence, bucket)
+        key = (sequence, bucket)
+        prog = self._programs.get(key)
+        if prog is None:
+            script, shapes, _, _ = self._compile_specs(sequence, bucket)
+            prog = self.compiler.compile_sharded(
+                script, shapes, mesh=self.mesh, axis=self.axis,
+                max_batch=self.max_batch, mode=self.mode,
+                backend=self.backend, bucket=f"{sequence}/{bucket}")
+            self._programs[key] = prog
+        return prog
+
+    def _dispatch_batch(self, k: int) -> int:
+        rows = _pow2_batch(max(1, -(-k // self.n_replicas)), self.rows_cap)
+        return self.n_replicas * rows
+
+    def _trace_sizes(self) -> list[int]:
+        # rows_cap itself may be no power of two (a capped max_batch), so
+        # the set starts with it, as the base class starts with max_batch
+        rows, r = {self.rows_cap}, 1
+        while r < self.rows_cap:
+            rows.add(r)
+            r *= 2
+        return [self.n_replicas * x for x in sorted(rows)]
+
+    def _note_dispatch(self, n_real: int, batch: int) -> None:
+        for j, c in enumerate(replica_fill(n_real, batch, self.n_replicas)):
+            self.replica_rows[j] += c
+
+    def stats(self) -> dict:
+        from ..dist.sharding import mesh_axis_sizes
+        st = super().stats()
+        runners = [r for p in self._programs.values()
+                   for r in getattr(p, "replica_runners", lambda: [])()]
+        if runners:        # the replicas' graphs
+            st["graph_captures"] += sum(r.n_captures for r in runners)
+            st["graphs_per_input_set"] = max(
+                st["graphs_per_input_set"],
+                max(r.most_graphs for r in runners))
+            st["graph_held_calls"] += sum(r.n_held for r in runners)
+        st["mesh"] = dict(mesh_axis_sizes(self.mesh))
+        st["n_replicas"] = self.n_replicas
+        st["replica_rows"] = list(self.replica_rows)
+        return st

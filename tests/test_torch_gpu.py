@@ -1006,3 +1006,171 @@ def test_train_steps_on_gpu(moments, cuda):
                 losses[dev].append(float(met["loss"]))
     assert abs(losses["cuda"][0] - losses["cpu"][0]) <= 1e-2 * losses["cpu"][0]
     assert losses["cuda"][-1] < losses["cuda"][0]
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    t = t.detach()
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _states_equal(a, b) -> list:
+    """Keys of the leaves where two train states differ in any bit."""
+    from repro_torch.ckpt.checkpoint import _flatten
+    fa, fb = dict(_flatten(a)), dict(_flatten(b))
+    assert fa.keys() == fb.keys()
+    return [k for k in fa if not torch.equal(_bits(fa[k]), _bits(fb[k]))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moments", ["float32", "int8"])
+def test_exact_resume_on_gpu_is_bitwise(moments, cuda, tmp_path):
+    """5 steps on the card, ``AsyncCheckpointer.save`` (the CUDA leaves
+    copied to pinned host memory behind an event), 3 more; a fresh state
+    restored at 5 and 3 more: every leaf and loss bitwise, and the
+    restored state's tensors are its own, on the card."""
+    import dataclasses
+
+    from repro_torch.ckpt import AsyncCheckpointer, restore
+    from repro_torch.configs import ShapeConfig, smoke_config
+    from repro_torch.data import make_batch_fn, shard_batch
+    from repro_torch.launch.train import build_state
+    from repro_torch.optim import AdamWHyper
+    from repro_torch.train.steps import make_train_step
+    cfg = dataclasses.replace(smoke_config("llama3_8b"),
+                              opt_moment_dtype=moments)
+    step = make_train_step(cfg, AdamWHyper(lr=3e-3, warmup_steps=2,
+                                           total_steps=60))
+    get = make_batch_fn(cfg, ShapeConfig("t", 64, 8, "train"))
+    state = build_state(cfg, 0, "cuda")
+    for i in range(5):
+        state, _ = step(state, shard_batch(get(i), "cuda"))
+    ck = AsyncCheckpointer(tmp_path)
+    ck.save(5, state)
+    cont = []
+    for i in range(5, 8):
+        state, m = step(state, shard_batch(get(i), "cuda"))
+        cont.append(float(m["loss"]))
+    ck.close()
+    fresh = build_state(cfg, 1, "cuda")
+    ptrs = [p.data_ptr() for p in fresh["params_c"].parameters()]
+    fresh, at, _ = restore(tmp_path, fresh)
+    assert at == 5
+    assert [p.data_ptr() for p in fresh["params_c"].parameters()] == ptrs
+    assert fresh["opt"]["step"].device.type == "cuda"
+    rest = []
+    for i in range(5, 8):
+        fresh, m = step(fresh, shard_batch(get(i), "cuda"))
+        rest.append(float(m["loss"]))
+    assert rest == cont
+    assert _states_equal(state, fresh) == []
+
+
+DETERMINISTIC_SCRIPT = r"""
+import dataclasses, json, sys
+import torch
+torch.use_deterministic_algorithms(True)
+from repro_torch.ckpt.checkpoint import _flatten
+from repro_torch.configs import ShapeConfig, smoke_config
+from repro_torch.data import make_batch_fn, shard_batch
+from repro_torch.launch.train import build_state
+from repro_torch.optim import AdamWHyper
+from repro_torch.train.steps import make_train_step
+
+out = {}
+for moments in ("float32", "int8"):
+    cfg = dataclasses.replace(smoke_config("llama3_8b"),
+                              opt_moment_dtype=moments)
+    step = make_train_step(cfg, AdamWHyper(lr=3e-3, warmup_steps=1,
+                                           total_steps=10))
+    b = shard_batch(make_batch_fn(cfg, ShapeConfig("t", 64, 8, "train"))(0),
+                    "cuda")
+    runs = []
+    for _ in range(2):
+        st, m = step(build_state(cfg, 0, "cuda"), b)
+        runs.append((float(m["loss"]), dict(_flatten(st))))
+    bits = lambda t: t.detach().view(torch.int16) \
+        if t.dtype == torch.bfloat16 else t.detach()
+    out[moments] = {"loss_equal": runs[0][0] == runs[1][0],
+                    "differ": [k for k in runs[0][1] if not torch.equal(
+                        bits(runs[0][1][k]), bits(runs[1][1][k]))]}
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.gpu
+def test_train_step_is_deterministic_on_gpu(cuda):
+    """The train step twice from one state, every leaf bitwise: under
+    ``torch.use_deterministic_algorithms(True)`` in a subprocess (which
+    raises on an operation with no deterministic algorithm; cuBLAS needs
+    ``CUBLAS_WORKSPACE_CONFIG`` before CUDA starts), and in this process
+    as the port runs it."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    env["PYTHONPATH"] = os.path.join(root, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    r = subprocess.run([sys.executable, "-c", DETERMINISTIC_SCRIPT],
+                       capture_output=True, text=True, timeout=600, env=env)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    for moments, res in out.items():
+        assert res == {"loss_equal": True, "differ": []}, moments
+
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, smoke_config
+    from repro_torch.data import make_batch_fn, shard_batch
+    from repro_torch.launch.train import build_state
+    from repro_torch.optim import AdamWHyper
+    from repro_torch.train.steps import make_train_step
+    cfg = dataclasses.replace(smoke_config("llama3_8b"),
+                              opt_moment_dtype="int8")
+    step = make_train_step(cfg, AdamWHyper(lr=3e-3, warmup_steps=1,
+                                           total_steps=10))
+    b = shard_batch(make_batch_fn(cfg, ShapeConfig("t", 64, 8, "train"))(0),
+                    "cuda")
+    a, ma = step(build_state(cfg, 0, "cuda"), b)
+    c, mc = step(build_state(cfg, 0, "cuda"), b)
+    assert float(ma["loss"]) == float(mc["loss"])
+    assert _states_equal(a, c) == []
+
+
+@pytest.mark.gpu
+def test_two_replicas_on_one_card_equal_the_base_engine(cuda):
+    """``make_mesh((2,), ("data",), [cuda:0, cuda:0])``: every request
+    of a mixed stream bitwise the base engine's, each replica's row
+    block through its own batched K1 launches, the rows front-loaded."""
+    from repro_torch.launch.mesh import make_data_mesh, make_mesh
+    from repro_torch.serving import ServingEngine, ShardedServingEngine
+    cc = FusionCompiler(backend="cuda", device="cuda", cache=PlanCache())
+    wl = [(nm, n, make_inputs(REGISTRY[nm], n, seed=i))
+          for i, (nm, n) in enumerate(
+              [("GEMVER", 300), ("AXPYDOT", 5000), ("BiCGK", 256),
+               ("GEMVER", 512), ("AXPYDOT", 4096), ("LM_DECODE_ATTN", 900),
+               ("AXPYDOT", 3000)])]
+    base = ServingEngine(cc, max_batch=8, min_bucket=64, max_pack=1,
+                         registry=REGISTRY)
+    want = {r.rid: r for r in base.serve(wl)}
+    one = ShardedServingEngine(make_data_mesh(), compiler=cc, max_batch=8,
+                               min_bucket=64, registry=REGISTRY)
+    two = ShardedServingEngine(
+        make_mesh((2,), ("data",), devices=["cuda:0", "cuda:0"]),
+        compiler=cc, max_batch=8, min_bucket=64, registry=REGISTRY)
+    assert one.n_replicas == torch.cuda.device_count()
+    for eng in (one, two) if one.n_replicas == 1 else (two,):
+        for _ in range(3):          # eager, captured, replayed
+            LAUNCHES.reset()
+            got = {r.rid - eng._rid + len(wl): r for r in eng.serve(wl)}
+            assert sum(LAUNCHES.by_kernel.values()) > 0
+            for k, r in want.items():
+                assert all(torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32))
+                           for a, b in zip(r.outputs, got[k].outputs)), k
+    if one.n_replicas == 1:         # the base engine's programs
+        assert all(one._programs[k] is base._programs[k]
+                   for k in base._programs)
+    # 2 keys of 2 requests ([1, 1] each), 3 of 1 ([1, 0]), served 3 times
+    assert two.stats()["replica_rows"] == [3 * 5, 3 * 2]
