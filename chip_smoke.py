@@ -152,6 +152,27 @@ Phases, each printed as JSON lines:
    just before (K4, K6, K7 must launch): masters, the bf16 copy,
    moments, ``step`` and both losses bitwise the run's; one byte of a
    small leaf's file flipped, ``restore`` must raise ``IOError``;
+   spmd (``spmd_phase``, run first after the build, while this process
+   holds nothing on the card): the int8 run's configuration trained 3 steps
+   on ``torch.cuda.device_count()`` NCCL ranks spawned over a
+   ``FileStore`` (``dist.spmd.run_ranks``; one card: world 1, said so):
+   rank 0 first runs the steps unsharded (``launch.train``'s path) and
+   keeps the state on the host, then every rank runs them sharded
+   (``make_host_mesh(1)``, FSDP2, the counts set to 0 just before and
+   read just after; K4, K6, K7 must launch), the state saved after step
+   2 by ``AsyncCheckpointer(shardings=)``; losses, ``grad_norm``,
+   masters, the bf16 copy, moments and ``step`` must be bitwise the
+   unsharded run's at world 1 (on more ranks, bfloat16 gradients summed
+   in another order: losses and gradient norms 1e-3 relative, masters
+   and the bf16 copy 2e-2 norm-relative, the moments printed); the
+   group ends and rank 0 restores the checkpoint into a single-device
+   state with no process group, whose step 3 must be bitwise the run's;
+   step ms sharded beside unsharded, the peak per rank, the bytes
+   FSDP2's gathers and reduce-scatters carry a step, the launches; on 2
+   or more GPUs DeepSeek-V2-Lite at full width, depth 2, its experts
+   over ``model`` (``moe_impl="shard_map"``, (1, N)); then K4, K6 and
+   K7 at the sharded path's shapes against their plain versions and
+   timed (``"time"`` lines with ``"path": "spmd"``);
 3. kernel: every K1 group's kernel against K1's plain tiled version on
    the same inputs on the card, and a second launch of it bitwise equal
    to the first (the groups whose reduce axes K1 cuts into slices
@@ -289,9 +310,9 @@ outputs.
 
 The last lines are the ``{"kernels": [...]}`` record (the main path's
 K1 groups and hand kernels, then the engine's, the float16 path's and
-the autotune winners' K1 groups, then K4 and K5 on the LM serving path
-and K6 and K7 on the training path, each with the launches of its own
-counted run) and
+the autotune winners' K1 groups, then K4 and K5 on the LM serving path,
+K6 and K7 on the training path and K4, K6 and K7 on the sharded path,
+each with the launches of its own counted run) and
 ``{"ok": true, "device": {...}}``; the card's ``nvidia-smi`` line is in
 the first (``device``) record.  Any failed
 phase ends the run with exit code 1 and no result line; so does a
@@ -1840,6 +1861,427 @@ def train_phase(args, failures: list, smi_line: str) -> list:
     return records
 
 
+# ---------------------------------------------------------------------------
+# phase spmd: sharded training over NCCL ranks
+# ---------------------------------------------------------------------------
+
+#: the spmd phase: the int8 train run's configuration, 3 steps, the
+#: sharded state saved after step 2
+SPMD_STEPS, SPMD_SAVE_AT = 3, 2
+#: ... and on 2 or more GPUs DeepSeek-V2-Lite at full width, depth 2,
+#: its experts over the ``model`` axis
+SPMD_EP_ARCH, SPMD_EP_DEPTH = "deepseek_v2_lite", 2
+#: the bounds across 2 or more ranks: each rank rounds its rows'
+#: gradients to bfloat16 and the ranks sum them in bfloat16 (as the
+#: reference's FSDP reduces on bf16 wires), where one device rounds the
+#: whole batch's once; where the rows' gradients cancel, an element's
+#: sum keeps little of its relative precision.  Held: losses and
+#: gradient norms 1e-3 relative, the masters and the bf16 copy
+#: ``BF16_RTOL`` norm-relative; the moments, linear in those gradients
+#: element by element, are printed (four H100s: m 0.067, v 0.038)
+SPMD_LOSS_RTOL = 1e-3
+
+
+def _spmd_steps(step, state, batches, lo: int, hi: int, hook=None):
+    """Steps ``lo``..``hi - 1`` of ``step``: (state, losses, grad norms,
+    ms a step by CUDA events, the host reading the loss as the
+    launcher does)."""
+    import torch
+    losses, norms, ms = [], [], []
+    for i in range(lo, hi):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        state, met = step(state, batches[i])
+        b.record()
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        ms.append(a.elapsed_time(b))
+        if hook is not None:
+            hook(i, state)
+    torch.cuda.synchronize()
+    return state, losses, norms, ms
+
+
+def _spmd_compare(got: dict, want: dict, bitwise: bool) -> dict:
+    """Leaf by leaf (keys of ``want``, host tensors): bitwise, or the
+    largest norm-relative error of each part of the state (``params``,
+    ``params_c``, ``opt/m``, ``opt/v``; an int8 moment dequantized with
+    its block scales)."""
+    import torch
+    differ, worst = [], {}
+    for k, w in want.items():
+        g = got[k]
+        if bitwise:
+            if not torch.equal(bits(g), bits(w.to(g.device))):
+                differ.append(k)
+            continue
+        if k.endswith("/scale") or k == "opt/step":
+            continue
+        w = w.to(g.device)
+        if k.endswith("/q"):
+            def deq(q, sc):
+                return (q.float().reshape(*q.shape[:-1], -1, 128)
+                        * sc[..., None].float())
+            g = deq(g, got[k[:-2] + "/scale"])
+            w = deq(w, want[k[:-2] + "/scale"].to(g.device))
+        part = "/".join(k.split("/")[:2 if k.startswith("opt/") else 1])
+        worst[part] = max(worst.get(part, 0.0),
+                          tensor_err(g.float(), w.float())[0])
+    return {"bitwise": bitwise, "differ": differ,
+            "max_norm_rel_err": max(worst.values(), default=0.0),
+            "max_norm_rel_err_by_part": worst}
+
+
+def spmd_rank(rank: int, world: int, seed: int, ckdir: str) -> dict:
+    """One NCCL rank of phase ``spmd`` (``spmd_phase``): rank 0 first
+    runs the unsharded steps (``launch.train``'s path) and keeps their
+    state on the host; then every rank runs the same steps sharded
+    (``make_host_mesh(1)``, FSDP2, the counts set to 0 just before and
+    read just after), the state saved after step 2 through
+    ``AsyncCheckpointer(shardings=)``; on 2 or more ranks DeepSeek's
+    experts over ``model`` too.  Then the group ends, and rank 0
+    restores the saved state into a single-device state, with no
+    process group, and trains step 3 from it."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.ckpt import AsyncCheckpointer, restore
+    from repro_torch.ckpt.checkpoint import _flatten, _leaves
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core import LAUNCHES
+    from repro_torch.data import make_batch_fn, shard_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import build_state
+    from repro_torch.optim import AdamWHyper
+    from repro_torch.train import steps as steps_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, reduced = lm_config(get_config(TRAIN_ARCH), TRAIN_INT8_DEPTH)
+    cfg = dataclasses.replace(cfg, opt_moment_dtype="int8")
+    hyper = AdamWHyper(lr=TRAIN_LR, warmup_steps=max(1, SPMD_STEPS // 20),
+                       total_steps=SPMD_STEPS)
+    get = make_batch_fn(cfg, ShapeConfig("chip", TRAIN_SEQ, TRAIN_BATCH,
+                                         "train"))
+    batches = [shard_batch(get(i), "cuda") for i in range(SPMD_STEPS)]
+    out = {"world": world, "reduced": reduced, "n_layers": cfg.n_layers}
+    t0 = time.perf_counter()
+    host = None
+    if rank == 0:           # the unsharded run, kept on the host
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        state = build_state(cfg, seed, "cuda")
+        step = steps_lib.make_train_step(cfg, hyper)
+        state, losses, norms, ms = _spmd_steps(step, state, batches, 0,
+                                               SPMD_STEPS)
+        host = {k: t.detach().cpu() for k, t in _flatten(state)}
+        out["unsharded"] = {"losses": losses, "grad_norms": norms,
+                            "step_ms": ms, "peak_bytes":
+                            torch.cuda.max_memory_allocated() - base}
+        del state, step
+        torch.cuda.empty_cache()
+    dist.barrier()
+    out["unsharded_s"] = time.perf_counter() - t0
+
+    # the same steps sharded
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = build_state(cfg, seed, "cuda")
+    state, sh = steps_lib.shard_train_state(cfg, state, make_host_mesh(1))
+    step = steps_lib.make_train_step(cfg, hyper, shardings=sh)
+    writer = AsyncCheckpointer(ckdir, shardings=sh)
+
+    def save_at(i, st):
+        if i + 1 == SPMD_SAVE_AT:
+            writer.save(SPMD_SAVE_AT, st, {"arch": cfg.name})
+    LAUNCHES.reset()
+    state, losses, norms, ms = _spmd_steps(step, state, batches, 0,
+                                           SPMD_STEPS, save_at)
+    launches = dict(LAUNCHES.by_kernel)
+    sp = sh.spmd
+    out["sharded"] = {
+        "mesh": sp.describe(), "losses": losses, "grad_norms": norms,
+        "step_ms": ms, "peak_bytes": torch.cuda.max_memory_allocated()
+        - base, "launches": launches}
+    out["sharded"].update(_fsdp_bytes(state, sh))
+    # the kernels' shapes on this path (this rank's rows and leaves)
+    blocks = sp.dpn if TRAIN_BATCH % sp.dpn == 0 else 1
+    rows = TRAIN_BATCH * TRAIN_SEQ // blocks
+    big = max(state["params"], key=lambda n: state["params"][n].numel())
+    out["shapes"] = {"K4": [rows, cfg.d_model], "K7": [rows, cfg.vocab],
+                     "K6": [state["params"][big].numel(), big]}
+    full = {k: v for k, v in _leaves(state, sh)}
+    if rank == 0:
+        out["sharded_vs_unsharded"] = _spmd_compare(full, host, world == 1)
+        out["sharded_vs_unsharded"]["losses_equal"] = \
+            losses == out["unsharded"]["losses"]
+        out["sharded_vs_unsharded"]["grad_norms_equal"] = \
+            norms == out["unsharded"]["grad_norms"]
+    writer.close()          # the compare above ran while it wrote
+    if rank == 0:
+        out["sharded"]["write_s"] = writer.timings[SPMD_SAVE_AT]["write_s"]
+    del full, state, step, writer
+    torch.cuda.empty_cache()
+    out["sharded_s"] = time.perf_counter() - t0
+    if world > 1:
+        out["ep"] = _spmd_ep(rank, world, seed)
+    dist.barrier()
+    dist.destroy_process_group()
+
+    if rank == 0:           # restore with no process group, step 3
+        t0 = time.perf_counter()
+        fresh = build_state(cfg, seed + 1, "cuda")
+        fresh, at, _ = restore(ckdir, fresh, step=SPMD_SAVE_AT)
+        restore_s = time.perf_counter() - t0
+        fresh, losses3, _, _ = _spmd_steps(
+            steps_lib.make_train_step(cfg, hyper), fresh, batches,
+            SPMD_SAVE_AT, SPMD_STEPS)
+        got = dict(_flatten(fresh))
+        out["restored"] = _spmd_compare(got, host, world == 1) | {
+            "at": at, "restore_s": restore_s, "losses": losses3,
+            "loss_equal": losses3 == losses[SPMD_SAVE_AT:]}
+    return out
+
+
+def _fsdp_bytes(state, sh) -> dict:
+    """The bytes FSDP2's collectives carry a step on this rank, counted
+    from its units: the root's parameters gathered once (kept from the
+    forward to the backward), each layer's twice (forward, and again
+    for the backward: resharded after the forward), every gradient
+    reduce-scattered once; the share that crosses between ranks is
+    (n - 1) / n of each, n the data-parallel ranks."""
+    model = state["params_c"]
+
+    def full_bytes(mods):
+        n = 0
+        for m in mods:
+            for p in m.parameters(recurse=m is not model):
+                if hasattr(p, "to_local"):
+                    n += p.numel() * p.element_size()
+        return n
+    root = full_bytes([model])
+    layers = full_bytes([lp for s in (model.head_layers, model.layers,
+                                      model.enc_layers) for lp in s])
+    n = sh.spmd.dpn
+    gathered, scattered = root + 2 * layers, root + layers
+    return {"all_gather_bytes_per_step": gathered,
+            "reduce_scatter_bytes_per_step": scattered,
+            "bytes_between_ranks_per_step": (gathered + scattered)
+            * (n - 1) // n, "data_parallel_ranks": n}
+
+
+def _spmd_ep(rank: int, world: int, seed: int) -> dict:
+    """DeepSeek-V2-Lite at full width, depth 2, ``moe_impl="shard_map"``
+    on a (1, world) mesh: 3 sharded steps; rank 0 then runs the same
+    steps unsharded (``moe_layer``) and holds the losses to bfloat16's
+    bound (the expert matmuls run at other batch shapes)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core import LAUNCHES
+    from repro_torch.data import make_batch_fn, shard_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import build_state
+    from repro_torch.optim import AdamWHyper
+    from repro_torch.train import steps as steps_lib
+
+    cfg, reduced = lm_config(get_config(SPMD_EP_ARCH), SPMD_EP_DEPTH)
+    cfg = dataclasses.replace(cfg, moe_impl="shard_map")
+    hyper = AdamWHyper(lr=TRAIN_LR, warmup_steps=1, total_steps=SPMD_STEPS)
+    get = make_batch_fn(cfg, ShapeConfig("chip", TRAIN_SEQ, TRAIN_BATCH,
+                                         "train"))
+    batches = [shard_batch(get(i), "cuda") for i in range(SPMD_STEPS)]
+    state = build_state(cfg, seed, "cuda")
+    state, sh = steps_lib.shard_train_state(cfg, state,
+                                            make_host_mesh(world))
+    LAUNCHES.reset()
+    state, losses, norms, ms = _spmd_steps(
+        steps_lib.make_train_step(cfg, hyper, shardings=sh), state,
+        batches, 0, SPMD_STEPS)
+    out = {"arch": SPMD_EP_ARCH, "reduced": reduced,
+           "mesh": sh.spmd.describe(), "losses": losses,
+           "grad_norms": norms, "step_ms": ms,
+           "launches": dict(LAUNCHES.by_kernel)}
+    del state
+    torch.cuda.empty_cache()
+    if rank == 0:
+        one = build_state(dataclasses.replace(cfg, moe_impl="gspmd"), seed,
+                          "cuda")
+        _, want, _, _ = _spmd_steps(steps_lib.make_train_step(cfg, hyper),
+                                    one, batches, 0, SPMD_STEPS)
+        out["unsharded_losses"] = want
+        out["max_loss_rel_err"] = max(abs(a - b) / abs(b)
+                                      for a, b in zip(losses, want))
+        del one
+        torch.cuda.empty_cache()
+    return out
+
+
+def spmd_phase(args, failures: list, smi_line: str) -> list:
+    """Phase ``spmd``: ``spmd_rank`` on ``torch.cuda.device_count()`` NCCL
+    ranks (``dist.spmd.run_ranks``, a ``FileStore`` and the checkpoint
+    in a temporary directory, removed after); at world 1 the sharded
+    steps, the restored step 3 and their losses must be bitwise the
+    unsharded run's, on more ranks within ``SPMD_LOSS_RTOL`` and
+    ``BF16_RTOL``.  Then K4, K6
+    and K7 at this path's shapes against their plain versions, timed
+    beside their bounds, plain versions and library calls; returns their
+    records (``"path": "spmd"``)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.timing import device_ms, graph_ms, time_ms
+    from repro_torch.dist.spmd import run_ranks
+    from repro_torch.kernels import adamw as k6
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as k4
+    from repro_torch.kernels import softmax_xent as k7
+
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    here = {"allocated_bytes": torch.cuda.memory_allocated(),
+            "reserved_bytes": torch.cuda.memory_reserved()}
+    d = tempfile.mkdtemp(prefix="spmd_")
+    try:
+        res = run_ranks(spmd_rank, world, args.seed, os.path.join(d, "ck"),
+                        backend="nccl", timeout_s=600, tmpdir=d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    r0 = res[0]
+    sh = r0["sharded"]
+    line = {"phase": "spmd", "nvidia_smi": smi_line, "world": world,
+            "arch": TRAIN_ARCH, "reduced": r0["reduced"],
+            "n_layers": r0["n_layers"], "opt_moment_dtype": "int8",
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": SPMD_STEPS,
+            "saved_at": SPMD_SAVE_AT, "unsharded": r0["unsharded"],
+            "sharded": sh,
+            "sharded_vs_unsharded": r0["sharded_vs_unsharded"],
+            "restored": r0["restored"],
+            "step_ms_sharded": sh["step_ms"],
+            "step_ms_unsharded": r0["unsharded"]["step_ms"],
+            "peak_gb_per_rank": [r["sharded"]["peak_bytes"] / 1e9
+                                 for r in res],
+            "spawning_process": here,
+            "seconds": {"unsharded": r0["unsharded_s"],
+                        "sharded": r0["sharded_s"],
+                        "phase": time.perf_counter() - t0}}
+    if world > 1:
+        line["ep"] = [r["ep"] for r in res]
+    else:
+        line["ep"] = ("expert parallelism ran only in the CPU tests "
+                      "(tests/test_torch_moe_ep.py, test_torch_spmd.py): "
+                      "NCCL puts one rank on a GPU, and this machine has "
+                      "one")
+    cmp_, rest = r0["sharded_vs_unsharded"], r0["restored"]
+    if world == 1:
+        ok = (not cmp_["differ"] and cmp_["losses_equal"]
+              and cmp_["grad_norms_equal"] and not rest["differ"]
+              and rest["loss_equal"])
+    else:
+        un = r0["unsharded"]
+
+        def held(c):
+            return max(v for k, v in c["max_norm_rel_err_by_part"].items()
+                       if not k.startswith("opt/"))
+        ok = (held(cmp_) <= BF16_RTOL and held(rest) <= BF16_RTOL and all(
+            abs(a - b) <= SPMD_LOSS_RTOL * abs(b) for a, b in zip(
+                sh["losses"] + sh["grad_norms"],
+                un["losses"] + un["grad_norms"])))
+        for ep in line["ep"]:
+            if not all(map(math.isfinite, ep["losses"])) or \
+                    ep.get("max_loss_rel_err", 0.0) > BF16_RTOL:
+                failures.append(f"spmd ep: {ep}")
+    if not ok:
+        failures.append(f"spmd: sharded {cmp_}, restored {rest}")
+    launches = sh["launches"]
+    for k in ("K4/rmsnorm_bf16", "K6/adamw_f32", "K7/xent_bf16"):
+        if not launches.get(k):
+            failures.append(f"spmd: {k} was not launched in the sharded "
+                            f"steps: {launches}")
+    emit(line)
+
+    # K4, K6 and K7 at the sharded path's shapes
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dtype)
+
+    records = []
+
+    def record(kernel, what, shape, wrapper, plain, lib, bound, err):
+        ms, how = graph_ms(wrapper)
+        rec = {"name": f"{kernel} (spmd, {what})", "route": "cuda",
+               "source": HAND[kernel][0], "replaces": HAND[kernel][1],
+               "launches": launches.get(kernel, 0), "max_abs_err": err,
+               "ms": ms, "plain_ms": time_ms(plain, max_reps=3),
+               "bound_ms": bound[0], "bound_by": bound[1],
+               "library_ms": None if lib is None else lib()}
+        emit({"phase": "time", "path": "spmd", **rec, "timed_by": how,
+              "shape": shape, "bound_share": bound[0] / ms})
+        records.append(rec)
+
+    T, D = r0["shapes"]["K4"]
+    x, g = randn(T, D, dtype=torch.bfloat16), 1 + randn(D, scale=0.1)
+    rel4, mabs = tensor_err(k4.rmsnorm(x, g), ref.rmsnorm(x, g))
+    rms_norm = getattr(F, "rms_norm", None)
+    g_lib = g.to(x.dtype)
+    record("K4/rmsnorm_bf16", "every RMSNorm, this rank's rows", [T, D],
+           lambda: k4.rmsnorm(x, g), lambda: ref.rmsnorm(x, g),
+           None if rms_norm is None else
+           lambda: graph_ms(lambda: rms_norm(x, (D,), g_lib, eps=1e-6))[0],
+           hand_bound("K4/rmsnorm_bf16", (T, D)), mabs)
+    del x, g, g_lib
+    T, V = r0["shapes"]["K7"]
+    logits = randn(T, V, dtype=torch.bfloat16, scale=2.0)
+    labels = torch.randint(0, V, (T,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    labels[TRAIN_SEQ - 1::TRAIN_SEQ] = -1
+    rel7, mabs = tensor_err(k7.softmax_xent_rows(logits, labels),
+                            ref.softmax_xent_rows(logits, labels))
+    lab64 = labels.long()
+    record("K7/xent_bf16", "lm_loss, this rank's rows", [T, V],
+           lambda: k7.softmax_xent_rows(logits, labels),
+           lambda: ref.softmax_xent_rows(logits, labels),
+           lambda: graph_ms(lambda: F.cross_entropy(
+               logits, lab64, ignore_index=-1, reduction="none"))[0],
+           k7_bound(T, V, "bfloat16", label_bytes=4), mabs)
+    del logits, labels, lab64
+    n, leaf = r0["shapes"]["K6"]
+    p, gr = randn(n), randn(n, scale=1e-3)
+    m, v = randn(n, scale=1e-3), randn(n, scale=1e-3).abs_().square_()
+    h = k6.hyper(lr=TRAIN_LR, beta1=0.9, beta2=0.95, eps=1e-8,
+                 weight_decay=0.1, step=SPMD_STEPS, device=p.device)
+    want = ref.adamw(p, gr, m, v, lr=TRAIN_LR, beta1=0.9, beta2=0.95,
+                     eps=1e-8, weight_decay=0.1, step=SPMD_STEPS)
+    errs = [tensor_err(a, b) for a, b in zip(k6.adamw(p, gr, m, v, h),
+                                               want)]
+    lib = fused_adamw_step(p, gr, m, v, SPMD_STEPS)
+    record("K6/adamw_f32", f"this rank's piece of {leaf}", [n],
+           lambda: k6.adamw(p, gr, m, v, h),
+           lambda: ref.adamw(p, gr, m, v, lr=TRAIN_LR, beta1=0.9,
+                             beta2=0.95, eps=1e-8, weight_decay=0.1,
+                             step=SPMD_STEPS),
+           lambda: device_ms(lib), k6_bound(n, "float32"),
+           max(e[1] for e in errs))
+    del p, gr, m, v, want, lib
+    torch.cuda.empty_cache()
+    worst = {"K4": rel4, "K7": rel7, "K6": max(e[0] for e in errs)}
+    emit({"phase": "spmd_kernel", "norm_rel_err": worst})
+    if not (rel4 <= BF16_KERNEL_RTOL and rel7 <= BF16_KERNEL_RTOL
+            and worst["K6"] <= K6_TRAIN_RTOL):
+        failures.append(f"spmd kernels against their plain versions: "
+                        f"{worst}")
+    return records
+
+
 class moe_routes:
     """Within the block, every MoE layer records (router probabilities
     (G, Tg, E), expert ids (G, Tg, k), kept assignments (G, Tg·k)) of its
@@ -2393,13 +2835,19 @@ def main(argv=None):
     if failures:
         fail("; ".join(failures))
 
+    # -- spmd: the int8 train run sharded over NCCL ranks, and restored,
+    # first, while this process holds nothing on the card: the ranks are
+    # processes of their own, each with the whole card to itself
+    spmd_recs = spmd_phase(args, failures, smi_line)
+    if failures:
+        fail("; ".join(failures))
     # -- 2. lm: serve --arch at Llama-3-8B's full width and depth, while the
     # card holds nothing else (the float32 check loads 32 GB of weights)
     lm_recs = lm_phase(args, failures, smi_line)
     if failures:
         fail("; ".join(failures))
     # -- train: Llama-3-8B's full width at depth 4, then int8 moments
-    lm_recs += train_phase(args, failures, smi_line)
+    lm_recs += train_phase(args, failures, smi_line) + spmd_recs
     if failures:
         fail("; ".join(failures))
 

@@ -1,8 +1,8 @@
-"""repro_torch.dist — the distributed layer, its replica side: the mesh
-helpers and ``shard_program``, which spreads a batched program's request
-batch over the ``data`` axis of a mesh (``sharding``).  The FSDP and
-tensor-parallel builders and the expert-parallel MoE come with the
-port's SPMD slice (ROADMAP.md)."""
-from . import sharding
+"""repro_torch.dist — the distributed layer: the reference's pspec
+builders and the replica side of the serving engine (``sharding``), the
+runtime of sharded training over ``torch.distributed`` (``spmd``: where
+each rank's pieces lie, the process-group view of a mesh, ``run_ranks``)
+and the expert-parallel MoE (``moe_ep``)."""
+from . import moe_ep, sharding, spmd
 
-__all__ = ["sharding"]
+__all__ = ["moe_ep", "sharding", "spmd"]

@@ -1,40 +1,88 @@
-"""The replica side of the reference's ``repro.dist.sharding``: its mesh
-helpers (``mesh_axis_sizes``, ``dp_axes``, ``axis_product``,
-``mesh_fingerprint``) and ``shard_program``.
+"""The reference's ``repro.dist.sharding``: the pspec builders of the
+FSDP layout and the replica side of the serving engine.
 
-The reference ``shard_map``s a batched program over contiguous row
-blocks of the global batch, one block a replica of the ``data`` axis,
-with no communication (requests are independent).  Here one controller
-does the same by hand: ``ShardedProgram`` cuts the batch into
-``n_replicas`` contiguous row blocks and runs block j with replica j's
-program (the same plan and kernels, bound to replica j's device, with
-graphs of its own), then joins the blocks' outputs in order on the
-program's device.  On the card each block is one CUDA graph replay of
-the batched K1 launches; on the CPU K1's plain version runs request by
-request, so a row's result never depends on its block.
+Builders (``param_pspecs``, ``opt_pspecs``, ``batch_pspecs``,
+``cache_pspecs``, with ``_fsdp_entry``) give every leaf of a tree the
+reference's ``PartitionSpec``, as a ``NamedSharding`` whose ``spec`` is
+a tuple of entries (an axis name, a tuple of names, or None), one a
+tensor dim.  A tree is nested dicts of leaves; a leaf is anything with
+a ``.shape`` (a tensor, the reference's ``ShapeDtypeStruct``) or a
+tuple of ints, so the reference's stacked trees (``layers`` -> ``wq``
+(L, ...)) and the port's trees by parameter name (``layers.3.wq``)
+both go through: a leaf under a ``<stack>.<l>.`` name takes the spec of
+its stacked leaf, the layer dim dropped.  On a ``DeviceMesh`` a
+``NamedSharding`` also gives its DTensor ``placements``.
 
-The FSDP and tensor-parallel builders (``param_pspecs``, ``opt_pspecs``,
-``batch_pspecs``, ``cache_pspecs``) come with the port's SPMD slice.
+``mesh_axis_sizes``, ``dp_axes`` and ``axis_product`` accept both a
+``torch.distributed`` ``DeviceMesh`` and the replica ``launch.mesh.Mesh``.
+``use_mesh`` installs an ambient mesh (the reference's
+``jax.sharding.set_mesh``) that ``current_mesh`` returns.
+
+``shard_program`` is the replica side: the reference ``shard_map``s a
+batched program over contiguous row blocks of the global batch, one
+block a replica of the ``data`` axis, with no communication (requests
+are independent).  Here one controller does the same by hand:
+``ShardedProgram`` cuts the batch into ``n_replicas`` contiguous row
+blocks and runs block j with replica j's program (the same plan and
+kernels, bound to replica j's device, with graphs of its own), then
+joins the blocks' outputs in order on the program's device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Sequence
+import re
+from typing import Any, Sequence
 
 import torch
 
 from ..core.codegen import BatchedProgram
 
 
+# ---------------------------------------------------------------------------
+# meshes: the ambient one, and the helpers on either kind
+# ---------------------------------------------------------------------------
+
+_AMBIENT: list = []
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make ``mesh`` the ambient mesh inside the block (nested blocks
+    stack), as the reference's ``jax.sharding.set_mesh``."""
+    _AMBIENT.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _AMBIENT.pop()
+
+
+def current_mesh(mesh=None):
+    """``mesh`` if given, else the ambient one (``use_mesh``), else
+    None."""
+    if mesh is not None:
+        return mesh
+    return _AMBIENT[-1] if _AMBIENT else None
+
+
+def axis_names(mesh) -> tuple[str, ...]:
+    """A mesh's axis names: the replica ``Mesh``'s ``axis_names`` or a
+    ``DeviceMesh``'s ``mesh_dim_names``."""
+    names = getattr(mesh, "axis_names", None)
+    if names is None:
+        names = mesh.mesh_dim_names
+    return tuple(names)
+
+
 def mesh_axis_sizes(mesh) -> dict[str, int]:
     """``{axis name: size}``."""
-    return dict(zip(mesh.axis_names, mesh.shape))
+    return dict(zip(axis_names(mesh), tuple(mesh.shape)))
 
 
 def dp_axes(mesh) -> tuple[str, ...]:
     """The data-parallel axes present in ``mesh`` (``pod`` and/or
     ``data``), in mesh order."""
-    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+    return tuple(a for a in axis_names(mesh) if a in ("pod", "data"))
 
 
 def axis_product(mesh, axes: Sequence[str]) -> int:
@@ -53,6 +101,174 @@ def mesh_fingerprint(mesh) -> str:
     return repr((tuple(mesh_axis_sizes(mesh).items()),
                  tuple(str(d) for d in mesh.devices)))
 
+
+# ---------------------------------------------------------------------------
+# pspec builders
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A leaf's ``spec`` (the reference's ``PartitionSpec`` entries, one a
+    tensor dim) on ``mesh``."""
+
+    mesh: Any
+    spec: tuple
+
+    @property
+    def placements(self) -> tuple:
+        """The DTensor placements of ``spec`` on a ``DeviceMesh``, one a
+        mesh dim: ``Shard(d)`` on every axis that tensor dim d names
+        (a tuple entry shards d over its axes in mesh order, as a tuple
+        of names does in JAX), ``Replicate()`` on the rest."""
+        from torch.distributed.tensor import Replicate, Shard
+        names = axis_names(self.mesh)
+        out = [Replicate()] * len(names)
+        for d, entry in enumerate(self.spec):
+            for a in ((entry,) if isinstance(entry, str) else entry or ()):
+                out[names.index(a)] = Shard(d)
+        return tuple(out)
+
+
+#: a port leaf name inside a stack of layers: ``layers.3.wq``
+_STACKED = re.compile(r"^(layers|head_layers|enc_layers)\.(\d+)\.")
+
+
+def _shape(leaf) -> tuple[int, ...] | None:
+    if hasattr(leaf, "shape"):
+        return tuple(int(d) for d in leaf.shape)
+    if isinstance(leaf, tuple) and all(isinstance(d, int) for d in leaf):
+        return leaf
+    return None
+
+
+def _stack_len(cfg, stack: str) -> int:
+    from ..models.model import _stack_sizes
+    return _stack_sizes(cfg)[stack]
+
+
+def _map(tree, fn, path: str = ""):
+    """``fn(path, shape)`` for every leaf of a nested dict (an ``nn.Module``
+    by its parameters' names), the same structure back."""
+    if isinstance(tree, torch.nn.Module):
+        tree = dict(tree.named_parameters())
+    shape = _shape(tree)
+    if shape is not None:
+        return fn(path, shape)
+    if isinstance(tree, dict):
+        return {k: _map(v, fn, f"{path}/{k}" if path else str(k))
+                for k, v in tree.items()}
+    raise TypeError(f"sharding: leaf {path!r} of type "
+                    f"{type(tree).__name__} has no shape")
+
+
+def _per_layer(cfg, path: str, shape, rule) -> tuple:
+    """``rule(shape)`` for a leaf; a port leaf of a layer stack takes its
+    stacked leaf's spec with the layer entry dropped."""
+    for part in path.split("/"):
+        m = _STACKED.match(part)
+        if m and cfg is not None:
+            return rule((_stack_len(cfg, m.group(1)),) + shape)[1:]
+    return rule(shape)
+
+
+def _fsdp_entry(shape, dp: tuple[str, ...], dpn: int,
+                model_n: int, use_model: bool) -> tuple:
+    """FSDP spec for one tensor: dp axes on the largest divisible dim,
+    optionally ``model`` on the largest remaining divisible dim."""
+    spec: list[Any] = [None] * len(shape)
+    order = sorted(range(len(shape)), key=lambda i: -shape[i])
+    if dp and dpn > 1:
+        for i in order:
+            if shape[i] % dpn == 0 and shape[i] >= dpn:
+                spec[i] = dp if len(dp) > 1 else dp[0]
+                break
+    if use_model and model_n > 1:
+        for i in order:
+            if spec[i] is None and shape[i] % model_n == 0 \
+                    and shape[i] >= model_n:
+                spec[i] = "model"
+                break
+    return tuple(spec)
+
+
+def param_pspecs(cfg, params, mesh) -> Any:
+    """``NamedSharding`` tree for a parameter tree (FSDP/ZeRO-3): every
+    tensor sharded over the data-parallel axes (``pod`` x ``data``) on
+    its largest evenly divisible dim; where ``cfg.fsdp_only`` is False
+    (MoE archs) a second dim over ``model``.  ``params``: the
+    reference's stacked tree, ``models.model_shapes(cfg)``, an ``LM`` or
+    the port's leaves by name."""
+    dp = dp_axes(mesh)
+    dpn = axis_product(mesh, dp)
+    model_n = mesh_axis_sizes(mesh).get("model", 1)
+    use_model = not getattr(cfg, "fsdp_only", True)
+
+    def rule(shape):
+        return _fsdp_entry(shape, dp, dpn, model_n, use_model)
+
+    return _map(params, lambda path, shape: NamedSharding(
+        mesh, _per_layer(cfg, path, shape, rule)))
+
+
+def opt_pspecs(cfg, opt_state, mesh, params=None) -> Any:
+    """``NamedSharding`` tree for an AdamW state: each moment (an int8
+    moment's ``q`` and ``scale`` each) by the FSDP rule on its own
+    shape, the scalar ``step`` replicated.  ``params`` is accepted for
+    the reference's signature; the rule reads the moments' shapes."""
+    del params
+    return param_pspecs(cfg, opt_state, mesh)
+
+
+def batch_pspecs(cfg, batch, mesh) -> Any:
+    """``NamedSharding`` tree for a data batch: the leading global-batch
+    dim over the data-parallel axes, everything else replicated;
+    scalars, and batch dims that do not divide, replicate."""
+    del cfg
+    dp = dp_axes(mesh)
+    dpn = axis_product(mesh, dp)
+
+    def leaf(path, shape):
+        if not shape or not dp or dpn <= 1 or shape[0] % dpn \
+                or shape[0] < dpn:
+            return NamedSharding(mesh, ())
+        return NamedSharding(mesh, (dp if len(dp) > 1 else dp[0],)
+                             + (None,) * (len(shape) - 1))
+
+    return _map(batch, leaf)
+
+
+#: cache leaves are (layers, batch, ...); the dim that may also shard
+#: over ``model``: the head dim of KV leaves, the SSD head dim
+_CACHE_MODEL_DIM = {"k": 3, "v": 3, "xk": 3, "xv": 3, "state": 2}
+
+
+def cache_pspecs(cfg, cache, mesh) -> Any:
+    """``NamedSharding`` dict for a decode cache (``models.cache_shapes``
+    or ``zero_cache``): the batch dim over the data-parallel axes, the
+    KV and SSD head dims over ``model`` where they divide (serving keeps
+    tensor parallelism for the cache)."""
+    del cfg
+    dp = dp_axes(mesh)
+    dpn = axis_product(mesh, dp)
+    model_n = mesh_axis_sizes(mesh).get("model", 1)
+
+    def leaf(name: str, shape):
+        spec: list[Any] = [None] * len(shape)
+        if len(shape) > 1 and dp and dpn > 1 and shape[1] % dpn == 0 \
+                and shape[1] >= dpn:
+            spec[1] = dp if len(dp) > 1 else dp[0]
+        hd = _CACHE_MODEL_DIM.get(name)
+        if hd is not None and hd < len(shape) and model_n > 1 \
+                and shape[hd] % model_n == 0 and shape[hd] >= model_n:
+            spec[hd] = "model"
+        return NamedSharding(mesh, tuple(spec))
+
+    return {k: leaf(k, _shape(v)) for k, v in cache.items()}
+
+
+# ---------------------------------------------------------------------------
+# the replica side
+# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class ShardedProgram:

@@ -1,17 +1,19 @@
 """Mesh construction, from the reference's ``repro.launch.mesh``.
 
-The reference's replica mesh is one process driving N devices through
-``jax.make_mesh``.  Its counterpart here is a record of axis names, a
+The training meshes (``make_host_mesh``, ``make_production_mesh``) are
+``torch.distributed`` ``DeviceMesh`` meshes over the ranks of the
+initialised process group (started by ``torchrun``, or by
+``dist.spmd.run_ranks`` over a ``FileStore``), one rank a device:
+``cuda`` under NCCL, ``cpu`` under gloo.  The reference's meshes are
+one process driving every device; here each rank is a process of its
+own.
+
+The replica mesh of the serving engine is a record of axis names, a
 shape and one ``torch.device`` a position: one controller dispatches
 each replica's row block to its device, with no process group and no
 collective (``dist.sharding.shard_program``).  A mesh may repeat a
 device (two replicas on one card), and ``make_data_mesh(device="cpu")``
 makes N CPU replicas, the counterpart of XLA's forced host devices.
-
-The production meshes (``make_production_mesh``) and the best-effort
-host mesh for sharded training (``make_host_mesh``) need a
-``torch.distributed`` ``DeviceMesh``: they come with the port's SPMD
-slice and raise until then.
 """
 from __future__ import annotations
 
@@ -89,18 +91,46 @@ def make_data_mesh(n_devices: int | None = None, device="cuda") -> Mesh:
     return Mesh(("data",), (n,), tuple(devs))
 
 
+def _world() -> int:
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _device_mesh(shape: tuple, axes: tuple, what: str):
+    """A ``DeviceMesh`` of ``shape`` over ``axes`` on the process group's
+    ranks, on the devices its backend drives."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"{what}: a training mesh spans the ranks of a process group; "
+            f"start one first (torchrun, or dist.spmd.run_ranks)")
+    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(kind, shape, mesh_dim_names=axes)
+
+
 def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's production mesh (16 data x 16 model, a leading
-    ``pod`` axis for two pods) needs a ``torch.distributed`` device mesh
-    over many hosts: the port's SPMD slice brings it."""
-    raise NotImplementedError(
-        "make_production_mesh: the production meshes come with the "
-        "port's SPMD slice of dist (ROADMAP.md)")
+    """The reference's production mesh: one pod of 16 data x 16 model =
+    256 ranks; ``multi_pod`` adds a leading ``pod`` axis of 2 (512).
+    Raises ``ValueError`` unless the process group has exactly that
+    many ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need, world = math.prod(shape), _world()
+    if world != need:
+        raise ValueError(
+            f"make_production_mesh{'(multi_pod=True)' if multi_pod else ''}"
+            f": the mesh {dict(zip(axes, shape))} needs a world of {need} "
+            f"ranks; this one has {world}")
+    return _device_mesh(shape, axes, "make_production_mesh")
 
 
 def make_host_mesh(model_parallel: int = 1):
-    """The reference's best-effort (data, model) mesh for sharded
-    training: the port's SPMD slice brings it."""
-    raise NotImplementedError(
-        "make_host_mesh: the (data, model) training mesh comes with the "
-        "port's SPMD slice of dist (ROADMAP.md)")
+    """Best-effort ``("data", "model")`` mesh over every rank of the
+    process group: ``model`` is ``model_parallel``, lowered until it
+    divides the world size, as the reference's."""
+    n = _world()
+    mp = max(1, min(model_parallel, n))
+    while n % mp:
+        mp -= 1
+    return _device_mesh((n // mp, mp), ("data", "model"), "make_host_mesh")

@@ -291,8 +291,8 @@ def serve_arch(args):
     if args.model_parallel > 1:
         raise ValueError(f"--model-parallel {args.model_parallel}: "
                          f"tensor-parallel serving comes with the port's "
-                         f"SPMD slice of dist (ROADMAP.md); this path runs "
-                         f"on one device")
+                         f"tensor-parallel slice of dist (ROADMAP.md); "
+                         f"this path runs on one device")
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     B, P, G = args.batch, args.prompt_len, args.gen
     inputs = draw_inputs(cfg, B, P, args.seed)

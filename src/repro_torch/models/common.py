@@ -3,11 +3,17 @@ MLP and the MoE layer, from the reference's ``repro.models.common``.
 
 Plain functions on tensors.  ``rmsnorm`` goes through
 ``kernels.ops.rmsnorm`` (``kernels.grad`` where autograd needs it): K4 on
-a CUDA tensor, K4's plain version on a CPU tensor.  ``blockwise_attention`` and ``moe_layer`` are plain PyTorch, as
-the reference's are plain JAX: no Pallas kernel stands behind them.  The
-reference's sharding helpers (``constrain``, ``pspec``, ``resolve_axis``,
-``set_tensor_parallel``) are the identity on one device; they come with
-the port's ``dist`` slice (``ROADMAP.md``).
+a CUDA tensor, K4's plain version on a CPU tensor.  ``blockwise_attention``
+and ``moe_layer`` are plain PyTorch, as the reference's are plain JAX: no
+Pallas kernel stands behind them.
+
+The reference's sharding helpers (``set_tensor_parallel``,
+``resolve_axis``, ``pspec``, ``logical_axis_size``, ``constrain``) read
+the ambient mesh (``dist.sharding.use_mesh``).  Logical axes: ``dp``,
+data parallel (``pod`` and ``data``; with tensor parallelism off, also
+``model``), and ``tp``, tensor parallel (``model``).  No layer of the
+port calls ``constrain`` yet: the head and column split of the forward
+is the tensor-parallel slice's (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -18,6 +24,90 @@ from ..kernels import grad
 
 #: the mask value of the reference's online softmax
 NEG = -1e30
+
+
+# ---------------------------------------------------------------------------
+# sharding helpers
+# ---------------------------------------------------------------------------
+
+def _mesh():
+    from ..dist.sharding import current_mesh
+    return current_mesh()
+
+
+def _mesh_axes() -> tuple[str, ...]:
+    from ..dist.sharding import axis_names
+    mesh = _mesh()
+    return axis_names(mesh) if mesh is not None else ()
+
+
+#: with tensor parallelism off, ``tp`` resolves to nothing and ``dp``
+#: absorbs the whole mesh (the reference's pure FSDP over every chip)
+_TP_ENABLED = True
+
+
+def set_tensor_parallel(enabled: bool):
+    global _TP_ENABLED
+    _TP_ENABLED = bool(enabled)
+
+
+def tensor_parallel_enabled() -> bool:
+    return _TP_ENABLED
+
+
+def resolve_axis(logical: str | None, axes: tuple[str, ...]):
+    """The mesh axes a logical axis maps to on a mesh of ``axes``: a
+    tuple of names for ``dp``, ``model`` (or None) for ``tp``, the name
+    itself where the mesh has it, None otherwise."""
+    if logical is None:
+        return None
+    if logical == "dp":
+        pool = ("pod", "data") if _TP_ENABLED else ("pod", "data", "model")
+        got = tuple(a for a in pool if a in axes)
+        return got if got else None
+    if logical == "tp":
+        if not _TP_ENABLED:
+            return None
+        return "model" if "model" in axes else None
+    return logical if logical in axes else None
+
+
+def pspec(*logical: str | None) -> tuple:
+    """The spec entries of logical axes on the ambient mesh."""
+    axes = _mesh_axes()
+    return tuple(resolve_axis(x, axes) for x in logical)
+
+
+def logical_axis_size(logical: str) -> int:
+    """The product of the mesh sizes a logical axis maps to (1 off a
+    mesh)."""
+    mesh = _mesh()
+    if mesh is None:
+        return 1
+    from ..dist.sharding import mesh_axis_sizes
+    sizes = mesh_axis_sizes(mesh)
+    ax = resolve_axis(logical, tuple(sizes))
+    if ax is None:
+        return 1
+    out = 1
+    for a in ((ax,) if isinstance(ax, str) else ax):
+        out *= sizes[a]
+    return out
+
+
+def constrain(x, *logical: str | None, barrier: bool = False):
+    """The reference's sharding constraint: the identity on a plain
+    tensor or off a mesh; a ``DTensor`` is redistributed to the
+    placements of the logical axes on its own mesh.  ``barrier`` is the
+    reference's XLA scheduling barrier, which has no counterpart here."""
+    del barrier
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor) or not _mesh_axes():
+        return x
+    from ..dist.sharding import NamedSharding, axis_names
+    mesh = x.device_mesh
+    spec = tuple(resolve_axis(a, axis_names(mesh)) for a in logical)
+    return x.redistribute(mesh, NamedSharding(mesh, spec).placements)
 
 
 # ---------------------------------------------------------------------------
@@ -203,43 +293,84 @@ def moe_layer(cfg, x, p):
     scatter-add, so a repeated call is bitwise equal.  ``aux`` is the
     Switch-style load-balance term, E · Σ_e mean prob_e · share of
     first choices_e."""
+    probs, gate, idx = route(cfg, x, p["router"])
+    xe, plan = expert_batch(cfg, x, idx)
+    ye = expert_ffn(cfg, xe, p["wg"], p["wu"], p["wd"])
+    out = combine(ye, gate, plan, x.dtype)
+    return shared_experts(cfg, x, out, p), load_balance(cfg, probs, idx)
+
+
+def expert_batch(cfg, x, idx):
+    """The (G, E, C, D) expert batch of tokens x (G, Tg, D) routed to
+    experts ``idx`` (G, Tg, k): slot (e, c) holds the sorted assignment
+    at expert e's start + c, zeros past its count; and the plan that
+    ``combine`` reads (C, the sort, each assignment's rank and whether
+    it is kept)."""
     G, Tg, D = x.shape
     E, k = cfg.n_experts, cfg.topk
-    probs, gate, idx = route(cfg, x, p["router"])
     C, se, order, counts, starts, rank, keep = dispatch(cfg, idx)
     A = Tg * k
-    dev = x.device
-
-    # the expert batch: slot (e, c) holds sorted assignment starts_e + c
-    c = torch.arange(C, device=dev)
+    c = torch.arange(C, device=x.device)
     src = (starts[..., None] + c).reshape(G, E * C)       # (G, E·C)
     filled = (c < counts[..., None]).reshape(G, E * C)
     tok = (order // k).gather(1, src.clamp_max(A - 1))
     xe = torch.where(filled[..., None],
                      x.gather(1, tok[..., None].expand(G, E * C, D)), 0)
-    xe = xe.reshape(G, E, C, D)
-    h = torch.einsum("gecd,edf->gecf", xe, p["wg"])
+    return xe.reshape(G, E, C, D), (C, k, se, order, rank, keep)
+
+
+def expert_ffn(cfg, xe, wg, wu, wd):
+    """Each expert's MLP on its slots: xe (G, E, C, D) against (E, D, F)
+    ``wg``/``wu`` and (E, F, D) ``wd``."""
+    h = torch.einsum("gecd,edf->gecf", xe, wg)
     if cfg.act == "swiglu":
-        h = F.silu(h) * torch.einsum("gecd,edf->gecf", xe, p["wu"])
+        h = F.silu(h) * torch.einsum("gecd,edf->gecf", xe, wu)
     else:
         h = F.gelu(h, approximate="tanh")
-    ye = torch.einsum("gecf,efd->gecd", h, p["wd"]).reshape(G, E * C, D)
+    return torch.einsum("gecf,efd->gecd", h, wd)
 
-    # back to token order: assignment (t, j) reads its slot's output
-    pos = torch.arange(A, device=dev)
+
+def combine(ye, gate, plan, dtype):
+    """Back to token order: assignment (t, j) reads its slot's output of
+    ye (G, E, C, D), dropped ones nothing, weighted by its gate; each
+    token sums its k contributions in a fixed order."""
+    C, k, se, order, rank, keep = plan
+    G, E, _, D = ye.shape
+    A = order.shape[1]
+    ye = ye.reshape(G, E * C, D)
+    pos = torch.arange(A, device=ye.device)
     inv = torch.empty_like(order).scatter_(1, order, pos.expand(G, A))
     slot = (se * C + torch.where(keep, rank, 0)).gather(1, inv)
     kept = keep.gather(1, inv)
     contrib = ye.gather(1, slot[..., None].expand(G, A, D))
     contrib = torch.where(kept[..., None], contrib, 0) \
-        * gate.reshape(G, A, 1).to(x.dtype)
-    out = contrib.reshape(G, Tg, k, D).to(torch.float32).sum(2).to(x.dtype)
+        * gate.reshape(G, A, 1).to(dtype)
+    return contrib.reshape(G, A // k, k, D).to(torch.float32).sum(2).to(dtype)
 
-    if cfg.n_shared_experts:
-        xs = x.reshape(G * Tg, D)
-        out = out + mlp(cfg, xs, p.get("wg_s"), p["wu_s"], p["wd_s"]
-                        ).reshape(G, Tg, D)
-    first = idx[..., 0, None] == torch.arange(E, device=dev)
+
+def shared_experts(cfg, x, out, p):
+    """``out`` plus the shared experts' MLP on x where the config has
+    them."""
+    if not cfg.n_shared_experts:
+        return out
+    G, Tg, D = x.shape
+    return out + mlp(cfg, x.reshape(G * Tg, D), p.get("wg_s"), p["wu_s"],
+                     p["wd_s"]).reshape(G, Tg, D)
+
+
+def load_balance(cfg, probs, idx):
+    """The Switch-style load-balance term, E · Σ_e mean prob_e · share of
+    first choices_e, the means over every token of the batch: where the
+    ranks of a sharded step hold different rows (``dist.spmd``), both
+    means are averaged over them (each rank's loss carries the term
+    once, its gradient to this rank's rows)."""
+    from ..dist.spmd import current_spmd, mean_over
+    E = cfg.n_experts
+    first = idx[..., 0, None] == torch.arange(E, device=idx.device)
     me = probs.mean(dim=(0, 1))
     ce = first.to(torch.float32).mean(dim=(0, 1))
-    return out, E * (me * ce).sum()
+    spmd = current_spmd()
+    if spmd is not None and spmd.rows is not None and spmd.rows.n > 1:
+        me = mean_over(me, spmd.rows.group, spmd.rows.n)
+        ce = mean_over(ce, spmd.rows.group, spmd.rows.n)
+    return E * (me * ce).sum()

@@ -84,11 +84,15 @@ def whisper_encode(cfg, model, frames):
     bidirectional encoder (no rope) and its final norm."""
     x = frames.to(_compute_dtype(cfg))
     x = x + model["enc_pos"][None, :x.shape[1]]
-    for lp in model.enc_layers:
+
+    def layer(lp, x):
         a = apply_norm(cfg, x, lp, "ln1")
         x = x + gqa_attention(cfg, a, lp, causal=False, use_rope=False)[0]
         m = apply_norm(cfg, x, lp, "ln2")
-        x = x + mlp(cfg, m, lp.get("wg"), lp["wu"], lp["wd"])
+        return x + mlp(cfg, m, lp.get("wg"), lp["wu"], lp["wd"])
+
+    for lp in model.enc_layers:
+        x = lp(layer, x)
     return apply_norm(cfg, x, model, "encf")
 
 
@@ -131,7 +135,8 @@ def _layers(cfg, model, tokens, patches=None, frames=None, collect=None,
     pieces where given.  ``remat``: each decoder layer under activation
     checkpointing (its activations recomputed in the backward), as the
     reference's ``cfg.remat`` wraps its scanned layer in
-    ``jax.checkpoint``."""
+    ``jax.checkpoint``.  Each layer runs through its module's call
+    (``model.Layer``), where a sharded step's FSDP hooks gather it."""
     x = _embed(cfg, model, tokens, patches)
     enc_out = None
     if cfg.family == "encdec":
@@ -140,17 +145,19 @@ def _layers(cfg, model, tokens, patches=None, frames=None, collect=None,
         enc_out = whisper_encode(cfg, model, frames)
     aux = 0.0
     for l, (lp, kind) in enumerate(model.stacks()):
-        def layer(x, lp=lp, kind=kind):
+        def layer(lp, x, kind=kind):
             if enc_out is not None:
                 return whisper_decoder_layer(cfg, x, lp, enc_out)
             return decoder_layer(cfg, x, lp, kind)
-        if remat:
+
+        def remat_layer(lp, x, layer=layer):
             # the layer bound now: the backward recomputes it later
-            x, a = torch.utils.checkpoint.checkpoint(
-                lambda x, layer=layer: layer(x)[0::2], x,
-                use_reentrant=False)
+            return torch.utils.checkpoint.checkpoint(
+                lambda x: layer(lp, x)[0::2], x, use_reentrant=False)
+        if remat:
+            x, a = lp(remat_layer, x)
         else:
-            x, pieces, a = layer(x)
+            x, pieces, a = lp(layer, x)
             if collect is not None:
                 collect(l, pieces)
         aux = aux + a
@@ -174,11 +181,13 @@ def forward_lm(cfg, model, tokens, *, patches=None, frames=None,
     return unembed(cfg, model, x), aux, caches
 
 
-def lm_loss(cfg, model, batch):
+def lm_loss(cfg, model, batch, count=None):
     """Mean next-token cross-entropy of a cast ``model`` on ``batch``
     (``tokens``, ``labels`` (B, S), and ``patches``/``frames`` where the
     family takes them), with gradients where the model's leaves take
     them: returns (loss, {"xent", "aux"}), the reference's ``lm_loss``.
+    ``count``: the divisor of the masked sum in place of this batch's
+    count of labels (a sharded step's rows, over the whole batch's).
 
     The per-row ``logsumexp(x_t) - x_t[label_t]`` comes from K7
     (``kernels.grad.softmax_xent_rows``: the kernel forward, a plain
@@ -197,13 +206,33 @@ def lm_loss(cfg, model, batch):
     rows = grad.softmax_xent_rows(logits.reshape(-1, logits.shape[-1]),
                                   labels)
     mask = (labels >= 0).to(torch.float32)
-    xent = torch.sum(rows * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    if count is None:
+        count = torch.clamp(torch.sum(mask), min=1.0)
+    xent = torch.sum(rows * mask) / count
     return xent + 0.01 * aux, {"xent": xent, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
 # caches
 # ---------------------------------------------------------------------------
+
+def cache_pspec_rules(cfg):
+    """Logical sharding for each cache leaf (dp over batch; heads on tp
+    when divisible; sequence dim sharded on tp for batch-1 long ctx), the
+    reference's rules as written: its first ``k``/``v``/``xk``/``xv``
+    rule is overwritten by the next."""
+    rules = {}
+    fam = cfg.family
+    head_tp = "tp" if cfg.n_kv_heads % 8 == 0 else None
+    for name in ("k", "v", "xk", "xv"):
+        rules[name] = (None, "dp", "tp" if fam == "ssm" else None, head_tp,
+                       None)
+        rules[name] = (None, "dp", None, head_tp, None)
+    rules["ckv"] = (None, "dp", None, None)
+    rules["kr"] = (None, "dp", None, None)
+    rules["state"] = (None, "dp", "tp", None, None)
+    return rules
+
 
 def cache_shapes(cfg, batch: int, seq: int) -> dict:
     """The decode cache's leaves at KV length ``seq``, as the reference's

@@ -165,6 +165,18 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+class Layer(nn.ParameterDict):
+    """One layer's parameters by leaf name, callable: ``layer(fn, *args)``
+    runs ``fn(layer, *args)`` through ``nn.Module.__call__``, so that a
+    module hook (FSDP's gather of the layer's shards before and its
+    reduction of their gradients after) wraps the layer's use."""
+
+    __call__ = nn.Module.__call__
+
+    def forward(self, fn, *args):
+        return fn(self, *args)
+
+
 class LM(nn.Module):
     """A model's parameters under the reference's leaf names: ``embed``,
     ``unembed`` (unless tied), ``final_g`` (and ``final_b`` for
@@ -189,7 +201,7 @@ class LM(nn.Module):
 
         def stack(lps):
             return nn.ModuleList(
-                nn.ParameterDict({k: _frozen(t) for k, t in lp.items()})
+                Layer({k: _frozen(t) for k, t in lp.items()})
                 for lp in lps)
         self.head_layers = stack(head_layers)
         self.layers = stack(layers)
@@ -197,6 +209,11 @@ class LM(nn.Module):
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return getattr(self, name)
+
+    def forward(self, fn, *args):
+        """``model(fn, *args)`` runs ``fn(model, *args)`` through
+        ``nn.Module.__call__`` (as ``Layer``)."""
+        return fn(self, *args)
 
     @property
     def device(self) -> torch.device:
@@ -425,20 +442,54 @@ def new_latent(cfg, x, p, pos):
 # the layer body
 # ---------------------------------------------------------------------------
 
+def moe_groups(T: int) -> int:
+    """The token groups of the MoE layer on T tokens, as the reference
+    groups them: 16 where the batch's tokens divide into 16, else 1.
+    Where the ranks of a sharded step (``dist.spmd``) hold n different
+    row blocks of the batch, T is one block's, the 16 groups are the
+    batch's, and each rank runs its n-th of them (the same groups of the
+    same tokens); ``NotImplementedError`` where they do not split."""
+    from ..dist.spmd import current_spmd
+    spmd = current_spmd()
+    n = spmd.rows.n if spmd is not None and spmd.rows is not None else 1
+    Tn = T * n
+    groups = 16 if Tn % 16 == 0 and Tn >= 16 else 1
+    if groups % n:
+        raise NotImplementedError(
+            f"the MoE layer's {groups} token groups of {Tn} tokens do not "
+            f"split over {n} row blocks of the batch (ROADMAP.md)")
+    return groups // n
+
+
 def _moe_or_mlp(cfg, x, p, is_moe: bool):
     """The layer's feed-forward on x (B, S, D): the MLP, or the MoE layer
-    over the B·S tokens in 16 groups where they divide into 16 (one group
-    otherwise), as the reference groups them; returns (out, aux)."""
+    over the B·S tokens in their groups (``moe_groups``); returns (out,
+    aux).  ``moe_impl="shard_map"`` runs ``dist.moe_ep.moe_layer_ep``
+    where ``moe_ep.supported`` holds on the ambient mesh, ``moe_layer``
+    otherwise (off a mesh, or on a ``model`` axis of 1), as the
+    reference; ``moe_layer`` on a ``model`` axis larger than 1 is the
+    tensor-parallel slice's and raises."""
     if not is_moe:
         return mlp(cfg, x, p.get("wg"), p["wu"], p["wd"]), 0.0
-    if cfg.moe_impl == "shard_map":
-        raise NotImplementedError(
-            f"{cfg.name}: moe_impl='shard_map' (expert parallelism by "
-            f"all-to-all) comes with the port's dist slice (ROADMAP.md)")
     B, S, D = x.shape
     T = B * S
-    groups = 16 if T % 16 == 0 and T >= 16 else 1
-    y, aux = moe_layer(cfg, x.reshape(groups, T // groups, D), p)
+    groups = moe_groups(T)
+    xg = x.reshape(groups, T // groups, D)
+    from ..dist import moe_ep
+    if cfg.moe_impl == "shard_map" and moe_ep.supported(cfg):
+        y, aux = moe_ep.moe_layer_ep(cfg, xg, p)
+        return y.reshape(B, S, D), aux
+    from ..dist.sharding import current_mesh, mesh_axis_sizes
+    mesh = current_mesh()
+    mp = mesh_axis_sizes(mesh).get("model", 1) if mesh is not None else 1
+    if mp > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: moe_impl={cfg.moe_impl!r} with {cfg.n_experts} "
+            f"experts on a 'model' axis of {mp}: the expert split GSPMD "
+            f"places comes with the port's tensor-parallel slice of dist "
+            f"(ROADMAP.md); moe_impl='shard_map' runs it where the expert "
+            f"count and the axis divide")
+    y, aux = moe_layer(cfg, xg, p)
     return y.reshape(B, S, D), aux
 
 

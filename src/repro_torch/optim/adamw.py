@@ -19,6 +19,20 @@ reference's is jnp.
 Parameters, gradients and moments are dicts keyed by the model's
 parameter names (``LM.named_parameters``); ``apply_adamw`` replaces their
 entries leaf by leaf, so the old leaf is freed as its new one is written.
+
+Sharded (``apply_adamw(..., shardings=)``, a sharded train step's
+``dist.spmd.StateShardings``): each leaf is this rank's piece, and K6
+runs once a piece.  The gradient norm sums every rank's squares over
+the process group, a piece that several ranks hold counted once.  A
+float32 moment lies as its parameter does.  An int8 moment's ``q`` and
+``scale`` lie by their own shapes (the reference's ``opt_pspecs``), so
+they may be cut on another dim, or at other elements, than the
+parameter; and the 128-blocks are the global last dim's.  Where the
+parameter's, ``q``'s and ``scale``'s cuts are the same dim and that is
+not the last, each piece holds whole blocks and the update is local;
+otherwise the moment is gathered over the data-parallel ranks,
+dequantized, cut as the parameter, updated, gathered again and
+quantized on the global block grid, each rank keeping its pieces.
 """
 from __future__ import annotations
 
@@ -110,10 +124,19 @@ def init_opt_state(cfg, params: dict) -> dict:
 
 # --- update ---------------------------------------------------------------------
 
-def _global_norm(grads) -> torch.Tensor:
-    """The float32 norm of all the gradients together."""
-    return torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
+def _global_norm(grads, counted=None, group=None) -> torch.Tensor:
+    """The float32 norm of all the gradients together: the square root of
+    the sum of each leaf's squares.  Sharded: only the leaves in
+    ``counted`` (this rank's pieces that no lower rank holds too), the
+    sum taken over the process group ``group``."""
+    parts = [torch.linalg.vector_norm(g, dtype=torch.float32).square()
+             for n, g in grads.items() if counted is None or n in counted]
+    sq = torch.stack(parts).sum() if parts else torch.zeros(
+        (), dtype=torch.float32, device=next(iter(grads.values())).device)
+    if group is not None:
+        import torch.distributed as dist
+        dist.all_reduce(sq, group=group)
+    return torch.sqrt(sq)
 
 
 def _update(p, g, m, v, h: AdamWHyper, lr, step, hvec):
@@ -127,16 +150,56 @@ def _update(p, g, m, v, h: AdamWHyper, lr, step, hvec):
     return tuple(o.reshape(p.shape) for o in outs)
 
 
-def apply_adamw(cfg, h: AdamWHyper, params: dict, grads: dict, opt: dict):
+def _aligned(lp, lq, ls, spmd) -> bool:
+    """Do an int8 moment's ``q`` and ``scale`` pieces (layouts ``lq``,
+    ``ls``) hold whole 128-blocks of the parameter's piece (``lp``)?"""
+    if spmd.dpn == 1:
+        return True
+    last = len(lp.shape) - 1
+    return lp.dp_dim == lq.dp_dim == ls.dp_dim and lp.dp_dim != last
+
+
+def _moment_in(m, lay, lp, spmd, last: int):
+    """An int8 moment (sqrt-domain ``v`` squared by the caller) as float32
+    on the parameter's piece."""
+    if _aligned(lp, lay["q"], lay["scale"], spmd):
+        return dequantize(m["q"], m["scale"], last)
+    full = dequantize(lay["q"].gather(m["q"], spmd, over_model=False),
+                      lay["scale"].gather(m["scale"], spmd, over_model=False),
+                      lp.shape[-1])
+    return lp.local(full, spmd, over_model=False)
+
+
+def _moment_out(x, lay, lp, spmd) -> dict:
+    """A float32 moment on the parameter's piece quantized on the global
+    block grid, as the rank's ``q`` and ``scale`` pieces."""
+    if _aligned(lp, lay["q"], lay["scale"], spmd):
+        q, sc = quantize(x)
+        return {"q": q, "scale": sc}
+    q, sc = quantize(lp.gather(x, spmd, over_model=False))
+    return {"q": lay["q"].local(q, spmd, over_model=False),
+            "scale": lay["scale"].local(sc, spmd, over_model=False)}
+
+
+def apply_adamw(cfg, h: AdamWHyper, params: dict, grads: dict, opt: dict,
+                shardings=None):
     """One AdamW step of the float32 masters ``params`` with ``grads``
     (any float dtype, upcast a leaf at a time; float32 gradients are
     scaled by the clip factor in place) and ``opt`` (``m``, ``v``,
     ``step``).  Replaces the entries of ``params``, ``opt["m"]`` and
     ``opt["v"]`` leaf by leaf and returns (params, opt, metrics
-    ``{"lr", "grad_norm"}``), as the reference returns its new trees."""
+    ``{"lr", "grad_norm"}``), as the reference returns its new trees.
+    ``shardings``: the leaves are a sharded step's pieces
+    (``dist.spmd.StateShardings``; module docstring)."""
     step = opt["step"] + 1
     lr = schedule(h, step)
-    gnorm = _global_norm(grads.values())
+    spmd = shardings.spmd if shardings is not None else None
+    if spmd is None:
+        gnorm = _global_norm(grads)
+    else:
+        import torch.distributed as dist
+        gnorm = _global_norm(grads, shardings.counted(),
+                             group=dist.group.WORLD)
     clip = torch.clamp(h.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     quant = cfg.opt_moment_dtype == "int8"
     dev = step.device
@@ -149,7 +212,14 @@ def apply_adamw(cfg, h: AdamWHyper, params: dict, grads: dict, opt: dict):
         g = grads[name].to(torch.float32)   # a float32 gradient: itself
         g.mul_(clip)
         m, v = ms[name], vs[name]
-        if quant:
+        if quant and spmd is not None:
+            lp = shardings.tree["params"][name]
+            lm = shardings.tree["opt"]["m"][name]
+            lv = shardings.tree["opt"]["v"][name]
+            m = _moment_in(m, lm, lp, spmd, p.shape[-1])
+            sv32 = _moment_in(v, lv, lp, spmd, p.shape[-1])
+            v = sv32 * sv32
+        elif quant:
             m32 = dequantize(m["q"], m["scale"], p.shape[-1])
             # v is stored in the sqrt domain (the reference's choice: a
             # linear int8 grid loses the small-v tail)
@@ -157,7 +227,10 @@ def apply_adamw(cfg, h: AdamWHyper, params: dict, grads: dict, opt: dict):
             m, v = m32, sv32 * sv32
         params[name], m, v = _update(p, g, m, v, h, lr, step, hvec)
         del g
-        if quant:
+        if quant and spmd is not None:
+            m = _moment_out(m, lm, lp, spmd)
+            v = _moment_out(torch.sqrt(v), lv, lp, spmd)
+        elif quant:
             qm, sm = quantize(m)
             qv, sv = quantize(torch.sqrt(v))
             m, v = {"q": qm, "scale": sm}, {"q": qv, "scale": sv}

@@ -1,10 +1,44 @@
 """The train step and the serving steps, from the reference's
 ``repro.train.steps``: ``make_train_step`` (with ``init_train_state``,
 the state it takes), ``make_prefill_step`` and ``make_decode_step`` with
-greedy ``argmax``, and ``DecodeReplay``, the decode step captured once
-as a CUDA graph and replayed at every position, as the reference jits it
-once with the position traced."""
+greedy ``argmax``, ``DecodeReplay``, the decode step captured once as a
+CUDA graph and replayed at every position, as the reference jits it
+once with the position traced, and ``abstract_batch``.
+
+Sharded training (``shard_train_state``, then ``make_train_step(...,
+shardings=)``) runs the reference's FSDP layout on the ranks of a
+``torch.distributed`` ``DeviceMesh`` (``launch.mesh.make_host_mesh``):
+
+* the float32 masters and the moments hold each rank's piece of the
+  reference's spec (``dist.sharding.param_pspecs``/``opt_pspecs``): the
+  data-parallel axes (``pod`` x ``data``, flattened) cut the dim the
+  spec gives them.  The ``model`` entries of a MoE config's spec wait
+  for the tensor-parallel slice, so those leaves are replicated over
+  ``model``; on the expert-parallel path (``moe_impl="shard_map"``,
+  ``n_experts % model == 0``) the expert leaves (E, ...) are cut over
+  ``model`` along E;
+* the compute copy ``params_c`` is FSDP2 (``fully_shard``, one unit a
+  layer and the root), each parameter ``Shard(d)`` on the same dim over
+  the data-parallel ranks, a leaf the spec replicates left out of FSDP
+  (its gradient all-reduced); gradients are summed, never averaged;
+* the batch (the global batch on every rank) is laid out as
+  ``batch_pspecs`` lays it: the rows over the data-parallel ranks where
+  they divide, replicated otherwise.  A dense config with tensor
+  parallelism off (``set_tensor_parallel(False)``) runs its rows over
+  the ``model`` ranks as well (the reference's ``dp`` absorbing
+  ``model``), its gradients summed over ``model`` too;
+* each rank's loss is its rows' masked sum over the whole batch's label
+  count, plus the load-balance term averaged over the ranks' rows,
+  divided by the number of ranks holding the same rows, so the summed
+  gradients are the reference's.
+
+A dense config on a ``model`` axis larger than 1 with tensor
+parallelism on, and ``moe_impl="gspmd"`` on one, raise: the head and
+column split of the forward is the tensor-parallel slice's.
+"""
 from __future__ import annotations
+
+import re
 
 import torch
 
@@ -26,7 +60,7 @@ def init_train_state(cfg, model) -> dict:
             "opt": init_opt_state(cfg, params)}
 
 
-def make_train_step(cfg, hyper, accum: int = 1):
+def make_train_step(cfg, hyper, accum: int = 1, shardings=None):
     """train_step(state, batch) -> (state, metrics), the reference's: the
     loss (``forward.lm_loss``) differentiated with respect to the
     compute copy ``params_c``; AdamW (``optim.apply_adamw``) on the
@@ -36,7 +70,11 @@ def make_train_step(cfg, hyper, accum: int = 1):
     as the reference's scan; ``metrics`` (device tensors) are the last
     microbatch's ``xent`` and ``aux``, with ``loss`` (the mean over the
     microbatches), ``lr`` and ``grad_norm``.  The state's dicts are
-    updated in place and returned."""
+    updated in place and returned.  ``shardings``: the sharded step on
+    the state ``shard_train_state`` made (module docstring); it takes
+    the global batch on every rank and returns global metrics."""
+    if shardings is not None:
+        return _sharded_step(cfg, hyper, accum, shardings)
 
     def grads_of(model, batch):
         names, leaves = zip(*model.named_parameters())
@@ -159,3 +197,293 @@ class DecodeReplay:
             self._advance()
         self._graph, self.launches = graph, launches
         self.captures += 1
+
+
+# ---------------------------------------------------------------------------
+# sharded training
+# ---------------------------------------------------------------------------
+
+#: an expert leaf of a layer stack: (E, ...)
+_EXPERT = re.compile(r"^layers\.\d+\.(wg|wu|wd)$")
+
+
+def _rows_over_model(cfg, spmd) -> bool:
+    """What the ``model`` axis carries: False for 1 rank or the experts;
+    True for a dense config with tensor parallelism off (more
+    data-parallel rows); raises where it would be the tensor-parallel
+    slice's head and column split."""
+    from ..models.common import tensor_parallel_enabled
+    mp = spmd.mp
+    if mp == 1:
+        return False
+    if cfg.n_experts:
+        E = cfg.n_experts
+        if cfg.moe_impl == "shard_map" and (E % mp == 0 or mp % E == 0):
+            return False
+        raise NotImplementedError(
+            f"{cfg.name}: moe_impl={cfg.moe_impl!r} with {E} experts on a "
+            f"'model' axis of {mp}: the expert split GSPMD places comes "
+            f"with the port's tensor-parallel slice (ROADMAP.md); "
+            f"moe_impl='shard_map' runs it where the counts divide")
+    if tensor_parallel_enabled():
+        raise NotImplementedError(
+            f"{cfg.name}: a 'model' axis of {mp} on a dense config splits "
+            f"the forward by heads and columns, which comes with the "
+            f"port's tensor-parallel slice (ROADMAP.md); with "
+            f"models.common.set_tensor_parallel(False) it trains as pure "
+            f"FSDP over the whole mesh")
+    return True
+
+
+def _dp_dim(spec, dp) -> int | None:
+    for d, entry in enumerate(spec):
+        names = (entry,) if isinstance(entry, str) else entry or ()
+        if any(a in dp for a in names):
+            return d
+    return None
+
+
+def _global_shapes(cfg) -> dict:
+    """The port's leaves by name (``layers.3.wq``) with their global
+    shapes, from ``model_shapes``' stacked tree."""
+    from ..models.model import model_shapes
+    out = {}
+    for k, v in model_shapes(cfg).items():
+        if isinstance(v, dict):
+            for n, s in v.items():
+                for l in range(s[0]):
+                    out[f"{k}.{l}.{n}"] = tuple(s[1:])
+        else:
+            out[k] = tuple(v)
+    return out
+
+
+def _moment_shapes(cfg, shape):
+    from ..optim.adamw import QBLOCK, _pad_to_block
+    if cfg.opt_moment_dtype != "int8":
+        return shape
+    last = _pad_to_block(shape[-1]) if shape else QBLOCK
+    return {"q": shape[:-1] + (last,), "scale": shape[:-1] + (last // QBLOCK,)}
+
+
+def state_shardings(cfg, spmd):
+    """The ``dist.spmd.StateShardings`` of ``cfg``'s train state on
+    ``spmd``'s ranks (module docstring)."""
+    from ..dist.sharding import dp_axes, opt_pspecs, param_pspecs
+    from ..dist.spmd import Layout, StateShardings
+    mesh = spmd.source
+    dp = dp_axes(mesh)
+    rows_over_model = _rows_over_model(cfg, spmd)
+    # the expert leaves lie on ``model`` along E (``moe_ep``'s EP path)
+    ep = spmd.mp > 1 and cfg.n_experts > 0 and cfg.n_experts % spmd.mp == 0
+    shapes = _global_shapes(cfg)
+
+    def layout(name, spec, shape):
+        model_dim = 0 if ep and _EXPERT.match(name) else None
+        lay = Layout(tuple(shape), _dp_dim(spec, dp), model_dim)
+        if model_dim is not None and lay.dp_dim == 0 \
+                and (shape[0] // spmd.mp) % spmd.dpn:
+            raise NotImplementedError(
+                f"{name}: {shape[0] // spmd.mp} experts a model rank do "
+                f"not split over {spmd.dpn} data-parallel ranks")
+        return lay
+
+    pspecs = param_pspecs(cfg, shapes, mesh)
+    params = {n: layout(n, pspecs[n].spec, s) for n, s in shapes.items()}
+    moments = {n: _moment_shapes(cfg, s) for n, s in shapes.items()}
+    ospecs = opt_pspecs(cfg, {"m": moments}, mesh)["m"]
+
+    def moment(n):
+        if isinstance(moments[n], dict):
+            return {k: layout(n, ospecs[n][k].spec, moments[n][k])
+                    for k in moments[n]}
+        return layout(n, ospecs[n].spec, moments[n])
+
+    opt = {k: {n: moment(n) for n in shapes} for k in ("m", "v")}
+    opt["step"] = Layout(())
+    return StateShardings(spmd, {"params": params, "params_c": dict(params),
+                                 "opt": opt}, rows_over_model)
+
+
+def shard_train_state(cfg, state, mesh):
+    """The sharded train state on the ranks of ``mesh`` (a ``DeviceMesh``
+    over the whole process group, or a ``dist.spmd.Spmd``) from
+    ``state``, the global state every rank built alike
+    (``init_train_state``; its tensors are freed leaf by leaf), and its
+    ``StateShardings``: (state, shardings).  Each rank keeps its pieces
+    of the masters and moments, and ``params_c`` becomes the FSDP2
+    module (module docstring)."""
+    from ..dist.spmd import Layout, Spmd
+    spmd = mesh if isinstance(mesh, Spmd) else Spmd(mesh)
+    sh = state_shardings(cfg, spmd)
+    tree = sh.tree
+    params = state["params"]
+    for n in list(params):
+        params[n] = tree["params"][n].local(params[n], spmd)
+    for key in ("m", "v"):
+        moments = state["opt"][key]
+        for n in list(moments):
+            lay, t = tree["opt"][key][n], moments[n]
+            moments[n] = ({k: lay[k].local(t[k], spmd) for k in t}
+                          if isinstance(t, dict) else lay.local(t, spmd))
+    model = state["params_c"]
+    for n, p in list(model.named_parameters()):
+        lay = tree["params_c"][n]
+        if lay.model_dim is not None:   # this rank's experts; FSDP cuts dp
+            stack, l, leaf = n.split(".")
+            getattr(model, stack)[int(l)][leaf] = torch.nn.Parameter(
+                Layout(lay.shape, None, lay.model_dim).local(p.data, spmd))
+    _fully_shard(model, tree["params_c"], spmd)
+    return state, sh
+
+
+def _fully_shard(model, layouts: dict, spmd):
+    """FSDP2 over the data-parallel ranks: one unit a layer, then the root;
+    each parameter ``Shard(dp_dim)``, a parameter the spec replicates
+    over several ranks left out; gradients summed."""
+    from torch.distributed.fsdp import FSDPModule, fully_shard
+    from torch.distributed.tensor import Shard
+    place, ignored = {}, set()
+    for n, p in model.named_parameters():
+        d = layouts[n].dp_dim
+        if d is None and spmd.dpn > 1:
+            ignored.add(p)
+        else:
+            place[p] = Shard(d or 0)
+
+    def fn(p):
+        return place.get(p)
+
+    for stack in (model.head_layers, model.layers, model.enc_layers):
+        for lp in stack:
+            fully_shard(lp, mesh=spmd.dp_mesh, shard_placement_fn=fn,
+                        ignored_params=ignored & set(lp.parameters()) or None)
+    fully_shard(model, mesh=spmd.dp_mesh, shard_placement_fn=fn,
+                ignored_params=ignored & set(
+                    model.parameters(recurse=False)) or None)
+    for m in model.modules():
+        if isinstance(m, FSDPModule):
+            m.set_gradient_divide_factor(1.0)
+            if hasattr(m, "set_force_sum_reduction_for_comms"):
+                m.set_force_sum_reduction_for_comms(True)
+
+
+def _local(p) -> torch.Tensor:
+    """A parameter's (or gradient's) piece on this rank."""
+    return p.to_local() if hasattr(p, "to_local") else p
+
+
+def _rows(sh, B: int):
+    """How a batch of B rows lies: (the ranks holding different rows or
+    None, this rank's block, the ranks holding each block)."""
+    import torch.distributed as dist
+    from ..dist.spmd import RowGroup
+    sp = sh.spmd
+    reduce_n = sp.world if sh.rows_over_model else sp.dpn
+    if sh.rows_over_model and sp.world > 1 and B % sp.world == 0:
+        return (RowGroup(dist.group.WORLD, sp.world),
+                sp.dp_rank * sp.mp + sp.model_rank, 1)
+    if sp.dpn > 1 and B % sp.dpn == 0:
+        return RowGroup(sp.dp_group, sp.dpn), sp.dp_rank, reduce_n // sp.dpn
+    return None, 0, reduce_n
+
+
+def _sharded_step(cfg, hyper, accum: int, sh):
+    import torch.distributed as dist
+    from ..dist.spmd import running
+    sp = sh.spmd
+    reduce_group = dist.group.WORLD if sh.rows_over_model else sp.dp_group
+    reduce_n = sp.world if sh.rows_over_model else sp.dpn
+    f32 = torch.float32
+
+    def global_value(x, dup: int):
+        """A per-rank value summed over the ranks that reduce gradients,
+        over the ranks holding each row block."""
+        x = x.detach().clone()
+        if reduce_n > 1:
+            dist.all_reduce(x, group=reduce_group)
+        return x / dup if dup > 1 else x
+
+    def micro_step(model, batch):
+        rows, block, dup = _rows(sh, batch["tokens"].shape[0])
+        if rows is not None:
+            batch = {k: v.chunk(rows.n)[block] for k, v in batch.items()}
+        count = (batch["labels"] >= 0).to(f32).sum()
+        if rows is not None:
+            dist.all_reduce(count, group=rows.group)
+        count = torch.clamp(count, min=1.0)
+        sp.rows = rows
+        try:
+            with running(sp):
+                loss, metrics = model(
+                    lambda m: forward.lm_loss(cfg, m, batch, count))
+                (loss / dup if dup > 1 else loss).backward()
+        finally:
+            sp.rows = None
+        xent = global_value(metrics["xent"], dup)
+        aux = metrics["aux"]
+        aux = aux.detach() if isinstance(aux, torch.Tensor) else aux
+        return xent + 0.01 * aux, {"xent": xent, "aux": aux}
+
+    def take_grads(model, grads):
+        for n, p in model.named_parameters():
+            g = torch.zeros(_local(p).shape, dtype=f32, device=_local(
+                p).device) if p.grad is None else _local(p.grad).to(f32)
+            if n in grads:
+                grads[n].add_(g)
+            else:
+                grads[n] = g
+            p.grad = None
+
+    def train_step(state, batch):
+        model = state["params_c"]
+        grads: dict = {}
+        if accum == 1:
+            loss, metrics = micro_step(model, batch)
+            take_grads(model, grads)
+        else:
+            loss = 0.0
+            mb = batch["tokens"].shape[0] // accum
+            for i in range(accum):
+                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                l, metrics = micro_step(model, micro)
+                loss = loss + l
+                take_grads(model, grads)
+            for t in grads.values():
+                t.div_(accum)
+            loss = loss / accum
+        for n, p in model.named_parameters():
+            if not hasattr(p, "to_local") and sp.dpn > 1:
+                dist.all_reduce(grads[n], group=sp.dp_group)
+            if sh.rows_over_model:
+                dist.all_reduce(grads[n], group=sp.model_group)
+        params, opt, opt_metrics = apply_adamw(
+            cfg, hyper, state["params"], grads, state["opt"], shardings=sh)
+        del grads
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                _local(p).copy_(params[n])
+        state = {"params": params, "params_c": model, "opt": opt}
+        return state, metrics | opt_metrics | {"loss": loss}
+
+    return train_step
+
+
+def abstract_batch(cfg, shape) -> dict:
+    """Stand-ins for the data batch of a shape cell, as the reference's:
+    ``tokens`` and ``labels`` (B, S) int32, a VLM's ``patches`` and an
+    encoder-decoder's ``frames`` in the compute dtype, as tensors on the
+    ``meta`` device (a shape and a dtype, no storage)."""
+    B, S = shape.global_batch, shape.seq_len
+    cd = getattr(torch, cfg.compute_dtype)
+
+    def leaf(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    batch = {"tokens": leaf((B, S), torch.int32),
+             "labels": leaf((B, S), torch.int32)}
+    if cfg.family == "vlm":
+        batch["patches"] = leaf((B, cfg.n_patches, cfg.d_model), cd)
+    if cfg.family == "encdec":
+        batch["frames"] = leaf((B, cfg.encoder_frames, cfg.d_model), cd)
+    return batch

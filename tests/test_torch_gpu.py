@@ -1174,3 +1174,87 @@ def test_two_replicas_on_one_card_equal_the_base_engine(cuda):
                    for k in base._programs)
     # 2 keys of 2 requests ([1, 1] each), 3 of 1 ([1, 0]), served 3 times
     assert two.stats()["replica_rows"] == [3 * 5, 3 * 2]
+
+
+def _world_one_rank(rank, world, moments, ckdir):
+    """An NCCL rank of world 1 (``make_host_mesh(1)``): three steps of the
+    smoke config unsharded, then sharded (FSDP2), the sharded state saved
+    after step 2; every leaf's bits of both runs' last state, the
+    losses, and the counts of the sharded steps."""
+    import dataclasses
+
+    from repro_torch.ckpt import save
+    from repro_torch.ckpt.checkpoint import _flatten, _leaves
+    from repro_torch.configs import ShapeConfig, smoke_config
+    from repro_torch.data import make_batch_fn, shard_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import build_state
+    from repro_torch.optim import AdamWHyper
+    from repro_torch.train.steps import make_train_step, shard_train_state
+    cfg = dataclasses.replace(smoke_config("llama3_8b"),
+                              opt_moment_dtype=moments)
+    hyper = AdamWHyper(lr=3e-3, warmup_steps=1, total_steps=10)
+    get = make_batch_fn(cfg, ShapeConfig("t", 64, 8, "train"))
+    batches = [shard_batch(get(i), "cuda") for i in range(3)]
+    out = {}
+    for sharded in (False, True):
+        state = build_state(cfg, 0, "cuda")
+        sh = None
+        if sharded:
+            state, sh = shard_train_state(cfg, state, make_host_mesh(1))
+        step = make_train_step(cfg, hyper, shardings=sh)
+        losses = []
+        LAUNCHES.reset()
+        for i, b in enumerate(batches):
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            if sharded and i == 1:
+                save(ckdir, 2, state, shardings=sh)
+        leaves = _leaves(state, sh) if sharded else _flatten(state)
+        out[sharded] = {"losses": losses,
+                        "launches": dict(LAUNCHES.by_kernel),
+                        "bits": {k: _bits(t).cpu() for k, t in leaves}}
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moments", ["float32", "int8"])
+def test_world_one_sharded_step_is_bitwise_the_unsharded(moments, cuda,
+                                                         tmp_path):
+    """NCCL at world 1: FSDP2 gathers and reduce-scatters by copies, so
+    the sharded steps' losses and every leaf (masters, the bf16 copy,
+    moments, ``step``) are bitwise the unsharded steps'; and the sharded
+    state saved after step 2 restores onto the card with no process
+    group, where step 3 trained from it is bitwise the sharded run's."""
+    import dataclasses
+
+    from repro_torch.ckpt import restore
+    from repro_torch.ckpt.checkpoint import _flatten
+    from repro_torch.configs import ShapeConfig, smoke_config
+    from repro_torch.data import make_batch_fn, shard_batch
+    from repro_torch.dist.spmd import run_ranks
+    from repro_torch.launch.train import build_state
+    from repro_torch.optim import AdamWHyper
+    from repro_torch.train.steps import make_train_step
+    out = run_ranks(_world_one_rank, 1, moments, str(tmp_path / "ck"),
+                    backend="nccl", timeout_s=300, tmpdir=str(tmp_path))[0]
+    one, sharded = out[False], out[True]
+    assert sharded["losses"] == one["losses"]
+    assert one["bits"].keys() == sharded["bits"].keys()
+    assert [k for k in one["bits"] if not torch.equal(
+        one["bits"][k], sharded["bits"][k])] == []
+    for k in ("K4/rmsnorm_bf16", "K6/adamw_f32", "K7/xent_bf16"):
+        assert sharded["launches"].get(k), (k, sharded["launches"])
+    cfg = dataclasses.replace(smoke_config("llama3_8b"),
+                              opt_moment_dtype=moments)
+    fresh = build_state(cfg, 1, "cuda")
+    fresh, at, _ = restore(tmp_path / "ck", fresh)
+    assert at == 2 and fresh["opt"]["step"].device.type == "cuda"
+    step = make_train_step(cfg, AdamWHyper(lr=3e-3, warmup_steps=1,
+                                           total_steps=10))
+    b = shard_batch(make_batch_fn(cfg, ShapeConfig("t", 64, 8, "train"))(2),
+                    "cuda")
+    fresh, m = step(fresh, b)
+    assert float(m["loss"]) == sharded["losses"][2]
+    assert [k for k, t in _flatten(fresh) if not torch.equal(
+        _bits(t).cpu(), sharded["bits"][k])] == []

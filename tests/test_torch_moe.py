@@ -470,9 +470,23 @@ def test_mla_outside_the_moe_family_is_refused():
 
 
 def test_shard_map_moe_impl_raises():
+    """``moe_impl="shard_map"`` off a mesh is ``moe_layer``, as the
+    reference falls through when ``moe_ep.supported`` fails; what raises
+    is the GSPMD expert split on a ``model`` axis larger than 1, which
+    the tensor-parallel slice brings."""
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.launch.mesh import make_mesh
     cfg, _, model, _ = both("grok1_314b", "float32", moe_impl="shard_map")
-    with pytest.raises(NotImplementedError, match="dist"):
-        forward_lm(cfg, model, torch.from_numpy(tokens(cfg, 4)))
+    toks = torch.from_numpy(tokens(cfg, 4))
+    got = forward_lm(cfg, model, toks)
+    want = forward_lm(dataclasses.replace(cfg, moe_impl="gspmd"), model,
+                      toks)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    gcfg = dataclasses.replace(cfg, moe_impl="gspmd")
+    with use_mesh(make_mesh((1, 2), ("data", "model"),
+                            devices=["cpu"] * 2)):
+        with pytest.raises(NotImplementedError, match="tensor-parallel"):
+            forward_lm(gcfg, model, toks)
 
 
 def test_serve_arch_cli_runs_the_moe_family_on_the_cpu(capsys):

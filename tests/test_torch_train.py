@@ -378,10 +378,10 @@ def test_launch_train_smoke_loss_decreases(capsys):
 
 
 @pytest.mark.parametrize("flags,slice_", [
-    (["--mesh", "multipod"], "SPMD slice of dist"),
-    (["--model-parallel", "4"], "SPMD slice of dist"),
-    (["--model-parallel", "2"], "SPMD slice of dist"),
-    (["--mesh", "pod"], "SPMD slice of dist")])
+    (["--mesh", "multipod"], "needs a world of 512"),
+    (["--model-parallel", "4"], "tensor-parallel slice of dist"),
+    (["--model-parallel", "2"], "tensor-parallel slice of dist"),
+    (["--mesh", "pod"], "needs a world of 256")])
 def test_launch_train_refuses_what_a_later_slice_brings(flags, slice_):
     with pytest.raises(ValueError, match=slice_):
         train_launcher.main(["--arch", "llama3_8b", "--smoke", "--device",
