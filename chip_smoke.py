@@ -170,9 +170,24 @@ Phases, each printed as JSON lines:
    step ms sharded beside unsharded, the peak per rank, the bytes
    FSDP2's gathers and reduce-scatters carry a step, the launches; on 2
    or more GPUs DeepSeek-V2-Lite at full width, depth 2, its experts
-   over ``model`` (``moe_impl="shard_map"``, (1, N)); then K4, K6 and
-   K7 at the sharded path's shapes against their plain versions and
-   timed (``"time"`` lines with ``"path": "spmd"``);
+   over ``model`` (``moe_impl="shard_map"``, (1, N)); then tensor
+   parallelism (``spmd_tp_rank``, the ``"spmd_tp"`` lines): the same
+   configuration's steps with the forward split over ``model`` (heads,
+   MLP columns, the vocabulary through K7's block entry, the residual
+   stream cut along the sequence), on NCCL ranks over (1, 2) and, on
+   four cards, (2, 2) and (1, 4); on one card over (1, 2) on two gloo
+   ranks that share it (gloo carries CUDA tensors; its step time is not
+   NCCL's), the counts set to 0 just before the steps and read just
+   after (K4, K6 and K7's block entry must launch), losses and gradient
+   norms 1e-3 relative to the unsharded run, masters and the bf16 copy
+   5e-2 norm-relative (``SPMD_TP_RTOL``: the ranks add bf16 partial
+   sums), step ms and the peak per rank printed; then K4,
+   K6 and K7 at the sharded path's shapes against their plain versions
+   and timed, and K7's block entry at (8192, 128256) bfloat16 cut into
+   2, 4 and 16 blocks (column slices) against its plain version (1e-5
+   norm-relative each part of the triple), the blocks' triples combined
+   against the whole rows' K7 (1e-5), and timed on one rank's block of
+   the (1, 2) run (``"time"`` lines with ``"path": "spmd"``);
 3. kernel: every K1 group's kernel against K1's plain tiled version on
    the same inputs on the card, and a second launch of it bitwise equal
    to the first (the groups whose reduce axes K1 cuts into slices
@@ -374,9 +389,9 @@ HAND = {
     **{f"K6/adamw_{dt}": ("src/repro_torch/csrc/adamw.cu",
                           "src/repro/kernels/adamw.py:24")
        for dt in ("f32", "bf16")},
-    **{f"K7/xent_{dt}": ("src/repro_torch/csrc/softmax_xent.cu",
-                         "src/repro/kernels/softmax_xent.py:17")
-       for dt in ("f32", "bf16")},
+    **{f"K7/xent_{kind}{dt}": ("src/repro_torch/csrc/softmax_xent.cu",
+                               "src/repro/kernels/softmax_xent.py:17")
+       for kind in ("", "block_") for dt in ("f32", "bf16")},
 }
 #: RMSNorm prefill rows: 8192 tokens at Llama-3-8B's d_model
 #: (src/repro/configs/llama3_8b.py:6)
@@ -778,6 +793,13 @@ def k7_bound(T: int, V: int, dtype: str, label_bytes: int = 8):
     """Softmax cross-entropy: the logits and labels read, T losses
     written; a max, an exp, a sum and a compare a logit."""
     return bound_of(T * V * ES[dtype] + T * (label_bytes + 4), 4 * T * V)
+
+
+def k7_block_bound(T: int, Vb: int, dtype: str, label_bytes: int = 4):
+    """K7's block entry: one block of the logits and the labels read, the
+    (max, sum, x[label]) triple written, 12 bytes a row; a max, an exp,
+    a sum and a compare a logit."""
+    return bound_of(T * Vb * ES[dtype] + T * (label_bytes + 12), 4 * T * Vb)
 
 
 def bits(t):
@@ -1880,6 +1902,22 @@ SPMD_EP_ARCH, SPMD_EP_DEPTH = "deepseek_v2_lite", 2
 #: ``BF16_RTOL`` norm-relative; the moments, linear in those gradients
 #: element by element, are printed (four H100s: m 0.067, v 0.038)
 SPMD_LOSS_RTOL = 1e-3
+#: tensor parallelism: the ``model`` axes the spmd phase splits the
+#: forward over on 2 or more cards (the data axis takes the other ranks)
+SPMD_TP_MPS = {2: (2,), 4: (2, 4)}
+#: ... and its bound on the masters and the bf16 copy (losses and
+#: gradient norms: ``SPMD_LOSS_RTOL``).  Each rank rounds its partial
+#: sum of a row-split matmul (``wo``, ``wd``) and its partial gradient
+#: of the gathered stream to bfloat16 before the ranks add them, where
+#: one device rounds the whole sum once: on the CPU at the smoke size the
+#: first step's gradients lie up to 9.7e-3 from the unsharded step's,
+#: leaf by leaf, against 3.3e-3 for FSDP over the same four ranks, and
+#: within 4.7e-7 in float32 (``tools/tp_grad_noise.py``); one H100, (1,
+#: 2) on two gloo ranks: the masters 2.74e-2 after 3 steps
+SPMD_TP_RTOL = 5e-2
+#: K7's block entry: the numbers of blocks the (8192, 128256) bfloat16
+#: logits are cut into
+XENT_BLOCKS = (2, 4, 16)
 
 
 def _spmd_steps(step, state, batches, lo: int, hi: int, hook=None):
@@ -1908,7 +1946,7 @@ def _spmd_compare(got: dict, want: dict, bitwise: bool) -> dict:
     ``params_c``, ``opt/m``, ``opt/v``; an int8 moment dequantized with
     its block scales)."""
     import torch
-    differ, worst = [], {}
+    differ, worst, leaf = [], {}, {}
     for k, w in want.items():
         g = got[k]
         if bitwise:
@@ -1925,11 +1963,12 @@ def _spmd_compare(got: dict, want: dict, bitwise: bool) -> dict:
             g = deq(g, got[k[:-2] + "/scale"])
             w = deq(w, want[k[:-2] + "/scale"].to(g.device))
         part = "/".join(k.split("/")[:2 if k.startswith("opt/") else 1])
-        worst[part] = max(worst.get(part, 0.0),
-                          tensor_err(g.float(), w.float())[0])
+        err = tensor_err(g.float(), w.float())[0]
+        if err >= worst.get(part, 0.0):
+            worst[part], leaf[part] = err, k
     return {"bitwise": bitwise, "differ": differ,
             "max_norm_rel_err": max(worst.values(), default=0.0),
-            "max_norm_rel_err_by_part": worst}
+            "max_norm_rel_err_by_part": worst, "worst_leaf_by_part": leaf}
 
 
 def spmd_rank(rank: int, world: int, seed: int, ckdir: str) -> dict:
@@ -2042,6 +2081,78 @@ def spmd_rank(rank: int, world: int, seed: int, ckdir: str) -> dict:
         out["restored"] = _spmd_compare(got, host, world == 1) | {
             "at": at, "restore_s": restore_s, "losses": losses3,
             "loss_equal": losses3 == losses[SPMD_SAVE_AT:]}
+    return out
+
+
+def spmd_tp_rank(rank: int, world: int, seed: int, mps, device_type) -> dict:
+    """One rank of phase ``spmd``'s tensor-parallel runs: rank 0 first
+    runs the steps of ``spmd_rank``'s configuration unsharded and keeps
+    the state on the host; then for each ``model`` axis of ``mps`` every
+    rank runs them sharded over ``make_host_mesh(mp, device_type)``,
+    the forward split over ``model``, the counts set to 0 just before
+    and read just after; rank 0 holds the gathered state to the
+    unsharded one (``_spmd_compare``)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.ckpt.checkpoint import _flatten, _leaves
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core import LAUNCHES
+    from repro_torch.data import make_batch_fn, shard_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import build_state
+    from repro_torch.optim import AdamWHyper
+    from repro_torch.train import steps as steps_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, _ = lm_config(get_config(TRAIN_ARCH), TRAIN_INT8_DEPTH)
+    cfg = dataclasses.replace(cfg, opt_moment_dtype="int8")
+    hyper = AdamWHyper(lr=TRAIN_LR, warmup_steps=max(1, SPMD_STEPS // 20),
+                       total_steps=SPMD_STEPS)
+    get = make_batch_fn(cfg, ShapeConfig("chip", TRAIN_SEQ, TRAIN_BATCH,
+                                         "train"))
+    batches = [shard_batch(get(i), "cuda") for i in range(SPMD_STEPS)]
+    out = {"backend": dist.get_backend(), "world": world, "runs": []}
+    host = None
+    if rank == 0:
+        state = build_state(cfg, seed, "cuda")
+        state, losses, norms, ms = _spmd_steps(
+            steps_lib.make_train_step(cfg, hyper), state, batches, 0,
+            SPMD_STEPS)
+        host = {k: t.detach().cpu() for k, t in _flatten(state)}
+        out["unsharded"] = {"losses": losses, "grad_norms": norms,
+                            "step_ms": ms}
+        del state
+        torch.cuda.empty_cache()
+    dist.barrier()
+    for mp in mps:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        state = build_state(cfg, seed, "cuda")
+        state, sh = steps_lib.shard_train_state(
+            cfg, state, make_host_mesh(mp, device_type))
+        step = steps_lib.make_train_step(cfg, hyper, shardings=sh)
+        LAUNCHES.reset()
+        state, losses, norms, ms = _spmd_steps(step, state, batches, 0,
+                                               SPMD_STEPS)
+        launches = dict(LAUNCHES.by_kernel)
+        sp, tp = sh.spmd, sh.tp
+        lo, hi = tp.block(cfg.vocab)
+        rows = TRAIN_BATCH * TRAIN_SEQ // sp.dpn
+        run = {"mesh": sp.describe(), "losses": losses, "grad_norms": norms,
+               "step_ms": ms, "peak_bytes": torch.cuda.max_memory_allocated()
+               - base, "launches": launches,
+               "shapes": {"K7_block": [rows, hi - lo],
+                          "K4": [rows // mp, cfg.d_model]}}
+        full = {k: v for k, v in _leaves(state, sh)}
+        if rank == 0:
+            run["vs_unsharded"] = _spmd_compare(full, host, False)
+        out["runs"].append(run)
+        del full, state, step
+        torch.cuda.empty_cache()
+        dist.barrier()
     return out
 
 
@@ -2206,6 +2317,7 @@ def spmd_phase(args, failures: list, smi_line: str) -> list:
             failures.append(f"spmd: {k} was not launched in the sharded "
                             f"steps: {launches}")
     emit(line)
+    tp_launches, tp_shapes = spmd_tp_runs(args, world, failures, smi_line)
 
     # K4, K6 and K7 at the sharded path's shapes
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -2216,11 +2328,12 @@ def spmd_phase(args, failures: list, smi_line: str) -> list:
 
     records = []
 
-    def record(kernel, what, shape, wrapper, plain, lib, bound, err):
+    def record(kernel, what, shape, wrapper, plain, lib, bound, err,
+               counted=launches):
         ms, how = graph_ms(wrapper)
         rec = {"name": f"{kernel} (spmd, {what})", "route": "cuda",
                "source": HAND[kernel][0], "replaces": HAND[kernel][1],
-               "launches": launches.get(kernel, 0), "max_abs_err": err,
+               "launches": counted.get(kernel, 0), "max_abs_err": err,
                "ms": ms, "plain_ms": time_ms(plain, max_reps=3),
                "bound_ms": bound[0], "bound_by": bound[1],
                "library_ms": None if lib is None else lib()}
@@ -2254,6 +2367,8 @@ def spmd_phase(args, failures: list, smi_line: str) -> list:
                logits, lab64, ignore_index=-1, reduction="none"))[0],
            k7_bound(T, V, "bfloat16", label_bytes=4), mabs)
     del logits, labels, lab64
+    worst7b = xent_block_checks(args, randn, gen, record, tp_launches,
+                                tp_shapes["K7_block"], failures)
     n, leaf = r0["shapes"]["K6"]
     p, gr = randn(n), randn(n, scale=1e-3)
     m, v = randn(n, scale=1e-3), randn(n, scale=1e-3).abs_().square_()
@@ -2273,13 +2388,133 @@ def spmd_phase(args, failures: list, smi_line: str) -> list:
            max(e[1] for e in errs))
     del p, gr, m, v, want, lib
     torch.cuda.empty_cache()
-    worst = {"K4": rel4, "K7": rel7, "K6": max(e[0] for e in errs)}
+    worst = {"K4": rel4, "K7": rel7, "K6": max(e[0] for e in errs),
+             "K7_block": worst7b}
     emit({"phase": "spmd_kernel", "norm_rel_err": worst})
     if not (rel4 <= BF16_KERNEL_RTOL and rel7 <= BF16_KERNEL_RTOL
             and worst["K6"] <= K6_TRAIN_RTOL):
         failures.append(f"spmd kernels against their plain versions: "
                         f"{worst}")
     return records
+
+
+def spmd_tp_runs(args, world: int, failures: list, smi_line: str):
+    """Phase ``spmd``'s tensor-parallel runs (``spmd_tp_rank``): on 2 or
+    more cards NCCL ranks, one a card, over the ``model`` axes of
+    ``SPMD_TP_MPS``; on one card two gloo ranks that share it, over (1,
+    2).  One ``"spmd_tp"`` line a run, held to the unsharded run
+    (``SPMD_LOSS_RTOL``, ``SPMD_TP_RTOL``);
+    returns the launches and the kernels' shapes of the (1, 2) or (2,
+    2) run (the first)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.dist.spmd import run_ranks
+
+    t0 = time.perf_counter()
+    if world >= 2:
+        nproc, backend, device_type = world, "nccl", None
+        mps = SPMD_TP_MPS[4 if world >= 4 else 2]
+    else:
+        nproc, backend, device_type, mps = 2, "gloo", "cuda", (2,)
+    d = tempfile.mkdtemp(prefix="spmd_tp_")
+    try:
+        res = run_ranks(spmd_tp_rank, nproc, args.seed, mps, device_type,
+                        backend=backend, timeout_s=900, tmpdir=d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    r0, un = res[0], res[0]["unsharded"]
+    for i, run in enumerate(r0["runs"]):
+        cmp_ = run["vs_unsharded"]
+        held = max(v for k, v in cmp_["max_norm_rel_err_by_part"].items()
+                   if not k.startswith("opt/"))
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(
+            run["losses"] + run["grad_norms"],
+            un["losses"] + un["grad_norms"]))
+        line = {"phase": "spmd_tp", "nvidia_smi": smi_line,
+                "arch": TRAIN_ARCH, "n_layers": TRAIN_INT8_DEPTH,
+                "opt_moment_dtype": "int8", "batch": TRAIN_BATCH,
+                "seq": TRAIN_SEQ, "steps": SPMD_STEPS, "backend": backend,
+                "ranks": nproc, "cards": world, "mesh": run["mesh"],
+                "losses": run["losses"], "grad_norms": run["grad_norms"],
+                "unsharded": un, "max_loss_grad_norm_rel_err": loss_err,
+                "vs_unsharded": cmp_, "step_ms": run["step_ms"],
+                "peak_gb_per_rank": [r["runs"][i]["peak_bytes"] / 1e9
+                                     for r in res],
+                "launches": run["launches"], "shapes": run["shapes"],
+                "seconds": time.perf_counter() - t0}
+        if backend == "gloo":
+            line["note"] = ("two ranks share the one card over gloo, which "
+                            "stages CUDA tensors through the host: the "
+                            "step time is not NCCL's")
+        emit(line)
+        if not (loss_err <= SPMD_LOSS_RTOL and held <= SPMD_TP_RTOL):
+            failures.append(f"spmd_tp {run['mesh']}: losses and gradient "
+                            f"norms {loss_err}, state {cmp_}")
+        for k in ("K4/rmsnorm_bf16", "K6/adamw_f32", "K7/xent_block_bf16"):
+            if not run["launches"].get(k):
+                failures.append(f"spmd_tp {run['mesh']}: {k} was not "
+                                f"launched: {run['launches']}")
+    first = r0["runs"][0]
+    return first["launches"], first["shapes"]
+
+
+def xent_block_checks(args, randn, gen, record, launches, shape,
+                      failures: list) -> float:
+    """K7's block entry at ``XENT`` (8192, 128256) bfloat16, the logits
+    cut into ``XENT_BLOCKS`` blocks of columns (as ``torch.tensor_split``
+    cuts them, each read in place as a slice): each block's triple
+    against its plain version, the triples combined against the whole
+    rows' K7; then timed on one rank's block of the tensor-parallel run
+    (``shape``), ``launches`` its counts.  Returns the largest
+    norm-relative error."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import softmax_xent as k7
+
+    T, V = XENT
+    logits = randn(T, V, dtype=torch.bfloat16, scale=2.0)
+    labels = torch.randint(0, V, (T,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    labels[TRAIN_SEQ - 1::TRAIN_SEQ] = -1
+    whole = k7.softmax_xent_rows(logits, labels)
+    worst, line = 0.0, {"phase": "spmd_kernel", "kernel":
+                        "K7/xent_block_bf16", "shape": [T, V], "blocks": {}}
+    for n in XENT_BLOCKS:
+        cuts = [(int(b[0]), int(b[-1]) + 1) for b in
+                torch.tensor_split(torch.arange(V), n)]
+        triples, errs = [], []
+        for lo, hi in cuts:
+            got = k7.softmax_xent_block(logits[:, lo:hi], labels, lo)
+            want = ref.softmax_xent_block(logits[:, lo:hi], labels, lo)
+            errs.append(max(tensor_err(a, b)[0] for a, b in zip(got, want)))
+            triples.append(got)
+        comb = tensor_err(ref.combine_xent_blocks(triples), whole)
+        line["blocks"][n] = {"widths": sorted({hi - lo for lo, hi in cuts}),
+                             "triple_norm_rel_err": max(errs),
+                             "combined_vs_whole_k7": comb[0],
+                             "combined_max_abs_err": comb[1]}
+        worst = max(worst, max(errs), comb[0])
+        del triples
+    emit(line)
+    if worst > MEAN_RTOL:
+        failures.append(f"spmd: K7's block entry against its plain "
+                        f"version or the whole rows: {line}")
+    rows, Vb = shape
+    blk = logits[:rows, :Vb].contiguous()
+    lab = labels[:rows].contiguous()
+    got = k7.softmax_xent_block(blk, lab, 0)
+    mabs = max(tensor_err(a, b)[1] for a, b in
+               zip(got, ref.softmax_xent_block(blk, lab, 0)))
+    record("K7/xent_block_bf16", "lm_loss over a vocabulary split, one "
+           "rank's block", [rows, Vb],
+           lambda: k7.softmax_xent_block(blk, lab, 0),
+           lambda: ref.softmax_xent_block(blk, lab, 0), None,
+           k7_block_bound(rows, Vb, "bfloat16"), mabs, counted=launches)
+    del logits, labels, whole, blk, lab, got
+    torch.cuda.empty_cache()
+    return worst
 
 
 class moe_routes:

@@ -16,7 +16,10 @@ global tensor, ``Layout.gather`` joins the pieces again.
 into one: its ``mesh`` is a ``DeviceMesh`` of the same ranks with axes
 ``("data", "model")``, which the FSDP wrapping, the gathers and the
 MoE layers use.  ``rows`` says over which ranks the batch rows differ
-(the MoE load-balance term averages over them).
+(the MoE load-balance term averages over them); ``tp``, where a dense
+config's forward is split over the ``model`` ranks (``TensorParallel``:
+heads, MLP columns and vocabulary blocks, the residual stream cut along
+the sequence between them, ``gather_seq``/``scatter_seq``).
 """
 from __future__ import annotations
 
@@ -125,6 +128,7 @@ class Spmd:
         self.model_rank = self.model_mesh.get_local_rank()
         self.world = self.dpn * self.mp
         self.rows: RowGroup | None = None
+        self.tp: TensorParallel | None = None
 
     def describe(self) -> dict:
         return mesh_axis_sizes(self.source)
@@ -138,6 +142,30 @@ class RowGroup:
     n: int
 
 
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """The ``n`` ranks of ``group`` (this one ``rank``) hold the same rows
+    and split a dense layer between them, as the reference's ``tp``
+    constraints place it: each computes its block of the query heads
+    (and the KV heads those read), of the MLP's columns and of the
+    vocabulary, and holds its block of the sequence of the residual
+    stream between the layers.  A tensor every rank holds whole takes
+    on each rank only the gradient of this rank's use of it (a partial
+    gradient); the blocks are disjoint, so the gradients summed over
+    the ranks once are the whole."""
+
+    group: Any
+    n: int
+    rank: int
+
+    def block(self, size: int) -> tuple[int, int]:
+        """This rank's ``[lo, hi)`` of ``size``, cut as ``torch.tensor_split``
+        cuts it into ``n`` (the first ``size % n`` blocks one longer)."""
+        q, r = divmod(size, self.n)
+        lo = self.rank * q + min(self.rank, r)
+        return lo, lo + q + (self.rank < r)
+
+
 @dataclasses.dataclass
 class StateShardings:
     """Where each rank's pieces of a sharded train state lie: ``tree``,
@@ -146,11 +174,14 @@ class StateShardings:
     ``{"q", "scale"}`` a ``Layout`` each), on ``spmd``'s ranks.
     ``rows_over_model``: the ``model`` ranks hold different rows too
     (a dense config with tensor parallelism off), and the gradients are
-    summed over them."""
+    summed over them.  ``tp``: the ``model`` ranks split a dense
+    config's forward (``TensorParallel``); each rank's gradients are
+    partial, and are summed over them too."""
 
     spmd: Spmd
     tree: dict
     rows_over_model: bool = False
+    tp: TensorParallel | None = None
 
     def counted(self) -> set:
         """The parameters whose pieces count toward the gradient norm on
@@ -271,6 +302,65 @@ class _MeanOver(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g / ctx.n, None, None
+
+
+def reduce_scatter_cat(t: torch.Tensor, dim: int, group, n: int
+                       ) -> torch.Tensor:
+    """The ``n`` ranks' ``t`` of ``group`` summed, and this rank's block of
+    the sum along ``dim`` (which ``n`` divides)."""
+    import torch.distributed as dist
+    size = t.shape[dim] // n
+    parts = t.unflatten(dim, (n, size)).movedim(dim, 0).contiguous()
+    out = torch.empty(parts.shape[1:], dtype=t.dtype, device=t.device)
+    dist.reduce_scatter_tensor(out, parts.flatten(0, 1), group=group)
+    return out
+
+
+class _GatherSeq(torch.autograd.Function):
+    """Sequence to tensor parallelism (the reference's SP gather of the
+    post-norm ``h``): forward, every rank's block of ``dim`` joined in
+    rank order; backward, the ranks' partial gradients of the whole
+    summed and cut back to this rank's block (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, group, n: int):
+        ctx.meta = (dim, group, n)
+        return all_gather_cat(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group, n = ctx.meta
+        return reduce_scatter_cat(g, dim, group, n), None, None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Tensor to sequence parallelism (the reference's SP reduce-scatter
+    after a row-split matmul): forward, the ranks' partial sums summed
+    and cut to this rank's block of ``dim``; backward, every rank's
+    block of the gradient joined (an all-gather), the gradient of this
+    rank's partial sum."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, group, n: int):
+        ctx.meta = (dim, group, n)
+        return reduce_scatter_cat(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group, n = ctx.meta
+        return all_gather_cat(g, dim, group, n), None, None, None
+
+
+def gather_seq(x: torch.Tensor, tp: TensorParallel, dim: int = 1):
+    """``x`` (B, S/n, ...) of each rank joined into (B, S, ...)
+    (``_GatherSeq``)."""
+    return _GatherSeq.apply(x, dim, tp.group, tp.n)
+
+
+def scatter_seq(x: torch.Tensor, tp: TensorParallel, dim: int = 1):
+    """The ranks' partial sums ``x`` (B, S, ...) summed, this rank's
+    (B, S/n, ...) block of the sum (``_ScatterSeq``)."""
+    return _ScatterSeq.apply(x, dim, tp.group, tp.n)
 
 
 def chunk_rows(x, rank, size, group, n):

@@ -59,10 +59,12 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 
 def check(kernel: str, name: str, t: torch.Tensor, shape: tuple,
-          dtypes=(torch.float32,), device: torch.device | None = None):
+          dtypes=(torch.float32,), device: torch.device | None = None,
+          rows_apart: bool = False):
     """Raise unless ``t`` is a contiguous CUDA tensor of ``shape`` and one
     of ``dtypes`` (``shape`` entries of None match any extent), on
-    ``device`` where one is given."""
+    ``device`` where one is given.  ``rows_apart``: a 2-D ``t`` whose
+    rows are each contiguous may lie further apart (a column slice)."""
     if not isinstance(t, torch.Tensor) or not _on_cuda(t):
         where = t.device if isinstance(t, torch.Tensor) else type(t).__name__
         raise ValueError(f"{kernel}: {name} is on {where}; the kernel "
@@ -77,8 +79,12 @@ def check(kernel: str, name: str, t: torch.Tensor, shape: tuple,
             s is not None and s != d for s, d in zip(shape, t.shape)):
         raise ValueError(f"{kernel}: {name} must have shape {shape}, got "
                          f"{tuple(t.shape)}")
+    if rows_apart and t.dim() == 2 and (t.shape[1] <= 1 or t.stride(1) == 1) \
+            and (t.shape[0] <= 1 or t.stride(0) >= t.shape[1]):
+        return
     if not t.is_contiguous():
-        raise ValueError(f"{kernel}: {name} must be contiguous")
+        raise ValueError(f"{kernel}: {name} must be contiguous"
+                         + (" along its rows" if rows_apart else ""))
 
 
 def _current(device: torch.device):

@@ -2,7 +2,9 @@
 argument order (``repro.kernels.ops``): ``rmsnorm`` (K4), ``bicgk`` (K2),
 ``gemver`` (K3), ``adamw_update`` (K6), ``softmax_xent`` (K7) and
 ``decode_attention`` (K5); and ``softmax_xent_rows``, K7's per-row losses
-(the training loss masks and averages them, ``models.forward.lm_loss``).
+(the training loss masks and averages them, ``models.forward.lm_loss``),
+and ``softmax_xent_block``, K7's triple over one block of the vocabulary
+(a tensor-parallel rank's logits).
 
 Tensors on a CUDA device always launch the kernel; tensors on the CPU
 run the plain version in ``kernels.ref``.  Nothing falls back: a failed
@@ -88,6 +90,18 @@ def softmax_xent_rows(logits, labels):
         raise ValueError(f"softmax_xent_rows: logits must be 2-D (T, V) on "
                          f"CUDA, got shape {tuple(logits.shape)}")
     return _xent.softmax_xent_rows(logits, labels)
+
+
+def softmax_xent_block(logits, labels, c0: int):
+    """The float32 triple (max, sum of ``exp(x - max)``, ``x[label]`` or
+    0), (T,) each, of logits (T, Vb) holding columns ``[c0, c0 + Vb)``
+    of the vocabulary; labels (T,)."""
+    if _on_cpu(logits, labels):
+        return ref.softmax_xent_block(logits, labels, c0)
+    if logits.dim() != 2:
+        raise ValueError(f"softmax_xent_block: logits must be 2-D (T, Vb) "
+                         f"on CUDA, got shape {tuple(logits.shape)}")
+    return _xent.softmax_xent_block(logits, labels, c0)
 
 
 def softmax_xent(logits, labels):

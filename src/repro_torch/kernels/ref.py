@@ -113,6 +113,50 @@ def softmax_xent(logits, labels):
     return torch.mean(softmax_xent_rows(logits, labels))
 
 
+def softmax_xent_block(logits, labels, c0: int):
+    """K7's block entry: logits (T, Vb), columns ``[c0, c0 + Vb)`` of the
+    vocabulary, labels (T,).  Returns the float32 triple (m, s, xl), (T,)
+    each: the row's max, its sum of ``exp(x - m)``, and ``x[label]``
+    where the label falls in the block, else 0."""
+    lg = logits.to(torch.float32)
+    m = lg.amax(-1)
+    s = torch.exp(lg - m[:, None]).sum(-1)
+    lab = labels.to(torch.int64) - c0
+    valid = (lab >= 0) & (lab < lg.shape[-1])
+    xl = torch.gather(lg, -1, torch.where(valid, lab, 0)[:, None])[:, 0]
+    return m, s, torch.where(valid, xl, 0.0)
+
+
+def combine_xent_blocks(triples):
+    """The per-row losses from every block's triple (``softmax_xent_block``
+    over blocks that cover the vocabulary once), as the tensor-parallel
+    ranks combine theirs: the largest max, the sums rescaled to it,
+    ``x[label]`` summed; ``m + log(s) - x[label]``."""
+    m, s, xl = (torch.stack(t) for t in zip(*triples))
+    top = m.amax(0)
+    return top + torch.log((s * torch.exp(m - top)).sum(0)) - xl.sum(0)
+
+
+def softmax_xent_block_backward(logits, labels, c0: int, lse, dloss):
+    """The gradient of a block's share of the per-row losses for the
+    per-row gradients ``dloss`` (T,), given each row's ``lse`` over the
+    whole vocabulary (T,): (exp(x - lse) - onehot(label - c0)) · dloss in
+    float32, returned in the logits' dtype, ``XENT_BACKWARD_ROWS`` rows at
+    a time.  A label outside the block has no one-hot column here."""
+    T, V = logits.shape
+    out = torch.empty_like(logits)
+    lab = labels.to(torch.int64) - c0
+    for r0 in range(0, T, XENT_BACKWARD_ROWS):
+        r1 = min(r0 + XENT_BACKWARD_ROWS, T)
+        p = torch.exp(logits[r0:r1].to(torch.float32) - lse[r0:r1, None])
+        lb = lab[r0:r1]
+        valid = (lb >= 0) & (lb < V)
+        p.scatter_add_(1, torch.where(valid, lb, 0)[:, None],
+                       -valid.to(torch.float32)[:, None])
+        out[r0:r1] = p.mul_(dloss[r0:r1, None].to(torch.float32))
+    return out
+
+
 def _prefix(k, v, kv_len):
     """K and V cut to their first ``kv_len`` rows (all S where None;
     1 <= kv_len <= S); a 0-d tensor ``kv_len`` cuts nothing (its rows

@@ -96,16 +96,19 @@ def _world() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def _device_mesh(shape: tuple, axes: tuple, what: str):
+def _device_mesh(shape: tuple, axes: tuple, what: str,
+                 device_type: str | None = None):
     """A ``DeviceMesh`` of ``shape`` over ``axes`` on the process group's
-    ranks, on the devices its backend drives."""
+    ranks, on the devices its backend drives (``device_type`` where
+    given: gloo carries CUDA tensors too)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     if not dist.is_initialized():
         raise RuntimeError(
             f"{what}: a training mesh spans the ranks of a process group; "
             f"start one first (torchrun, or dist.spmd.run_ranks)")
-    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    kind = device_type or ("cuda" if dist.get_backend() == "nccl"
+                           else "cpu")
     return init_device_mesh(kind, shape, mesh_dim_names=axes)
 
 
@@ -125,12 +128,16 @@ def make_production_mesh(*, multi_pod: bool = False):
     return _device_mesh(shape, axes, "make_production_mesh")
 
 
-def make_host_mesh(model_parallel: int = 1):
+def make_host_mesh(model_parallel: int = 1, device_type: str | None = None):
     """Best-effort ``("data", "model")`` mesh over every rank of the
     process group: ``model`` is ``model_parallel``, lowered until it
-    divides the world size, as the reference's."""
+    divides the world size, as the reference's.  ``device_type``: the
+    devices the ranks compute on (by default ``cuda`` under NCCL,
+    ``cpu`` under gloo; ``cuda`` under gloo puts several ranks on one
+    card)."""
     n = _world()
     mp = max(1, min(model_parallel, n))
     while n % mp:
         mp -= 1
-    return _device_mesh((n // mp, mp), ("data", "model"), "make_host_mesh")
+    return _device_mesh((n // mp, mp), ("data", "model"), "make_host_mesh",
+                        device_type)

@@ -290,7 +290,7 @@ def serve_arch(args):
     from repro_torch.configs import get_config, smoke_config
     if args.model_parallel > 1:
         raise ValueError(f"--model-parallel {args.model_parallel}: "
-                         f"tensor-parallel serving comes with the port's "
+                         f"tensor-parallel serving comes with a later "
                          f"tensor-parallel slice of dist (ROADMAP.md); "
                          f"this path runs on one device")
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)

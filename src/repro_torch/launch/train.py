@@ -9,8 +9,9 @@ preemption guard around the step loop, exact resume.
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_8b \
         --smoke --device cpu
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
-        --arch llama3_8b --smoke --device cpu --model-parallel 2 \
-        --no-tensor-parallel
+        --arch llama3_8b --smoke --device cpu --model-parallel 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_8b \
+        --smoke --device cpu --model-parallel 2 --nproc 4
 
 Sharded training runs over a process group: one started by ``torchrun``
 (NCCL on the card, rank r on ``cuda:<LOCAL_RANK>``; gloo with
@@ -19,11 +20,14 @@ Sharded training runs over a process group: one started by ``torchrun``
 ``--mesh host`` (``make_host_mesh(--model-parallel)``), ``pod`` or
 ``multipod`` (``make_production_mesh``: 256 or 512 ranks); the state is
 sharded by ``train.steps.shard_train_state`` and rank 0 prints.  A dense
-config on ``--model-parallel`` > 1 needs ``--no-tensor-parallel`` (pure
-FSDP over the whole mesh): the head and column split is the
-tensor-parallel slice's; a MoE config runs its experts over ``model``
-with ``--moe-impl shard_map``.  Without a process group (and with
-``--mesh host --model-parallel 1``) it trains on one device.
+config on ``--model-parallel`` > 1 splits its forward over the ``model``
+ranks (tensor and sequence parallelism: heads, MLP columns and the
+vocabulary; the axis must divide ``n_heads`` and ``d_ff``), or with
+``--no-tensor-parallel`` trains as pure FSDP over the whole mesh; a MoE
+config runs its experts over ``model`` with ``--moe-impl shard_map``.
+The other families under tensor parallelism come with a later slice and
+raise.  Without a process group (and with ``--mesh host
+--model-parallel 1``) it trains on one device.
 
 ``--ckpt-dir`` saves the state every ``--ckpt-every`` steps (at step + 1)
 and when a preemption signal arrives, before the loop exits;
@@ -58,25 +62,29 @@ def build_state(cfg, seed: int, device) -> dict:
 
 
 def _refuse(args, cfg):
-    """Raise for what the port's tensor-parallel slice brings: a dense
-    config on a ``model`` axis with tensor parallelism on, and
+    """Raise, before any rank starts, for what a later tensor-parallel
+    slice brings: with tensor parallelism on a ``model`` axis, a family
+    other than dense, or a dense config whose heads or MLP columns the
+    axis does not divide (``train.steps.tensor_parallel_split``); and
     ``moe_impl="gspmd"`` on one."""
     if args.model_parallel <= 1:
         return
     from repro_torch.models.common import tensor_parallel_enabled
-    if not cfg.n_experts and tensor_parallel_enabled() \
-            and not args.no_tensor_parallel:
-        raise ValueError(
-            f"--model-parallel {args.model_parallel} on the dense config "
-            f"{cfg.name}: the head and column split of the forward comes "
-            f"with the port's tensor-parallel slice of dist (ROADMAP.md); "
-            f"--no-tensor-parallel trains it as pure FSDP over the mesh")
-    if cfg.n_experts and cfg.moe_impl != "shard_map":
-        raise ValueError(
-            f"--model-parallel {args.model_parallel} with moe_impl="
-            f"{cfg.moe_impl!r}: the expert split GSPMD places comes with "
-            f"the port's tensor-parallel slice of dist (ROADMAP.md); "
-            f"--moe-impl shard_map runs the experts over 'model'")
+    from repro_torch.train.steps import tensor_parallel_split
+    if cfg.n_experts:
+        if cfg.moe_impl != "shard_map":
+            raise ValueError(
+                f"--model-parallel {args.model_parallel} with moe_impl="
+                f"{cfg.moe_impl!r}: the expert split GSPMD places comes "
+                f"with a later tensor-parallel slice of dist (ROADMAP.md); "
+                f"--moe-impl shard_map runs the experts over 'model'")
+    elif tensor_parallel_enabled() and not args.no_tensor_parallel:
+        try:
+            tensor_parallel_split(cfg, args.model_parallel)
+        except NotImplementedError as e:
+            raise ValueError(f"--model-parallel {args.model_parallel}: "
+                             f"{e}; --no-tensor-parallel trains it as pure "
+                             f"FSDP over the mesh") from None
 
 
 def _process_group(device: str) -> bool:

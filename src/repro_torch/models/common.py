@@ -11,9 +11,19 @@ The reference's sharding helpers (``set_tensor_parallel``,
 ``resolve_axis``, ``pspec``, ``logical_axis_size``, ``constrain``) read
 the ambient mesh (``dist.sharding.use_mesh``).  Logical axes: ``dp``,
 data parallel (``pod`` and ``data``; with tensor parallelism off, also
-``model``), and ``tp``, tensor parallel (``model``).  No layer of the
-port calls ``constrain`` yet: the head and column split of the forward
-is the tensor-parallel slice's (``ROADMAP.md``).
+``model``), and ``tp``, tensor parallel (``model``).
+
+Tensor parallelism does not go through ``constrain``.  The reference's
+constraints tell GSPMD where each tensor lies and leave the collectives
+to it; the port has no such compiler, and its layers run on plain
+tensors (FSDP2 hands each layer its whole weights).  So each of the
+reference's ``tp`` sites is explicit on a sharded step's
+``TensorParallel`` (``tensor_parallel()``, None elsewhere): the layer
+takes its block of the weight (``mlp``'s ``tp``: the columns of ``wg``
+and ``wu``, the rows of ``wd``; ``model.gqa_attention``'s heads;
+``forward.unembed``'s vocabulary), and the sequence-parallel
+boundaries are collectives with their gradients
+(``dist.spmd.gather_seq`` before a block, ``scatter_seq`` after it).
 """
 from __future__ import annotations
 
@@ -93,6 +103,15 @@ def logical_axis_size(logical: str) -> int:
     for a in ((ax,) if isinstance(ax, str) else ax):
         out *= sizes[a]
     return out
+
+
+def tensor_parallel():
+    """The ``dist.spmd.TensorParallel`` of the sharded step running now
+    (a dense config's forward split over its ``model`` ranks), or
+    None."""
+    from ..dist.spmd import current_spmd
+    spmd = current_spmd()
+    return spmd.tp if spmd is not None else None
 
 
 def constrain(x, *logical: str | None, barrier: bool = False):
@@ -232,9 +251,15 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
 # MLP
 # ---------------------------------------------------------------------------
 
-def mlp(cfg, x, wg, wu, wd):
+def mlp(cfg, x, wg, wu, wd, tp=None):
     """SwiGLU (wg, wu, wd) or GELU in its tanh form, as ``jax.nn.gelu``
-    computes it (wu, wd; wg unused)."""
+    computes it (wu, wd; wg unused).  ``tp`` (a ``TensorParallel``): this
+    rank's block of the hidden columns (``wg``/``wu`` cut by columns,
+    ``wd`` by rows), and the result is this rank's partial sum."""
+    if tp is not None:
+        lo, hi = tp.block(wd.shape[0])
+        wg = None if wg is None else wg[:, lo:hi]
+        wu, wd = wu[:, lo:hi], wd[lo:hi]
     if cfg.act == "swiglu":
         h = F.silu(x @ wg) * (x @ wu)
     else:

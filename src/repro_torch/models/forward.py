@@ -31,7 +31,7 @@ import torch.utils.checkpoint
 from ..core.codegen import resolve_device
 from ..kernels import grad
 from . import ssm as ssm_lib
-from .common import apply_norm, mlp
+from .common import apply_norm, mlp, tensor_parallel
 from .model import (_moe_or_mlp, check_family, decode_gqa_attention,
                     decoder_layer, gqa_attention, hybrid_mix,
                     mla_decode_attention, new_kv, new_latent, ssm_params)
@@ -69,8 +69,14 @@ def embed_tokens(cfg, model, tokens):
     return model["embed"][tokens.long()]
 
 
-def unembed(cfg, model, x):
+def unembed(cfg, model, x, tp=None):
+    """The logits of x; ``tp`` (a ``TensorParallel``): this rank's block
+    of the vocabulary's columns (``TensorParallel.block``, the last
+    block shorter where the ranks do not divide the vocabulary)."""
     w = model["embed"].T if cfg.tie_embeddings else model["unembed"]
+    if tp is not None:
+        lo, hi = tp.block(w.shape[1])
+        w = w[:, lo:hi]
     return x @ w
 
 
@@ -136,7 +142,22 @@ def _layers(cfg, model, tokens, patches=None, frames=None, collect=None,
     checkpointing (its activations recomputed in the backward), as the
     reference's ``cfg.remat`` wraps its scanned layer in
     ``jax.checkpoint``.  Each layer runs through its module's call
-    (``model.Layer``), where a sharded step's FSDP hooks gather it."""
+    (``model.Layer``), where a sharded step's FSDP hooks gather it.
+
+    On a sharded step's ``TensorParallel`` the residual stream is this
+    rank's block of the sequence, taken at the embedding (the
+    reference's constraint after it): x is (B, S/n, D) from there
+    through every layer (``model.decoder_layer``); under ``remat`` each
+    rank recomputes a layer's collectives in the same order."""
+    tp = tensor_parallel()
+    if tp is not None:
+        S = tokens.shape[1]
+        if S % tp.n:
+            raise NotImplementedError(
+                f"{cfg.name}: a sequence of {S} does not split over "
+                f"{tp.n} tensor-parallel ranks")
+        lo, hi = tp.block(S)
+        tokens = tokens[:, lo:hi]
     x = _embed(cfg, model, tokens, patches)
     enc_out = None
     if cfg.family == "encdec":
@@ -196,15 +217,31 @@ def lm_loss(cfg, model, batch, count=None):
     reference's mask ``labels >= 0`` (a label of -1 reads no column and
     is masked out), its mean over the mask and ``+ 0.01 · aux``.  The
     layers run under activation checkpointing where ``cfg.remat`` and
-    autograd is on."""
+    autograd is on.
+
+    On a sharded step's ``TensorParallel``, the final norm runs on this
+    rank's block of the sequence, the normed stream is gathered, and
+    the logits are this rank's block of the vocabulary (``unembed``):
+    the rows come from K7's block entry, the ranks' triples combined
+    (``kernels.grad.softmax_xent_block_rows``); every rank returns the
+    same loss."""
     _check_cast(cfg, model)
     remat = cfg.remat and torch.is_grad_enabled()
     x, aux = _layers(cfg, model, batch["tokens"], batch.get("patches"),
                      batch.get("frames"), remat=remat)
-    logits = unembed(cfg, model, apply_norm(cfg, x, model, "final"))
+    x = apply_norm(cfg, x, model, "final")
     labels = batch["labels"].reshape(-1)
-    rows = grad.softmax_xent_rows(logits.reshape(-1, logits.shape[-1]),
-                                  labels)
+    tp = tensor_parallel()
+    if tp is None:
+        logits = unembed(cfg, model, x)
+        rows = grad.softmax_xent_rows(logits.reshape(-1, logits.shape[-1]),
+                                      labels)
+    else:
+        from ..dist.spmd import gather_seq
+        logits = unembed(cfg, model, gather_seq(x, tp), tp)
+        rows = grad.softmax_xent_block_rows(
+            logits.reshape(-1, logits.shape[-1]), labels,
+            tp.block(cfg.vocab)[0], tp.group)
     mask = (labels >= 0).to(torch.float32)
     if count is None:
         count = torch.clamp(torch.sum(mask), min=1.0)

@@ -35,7 +35,7 @@ from ..core.codegen import resolve_device
 from ..kernels import ops
 from . import ssm as ssm_lib
 from .common import (apply_norm, blockwise_attention, mlp, moe_layer, rmsnorm,
-                     rope)
+                     rope, tensor_parallel)
 
 #: the kind of a family's main stack of layers
 KINDS = {"dense": "dense", "vlm": "dense", "moe": "moe", "ssm": "ssm",
@@ -308,22 +308,49 @@ def step_positions(pos, B: int, device) -> torch.Tensor:
     return torch.full((B, 1), pos, device=device)
 
 
+def tp_heads(cfg, tp):
+    """A tensor-parallel rank's block of the query heads, (q0, q1), and
+    the KV heads those read, (kv0, kv1) (``train.steps.
+    tensor_parallel_split`` holds the block to whole groups of G query
+    heads a KV head, or to part of one)."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    q0, q1 = tp.block(cfg.n_heads)
+    return (q0, q1), (q0 // G, (q1 - 1) // G + 1)
+
+
 def gqa_attention(cfg, x, p, *, kv_x=None, causal=True, window=0,
-                  use_rope=True, prefix=""):
+                  use_rope=True, prefix="", tp=None):
     """(G)QA attention over the sequence from position 0 (prefill):
     queries from x, keys and values from ``kv_x`` (x unless given: a
     Whisper decoder's cross-attention reads the encoder's output), the
     ``prefix``'s weights (``x_`` for cross-attention; the QKV bias only
     without one), rope where ``use_rope``, a ``causal`` mask and a
     sliding ``window`` where asked.  Returns (out, (k, v)), k after
-    rope, for the cache."""
+    rope, for the cache.
+
+    ``tp`` (a ``TensorParallel``, self-attention): this rank's block of
+    the query heads (the reference's ``tp`` on q's heads), K and V for
+    the KV heads those read alone (all of them on each rank that reads
+    one: MQA computes its one head everywhere), ``wo``'s rows of those
+    heads; the result is this rank's partial sum, the cache pieces its
+    heads'."""
     B, S, _ = x.shape
     dh, Hq, Hkv = cfg.dh, cfg.n_heads, cfg.n_kv_heads
     kv_x = x if kv_x is None else kv_x
-    q, k, v = (x @ p[prefix + "wq"], kv_x @ p[prefix + "wk"],
-               kv_x @ p[prefix + "wv"])
-    if cfg.qkv_bias and not prefix:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    wq, wk, wv, wo = (p[prefix + n] for n in ("wq", "wk", "wv", "wo"))
+    bias = cfg.qkv_bias and not prefix
+    if bias:
+        bq, bk, bv = p["bq"], p["bk"], p["bv"]
+    if tp is not None:
+        (q0, q1), (kv0, kv1) = tp_heads(cfg, tp)
+        cq, ckv = slice(q0 * dh, q1 * dh), slice(kv0 * dh, kv1 * dh)
+        wq, wk, wv, wo = wq[:, cq], wk[:, ckv], wv[:, ckv], wo[cq]
+        if bias:
+            bq, bk, bv = bq[cq], bk[ckv], bv[ckv]
+        Hq, Hkv = q1 - q0, kv1 - kv0
+    q, k, v = x @ wq, kv_x @ wk, kv_x @ wv
+    if bias:
+        q, k, v = q + bq, k + bk, v + bv
     q = _split_heads(q, Hq, dh)
     k = _split_heads(k, Hkv, dh)
     v = _split_heads(v, Hkv, dh)
@@ -332,7 +359,7 @@ def gqa_attention(cfg, x, p, *, kv_x=None, causal=True, window=0,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     o = blockwise_attention(q, k, v, causal=causal, window=window)
-    return o.reshape(B, S, Hq * dh) @ p[prefix + "wo"], (k, v)
+    return o.reshape(B, S, Hq * dh) @ wo, (k, v)
 
 
 def decode_gqa_attention(cfg, x, p, cache_k, cache_v, pos, *,
@@ -467,8 +494,8 @@ def _moe_or_mlp(cfg, x, p, is_moe: bool):
     aux).  ``moe_impl="shard_map"`` runs ``dist.moe_ep.moe_layer_ep``
     where ``moe_ep.supported`` holds on the ambient mesh, ``moe_layer``
     otherwise (off a mesh, or on a ``model`` axis of 1), as the
-    reference; ``moe_layer`` on a ``model`` axis larger than 1 is the
-    tensor-parallel slice's and raises."""
+    reference; ``moe_layer`` on a ``model`` axis larger than 1 comes
+    with a later tensor-parallel slice and raises."""
     if not is_moe:
         return mlp(cfg, x, p.get("wg"), p["wu"], p["wd"]), 0.0
     B, S, D = x.shape
@@ -486,7 +513,7 @@ def _moe_or_mlp(cfg, x, p, is_moe: bool):
         raise NotImplementedError(
             f"{cfg.name}: moe_impl={cfg.moe_impl!r} with {cfg.n_experts} "
             f"experts on a 'model' axis of {mp}: the expert split GSPMD "
-            f"places comes with the port's tensor-parallel slice of dist "
+            f"places comes with a later tensor-parallel slice of dist "
             f"(ROADMAP.md); moe_impl='shard_map' runs it where the expert "
             f"count and the axis divide")
     y, aux = moe_layer(cfg, xg, p)
@@ -507,7 +534,27 @@ def hybrid_mix(ao, so, lp):
 def decoder_layer(cfg, x, lp, kind: str = "dense"):
     """One layer over the sequence (prefill); returns (x', cache pieces,
     aux): (k, v), MLA's (c_kv, k_rope), the SSD mixer's (final state,)
-    or a hybrid's (k, v, final state)."""
+    or a hybrid's (k, v, final state).
+
+    On a sharded step's ``TensorParallel`` (a dense layer), the
+    reference's sequence parallelism: x is this rank's block of the
+    sequence (B, S/n, D) and so is x'; each norm (K4) runs on it, its
+    output is gathered over the sequence (``gather_seq``) for the
+    rank's heads and columns, and their partial sums are
+    reduce-scattered back onto the block (``scatter_seq``)."""
+    tp = tensor_parallel()
+    if tp is not None:
+        if kind != "dense":
+            raise NotImplementedError(
+                f"{cfg.name}: a {kind} layer under tensor parallelism comes "
+                f"with a later slice (ROADMAP.md)")
+        from ..dist.spmd import gather_seq, scatter_seq
+        h = gather_seq(apply_norm(cfg, x, lp, "ln1"), tp)
+        o, cache = gqa_attention(cfg, h, lp, tp=tp)
+        x = x + scatter_seq(o, tp)
+        h2 = gather_seq(apply_norm(cfg, x, lp, "ln2"), tp)
+        return x + scatter_seq(mlp(cfg, h2, lp.get("wg"), lp["wu"],
+                                   lp["wd"], tp=tp), tp), cache, 0.0
     h = apply_norm(cfg, x, lp, "ln1")
     if kind == "ssm":
         o, state = ssm_lib.ssm_mixer(cfg, h, ssm_params(lp))

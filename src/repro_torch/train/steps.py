@@ -12,11 +12,12 @@ shardings=)``) runs the reference's FSDP layout on the ranks of a
 * the float32 masters and the moments hold each rank's piece of the
   reference's spec (``dist.sharding.param_pspecs``/``opt_pspecs``): the
   data-parallel axes (``pod`` x ``data``, flattened) cut the dim the
-  spec gives them.  The ``model`` entries of a MoE config's spec wait
-  for the tensor-parallel slice, so those leaves are replicated over
-  ``model``; on the expert-parallel path (``moe_impl="shard_map"``,
-  ``n_experts % model == 0``) the expert leaves (E, ...) are cut over
-  ``model`` along E;
+  spec gives them.  A dense config's spec (``fsdp_only``) replicates
+  every leaf over ``model``; the ``model`` entries of a MoE config's
+  spec wait for a later tensor-parallel slice, so those leaves are
+  replicated over ``model`` too; on the expert-parallel path
+  (``moe_impl="shard_map"``, ``n_experts % model == 0``) the expert
+  leaves (E, ...) are cut over ``model`` along E;
 * the compute copy ``params_c`` is FSDP2 (``fully_shard``, one unit a
   layer and the root), each parameter ``Shard(d)`` on the same dim over
   the data-parallel ranks, a leaf the spec replicates left out of FSDP
@@ -27,14 +28,22 @@ shardings=)``) runs the reference's FSDP layout on the ranks of a
   parallelism off (``set_tensor_parallel(False)``) runs its rows over
   the ``model`` ranks as well (the reference's ``dp`` absorbing
   ``model``), its gradients summed over ``model`` too;
+* a dense config with tensor parallelism on (the default) splits its
+  forward over the ``model`` ranks (``dist.spmd.TensorParallel``): each
+  takes its block of the query heads, the MLP's columns and the
+  vocabulary from the gathered weights, the residual stream is cut
+  along the sequence between the layers, and the loss comes from K7's
+  block entry (``models.forward.lm_loss``).  The ``model`` ranks hold
+  the same rows; each one's gradients are partial (its blocks, its
+  block of the sequence) and are summed over ``model`` once;
 * each rank's loss is its rows' masked sum over the whole batch's label
   count, plus the load-balance term averaged over the ranks' rows,
-  divided by the number of ranks holding the same rows, so the summed
-  gradients are the reference's.
+  divided by the number of ranks holding the same rows with the same
+  forward, so the summed gradients are the reference's.
 
-A dense config on a ``model`` axis larger than 1 with tensor
-parallelism on, and ``moe_impl="gspmd"`` on one, raise: the head and
-column split of the forward is the tensor-parallel slice's.
+``moe_impl="gspmd"`` on a ``model`` axis larger than 1, and a family
+other than dense with tensor parallelism on one, raise: they come with
+a later tensor-parallel slice.
 """
 from __future__ import annotations
 
@@ -207,11 +216,38 @@ class DecodeReplay:
 _EXPERT = re.compile(r"^layers\.\d+\.(wg|wu|wd)$")
 
 
+def tensor_parallel_split(cfg, mp: int):
+    """Raise unless a ``model`` axis of ``mp`` splits ``cfg``'s forward:
+    a dense config whose heads and MLP columns ``mp`` divides, each
+    rank's query heads whole groups of a KV head's or part of one
+    (``ValueError`` naming the dimension); any other family
+    (``NotImplementedError``): both come with a later slice."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism over a 'model' axis of {mp} "
+            f"on the {cfg.family} family comes with a later "
+            f"tensor-parallel slice (ROADMAP.md); this one splits the "
+            f"dense family")
+    for dim, size in (("n_heads", cfg.n_heads), ("d_ff", cfg.d_ff)):
+        if size % mp:
+            raise ValueError(
+                f"{cfg.name}: {dim} = {size} does not split over a 'model' "
+                f"axis of {mp}: a split the axis does not divide comes "
+                f"with a later tensor-parallel slice (ROADMAP.md)")
+    heads, G = cfg.n_heads // mp, cfg.n_heads // cfg.n_kv_heads
+    if heads % G and G % heads:
+        raise ValueError(
+            f"{cfg.name}: {heads} query heads a rank over groups of {G} "
+            f"a KV head (n_kv_heads = {cfg.n_kv_heads}) on a 'model' axis "
+            f"of {mp}: a rank reading part of two groups comes with a "
+            f"later tensor-parallel slice (ROADMAP.md)")
+
+
 def _rows_over_model(cfg, spmd) -> bool:
-    """What the ``model`` axis carries: False for 1 rank or the experts;
-    True for a dense config with tensor parallelism off (more
-    data-parallel rows); raises where it would be the tensor-parallel
-    slice's head and column split."""
+    """What the ``model`` axis carries: False for 1 rank, the experts, or
+    a dense config's tensor-parallel split (``tensor_parallel_split``
+    checks it); True for a dense config with tensor parallelism off
+    (more data-parallel rows)."""
     from ..models.common import tensor_parallel_enabled
     mp = spmd.mp
     if mp == 1:
@@ -223,15 +259,11 @@ def _rows_over_model(cfg, spmd) -> bool:
         raise NotImplementedError(
             f"{cfg.name}: moe_impl={cfg.moe_impl!r} with {E} experts on a "
             f"'model' axis of {mp}: the expert split GSPMD places comes "
-            f"with the port's tensor-parallel slice (ROADMAP.md); "
+            f"with a later tensor-parallel slice (ROADMAP.md); "
             f"moe_impl='shard_map' runs it where the counts divide")
     if tensor_parallel_enabled():
-        raise NotImplementedError(
-            f"{cfg.name}: a 'model' axis of {mp} on a dense config splits "
-            f"the forward by heads and columns, which comes with the "
-            f"port's tensor-parallel slice (ROADMAP.md); with "
-            f"models.common.set_tensor_parallel(False) it trains as pure "
-            f"FSDP over the whole mesh")
+        tensor_parallel_split(cfg, mp)
+        return False
     return True
 
 
@@ -270,10 +302,13 @@ def state_shardings(cfg, spmd):
     """The ``dist.spmd.StateShardings`` of ``cfg``'s train state on
     ``spmd``'s ranks (module docstring)."""
     from ..dist.sharding import dp_axes, opt_pspecs, param_pspecs
-    from ..dist.spmd import Layout, StateShardings
+    from ..dist.spmd import Layout, StateShardings, TensorParallel
     mesh = spmd.source
     dp = dp_axes(mesh)
     rows_over_model = _rows_over_model(cfg, spmd)
+    tp = None
+    if spmd.mp > 1 and not cfg.n_experts and not rows_over_model:
+        tp = TensorParallel(spmd.model_group, spmd.mp, spmd.model_rank)
     # the expert leaves lie on ``model`` along E (``moe_ep``'s EP path)
     ep = spmd.mp > 1 and cfg.n_experts > 0 and cfg.n_experts % spmd.mp == 0
     shapes = _global_shapes(cfg)
@@ -302,7 +337,7 @@ def state_shardings(cfg, spmd):
     opt = {k: {n: moment(n) for n in shapes} for k in ("m", "v")}
     opt["step"] = Layout(())
     return StateShardings(spmd, {"params": params, "params_c": dict(params),
-                                 "opt": opt}, rows_over_model)
+                                 "opt": opt}, rows_over_model, tp)
 
 
 def shard_train_state(cfg, state, mesh):
@@ -412,14 +447,14 @@ def _sharded_step(cfg, hyper, accum: int, sh):
         if rows is not None:
             dist.all_reduce(count, group=rows.group)
         count = torch.clamp(count, min=1.0)
-        sp.rows = rows
+        sp.rows, sp.tp = rows, sh.tp
         try:
             with running(sp):
                 loss, metrics = model(
                     lambda m: forward.lm_loss(cfg, m, batch, count))
                 (loss / dup if dup > 1 else loss).backward()
         finally:
-            sp.rows = None
+            sp.rows = sp.tp = None
         xent = global_value(metrics["xent"], dup)
         aux = metrics["aux"]
         aux = aux.detach() if isinstance(aux, torch.Tensor) else aux
@@ -455,7 +490,7 @@ def _sharded_step(cfg, hyper, accum: int, sh):
         for n, p in model.named_parameters():
             if not hasattr(p, "to_local") and sp.dpn > 1:
                 dist.all_reduce(grads[n], group=sp.dp_group)
-            if sh.rows_over_model:
+            if sh.rows_over_model or sh.tp is not None:
                 dist.all_reduce(grads[n], group=sp.model_group)
         params, opt, opt_metrics = apply_adamw(
             cfg, hyper, state["params"], grads, state["opt"], shardings=sh)

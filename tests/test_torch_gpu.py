@@ -368,6 +368,38 @@ def test_softmax_xent_kernel_matches_ref_on_gpu(T, V, dtype, ldt, cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_xent_block_matches_ref_on_gpu(n, dtype, cuda):
+    """K7's block entry on the columns of (64, 50257) logits cut into n
+    blocks as ``torch.tensor_split`` cuts them (each read in place as a
+    slice, and as a copy): the triple against its plain version, the
+    blocks' triples combined against the whole rows' K7; labels of -1
+    and outside the vocabulary read no column."""
+    T, V = 64, 50257
+    rng = np.random.default_rng(n)
+    logits = _randn(rng, T, V, dtype=dtype, scale=3.0)
+    labels = torch.from_numpy(rng.integers(0, V, T)).cuda()
+    labels[::5] = -1
+    labels[2::9] = V + 3
+    before = LAUNCHES.by_kernel[k7.BLOCK_NAMES[dtype]]
+    triples = []
+    for b in torch.tensor_split(torch.arange(V), n):
+        lo, hi = int(b[0]), int(b[-1]) + 1
+        got = k7.softmax_xent_block(logits[:, lo:hi], labels, lo)
+        want = ref.softmax_xent_block(logits[:, lo:hi], labels, lo)
+        copy = k7.softmax_xent_block(logits[:, lo:hi].contiguous(),
+                                     labels.int(), lo)
+        for a, w, c in zip(got, want, copy):
+            assert a.dtype == torch.float32 and a.shape == (T,)
+            assert _rel(a, w) <= 1e-5 and torch.equal(a, c)
+        triples.append(got)
+    assert LAUNCHES.by_kernel[k7.BLOCK_NAMES[dtype]] == before + 2 * n
+    rows = ref.combine_xent_blocks(triples)
+    assert _rel(rows, k7.softmax_xent_rows(logits, labels)) <= 1e-5
+
+
+@pytest.mark.gpu
 def test_ops_k5_k7_launch_their_kernels(monkeypatch, cuda):
     rng = np.random.default_rng(6)
     q, k, v = (_randn(rng, 2, 8, 48), _randn(rng, 2, 300, 2, 48),

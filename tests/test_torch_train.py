@@ -379,8 +379,8 @@ def test_launch_train_smoke_loss_decreases(capsys):
 
 @pytest.mark.parametrize("flags,slice_", [
     (["--mesh", "multipod"], "needs a world of 512"),
-    (["--model-parallel", "4"], "tensor-parallel slice of dist"),
-    (["--model-parallel", "2"], "tensor-parallel slice of dist"),
+    (["--model-parallel", "4"], "runs over a process group"),
+    (["--model-parallel", "2"], "runs over a process group"),
     (["--mesh", "pod"], "needs a world of 256")])
 def test_launch_train_refuses_what_a_later_slice_brings(flags, slice_):
     with pytest.raises(ValueError, match=slice_):

@@ -130,7 +130,7 @@ def checkpoint_round_trip(rank, ref_state, d):
 
 def meshes_and_placements(rank):
     """``make_host_mesh``'s best-effort rule, ``make_production_mesh``'s
-    refusal, a dense config refused on a ``model`` axis with tensor
+    refusal, a dense config's step on a ``model`` axis with tensor
     parallelism on, and ``NamedSharding.placements`` against
     ``Layout``'s pieces (``distribute_tensor``)."""
     from torch.distributed.device_mesh import init_device_mesh
@@ -145,13 +145,15 @@ def meshes_and_placements(rank):
         out["production"] = None
     except ValueError as e:
         out["production"] = str(e)
-    try:
-        steps.shard_train_state(config("llama3_8b"),
-                                steps.init_train_state(
-                                    config("llama3_8b"), _model()), m3)
-        out["dense_tp"] = None
-    except NotImplementedError as e:
-        out["dense_tp"] = str(e)
+    cfg = config("llama3_8b")
+    state, sh = steps.shard_train_state(
+        cfg, steps.init_train_state(cfg, _model()), m3)
+    step = steps.make_train_step(cfg, AdamWHyper(**HYPER), shardings=sh)
+    get = make_batch_fn(cfg, ShapeConfig("t", S, B, "train"))
+    _, met = step(state, shard_batch(get(0), "cpu"))
+    out["dense_tp"] = {"tensor_parallel": (sh.tp.n, sh.tp.rank),
+                       "vocab_block": sh.tp.block(cfg.vocab),
+                       "loss": float(met["loss"])}
     mesh = init_device_mesh("cpu", (2, 2, 1),
                             mesh_dim_names=("pod", "data", "model"))
     full = torch.arange(8 * 6, dtype=torch.float32).reshape(8, 6)
