@@ -188,6 +188,36 @@ Phases, each printed as JSON lines:
    norm-relative each part of the triple), the blocks' triples combined
    against the whole rows' K7 (1e-5), and timed on one rank's block of
    the (1, 2) run (``"time"`` lines with ``"path": "spmd"``);
+   serve_tp (``serve_tp_phase``, right after spmd, while this process
+   still holds nothing on the card): ``serve --arch --model-parallel``'s
+   path (``launch.serve.generate`` under ``train.steps.serving_spmd``,
+   each rank holding its blocks of the weights, ``load_model``'s ``tp``,
+   and of the decode cache) for Llama-3-8B at full width and depth (B
+   8, P 32, 32 greedy tokens), LLaVA-NeXT-34B at full width (P 608:
+   its 576 patches and 32 tokens; one card: 8 of its 60 layers),
+   Granite-34B at full width and depth 8 (its one KV head on both
+   ranks) and Llama at depth 4 in float32 (``SERVE_TP_RUNS``), on
+   ranks spawned over a ``FileStore``: one card, (1, 2) on two gloo
+   ranks that share it, every step eager (gloo cannot be captured; the
+   line says so); on 2 or more cards NCCL ranks, one a card, the step
+   with its collectives replayed as one CUDA graph (four cards: LLaVA
+   at full depth on (1, 4), the float32 run on (2, 2)).  Rank 0 first
+   serves the run unsharded on its card; the counts are set to 0 just
+   before the split run's ``generate`` and read just after (K4 (2L + 1)
+   a pass, K5's split and combine L a step); the prefill's and every
+   step's logits, teacher-forced on the one-card tokens with every
+   plain version forbidden, within 5e-2 norm-relative of the one-card
+   run's in bfloat16 (``SERVE_TP_RTOL``; LLaVA at its full 60 layers
+   printed, as in phase lm), 1e-4 in float32, printed beside the
+   one-card run's own floor (its logits computed on two halves of its
+   rows); the first step whose greedy tokens differ from the one-card
+   tokens, printed (a bfloat16 near-tie may flip); each
+   rank's weight bytes equal to its blocks' (``dist.sharding.
+   rank_param_bytes``), its peak and step ms, ``costmodel.tp_decode``'s
+   bound; then K5 at a rank's shape with ``kv_len`` in device memory
+   and K4 at its decode and prefill rows against their plain versions
+   (1e-3, bitwise repeats), and timed (``"time"`` lines with ``"path":
+   "serve_tp"``);
 3. kernel: every K1 group's kernel against K1's plain tiled version on
    the same inputs on the card, and a second launch of it bitwise equal
    to the first (the groups whose reduce axes K1 cuts into slices
@@ -326,7 +356,8 @@ outputs.
 The last lines are the ``{"kernels": [...]}`` record (the main path's
 K1 groups and hand kernels, then the engine's, the float16 path's and
 the autotune winners' K1 groups, then K4 and K5 on the LM serving path,
-K6 and K7 on the training path and K4, K6 and K7 on the sharded path,
+K6 and K7 on the training path, K4, K6 and K7 on the sharded path and
+K4 and K5 on the tensor-parallel serving path,
 each with the launches of its own counted run) and
 ``{"ok": true, "device": {...}}``; the card's ``nvidia-smi`` line is in
 the first (``device``) record.  Any failed
@@ -2590,6 +2621,349 @@ class layer_gaps:
         self.fw.decoder_layer, self.fw.whisper_decoder_layer = self.saved
 
 
+# ---------------------------------------------------------------------------
+# phase serve_tp: tensor-parallel serving over ranks of a process group
+# ---------------------------------------------------------------------------
+
+#: the serve_tp phase: 8 sequences, 32 greedy tokens
+SERVE_TP_BATCH, SERVE_TP_GEN = 8, 32
+#: its runs by the cards present (1; 2 or 3; 4 or more), in groups of
+#: ranks spawned together: (ranks, ((arch, depth or None for the full
+#: depth, model axis, prompt length, compute dtype), ...)).  Llama-3-8B
+#: at full width and depth, a prompt of 32, on (1, 2); LLaVA-NeXT-34B at
+#: full width, its 576 patches then 32 tokens (608 positions, which 2, 4
+#: and 8 divide), on one card at 8 of its 60 layers (the unsharded run
+#: beside the ranks holds ~11 GB), on more its full 60 ((1, 2), and on
+#: four cards (1, 4)); Granite-34B at full width, its one KV head held
+#: whole by both ranks (K5 with G = 24 a rank), 8 of its 88 layers, on
+#: (1, 2); and Llama at depth 4 in float32, the split's exactness
+#: without bfloat16's rounding ((1, 2), on four cards (2, 2): the rows
+#: over data too)
+SERVE_TP_RUNS = {
+    1: ((2, (("llama3_8b", None, 2, 32, "bfloat16"),
+             ("llava_next_34b", 8, 2, 608, "bfloat16"),
+             ("granite_34b", 8, 2, 32, "bfloat16"),
+             ("llama3_8b", 4, 2, 32, "float32"))),),
+    2: ((2, (("llama3_8b", None, 2, 32, "bfloat16"),
+             ("llava_next_34b", None, 2, 608, "bfloat16"),
+             ("granite_34b", 8, 2, 32, "bfloat16"),
+             ("llama3_8b", 4, 2, 32, "float32"))),),
+    4: ((2, (("llama3_8b", None, 2, 32, "bfloat16"),
+             ("granite_34b", 8, 2, 32, "bfloat16"))),
+        (4, (("llava_next_34b", None, 4, 608, "bfloat16"),
+             ("llama3_8b", 4, 2, 32, "float32")))),
+}
+#: the logits of the split model against the one-card run on the same
+#: seed, norm-relative, every step teacher-forced on the one-card run's
+#: tokens, in bfloat16 (float32: ``RTOL``).  The ranks add float32
+#: partial sums and round once, as one card's matmul does, but their
+#: matmuls and K5 run at other shapes, so their float32 sums add in
+#: another order and a few bfloat16 roundings flip; these random models
+#: amplify such flips with depth (the one-card run served in two halves
+#: of its rows, ``one_card_floor``, lies as far from itself), so a
+#: ``DRIFTING`` config at its full depth is printed, not held, as in
+#: phase ``lm``
+SERVE_TP_RTOL = 5e-2
+
+
+def forced_logits(cfg, model, x, tokens, spmd=None, rows=None):
+    """The prefill's logits and each decode step's, the steps fed
+    ``tokens`` (B, G) (teacher forcing), as float32 on the host: (G,
+    rows, V) for the batch's ``rows`` (``(lo, hi)``; all of them where
+    None)."""
+    import torch
+
+    from repro_torch.launch.serve import grow_cache
+    from repro_torch.train import steps
+
+    lo, hi = rows or (0, tokens.shape[0])
+    P, G = x["prompts"].shape[1], tokens.shape[1]
+    dev = model.device
+    batch = {"tokens": torch.as_tensor(x["prompts"][lo:hi], device=dev)}
+    if x["patches"] is not None:
+        batch["patches"] = torch.as_tensor(x["patches"][lo:hi], device=dev)
+    logits, cache = steps.make_prefill_step(cfg, spmd)(model, batch)
+    cache = grow_cache(cfg, cache, P + G)
+    step = steps.make_decode_step(cfg, spmd)
+    out = [logits.float().cpu()]
+    for i in range(G - 1):
+        _, logits, cache = step(model, cache, torch.as_tensor(
+            tokens[lo:hi, i], device=dev), P + i)
+        out.append(logits.float().cpu())
+    del cache
+    return torch.stack(out)
+
+
+def serve_tp_rank(rank: int, world: int, seed: int, runs,
+                  device_type) -> dict:
+    """One rank of phase ``serve_tp``: for each of ``runs`` ((arch,
+    depth, model axis, prompt, dtype)), rank 0 first serves it on its
+    card unsharded (``launch.serve.generate``) and keeps the tokens, the
+    logits teacher-forced on them and, as the one-card run's own floor,
+    the same logits computed in two halves of the rows; then every rank
+    serves it split over ``make_host_mesh(mp, device_type)``
+    (``load_model`` at the rank's blocks, one warm-up prefill and step,
+    then the counts set to 0 just before ``generate`` and read just
+    after), and computes the logits teacher-forced on the one-card
+    tokens at its rows, with every plain version forbidden."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import LAUNCHES
+    from repro_torch.dist.sharding import rank_param_bytes, serving_rows
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import draw_inputs, generate, load_model
+    from repro_torch.models.model import tp_heads
+    from repro_torch.train.steps import serving_spmd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, G = SERVE_TP_BATCH, SERVE_TP_GEN
+    dev = "cpu" if device_type == "cpu" else "cuda"
+    out = {"backend": dist.get_backend(), "runs": []}
+
+    def held(model):
+        return sum(p.numel() * p.element_size() for p in model.parameters())
+
+    for arch, depth, mp, P, dtype in runs:
+        cfg, reduced = lm_config(get_config(arch), depth)
+        cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+        x = draw_inputs(cfg, B, P, seed)
+        run = {"arch": arch, "reduced": reduced, "n_layers": cfg.n_layers,
+               "prompt": P, "dtype": dtype}
+        box = [None]
+        if rank == 0:           # the one-card run, kept on the host
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            model = load_model(cfg, seed, dev)
+            res = generate(cfg, model, x["prompts"], G,
+                           patches=x["patches"])
+            box[0] = res["tokens"]
+            run["unsharded"] = {
+                "step_ms": res["step_ms"][1:], "captures": res["captures"],
+                "param_bytes": held(model),
+                "peak_bytes": torch.cuda.max_memory_allocated() - base}
+            del res
+            whole = forced_logits(cfg, model, x, box[0])
+            halves = torch.cat([forced_logits(cfg, model, x, box[0],
+                                              rows=r)
+                                for r in ((0, B // 2), (B // 2, B))], 1)
+            run["one_card_floor"] = [tensor_err(h, w)[0]
+                                     for h, w in zip(halves, whole)]
+            del model, halves
+            torch.cuda.empty_cache()
+        dist.broadcast_object_list(box, src=0)
+        tokens = box[0]
+
+        spmd = serving_spmd(cfg, make_host_mesh(mp, device_type))
+        rows = serving_rows(cfg, B, spmd)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        model = load_model(cfg, seed, dev, spmd.tp)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        generate(cfg, model, x["prompts"], 2, patches=x["patches"],
+                 spmd=spmd)                                  # warm-up
+        torch.cuda.synchronize()
+        dist.barrier()
+        LAUNCHES.reset()
+        res = generate(cfg, model, x["prompts"], G, patches=x["patches"],
+                       spmd=spmd)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES.by_kernel)
+        peak = torch.cuda.max_memory_allocated() - base
+        with forbid_plain(ref):
+            logits = forced_logits(cfg, model, x, tokens, spmd, rows)
+        tp = spmd.tp
+        (q0, q1), (kv0, kv1) = tp_heads(cfg, tp)
+        b = rows[1] - rows[0]
+        run["tp"] = {
+            "mesh": spmd.describe(), "coords": [spmd.dp_rank,
+                                                spmd.model_rank],
+            "rows": list(rows), "backend": res["backend"],
+            "graph": res["graph"], "captures": res["captures"],
+            "tokens": res["tokens"], "prefill_ms": res["prefill_ms"],
+            "first_step_ms": res["step_ms"][0],
+            "step_ms": res["step_ms"][1:], "load_s": load_s,
+            "peak_bytes": peak, "param_bytes": held(model),
+            "param_bytes_want": rank_param_bytes(cfg, tp, ES[dtype]),
+            "launches": launches,
+            "shapes": {"K5": [b, q1 - q0, kv1 - kv0, P + G, cfg.dh],
+                       "K4": [[b, cfg.d_model],
+                              [b * P // mp, cfg.d_model]]}}
+        if rank == 0:
+            run["one_card_tokens"] = tokens
+            want = whole[:, rows[0]:rows[1]]
+            run["vs_unsharded"] = [tensor_err(g, w)[0]
+                                   for g, w in zip(logits, want)]
+            del whole, want
+        out["runs"].append(run)
+        del model, res, logits
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def serve_tp_phase(args, failures: list, smi_line: str) -> list:
+    """Phase ``serve_tp``: ``serve_tp_rank`` over ``SERVE_TP_RUNS``, on 2
+    or more cards NCCL ranks, one a card, the decode step replayed as
+    one CUDA graph with its collectives; on one card two gloo ranks that
+    share it, every step eager (gloo cannot be captured).  One
+    ``"serve_tp"`` line a run: the logits of every step within
+    ``SERVE_TP_RTOL`` (float32: ``RTOL``) of the one-card run, the first
+    step at which the greedy tokens differ from its tokens (printed: a
+    bfloat16 near-tie may flip), K4 and K5 launched as often as the path
+    launches them, each rank's weight bytes its blocks', its peak and
+    step ms, the cost model's bound beside them.  Then K4 and K5 at each
+    bfloat16 run's shapes on a rank against their plain versions, and
+    timed; returns their records (``"path": "serve_tp"``)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.spmd import run_ranks
+    from repro_torch.launch.costmodel import tp_decode
+
+    world = torch.cuda.device_count()
+    B, G = SERVE_TP_BATCH, SERVE_TP_GEN
+    cards = 1 if world == 1 else (4 if world >= 4 else 2)
+    backend, device_type = ("gloo", "cuda") if world == 1 else ("nccl",
+                                                                None)
+    t0 = time.perf_counter()
+    done = []
+    for nproc, runs in SERVE_TP_RUNS[cards]:
+        d = tempfile.mkdtemp(prefix="serve_tp_")
+        try:
+            res = run_ranks(serve_tp_rank, nproc, args.seed, runs,
+                            device_type, backend=backend, timeout_s=900,
+                            tmpdir=d)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        done += [(nproc, run, [r["runs"][i] for r in res])
+                 for i, run in enumerate(runs)]
+    records = []
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    for nproc, (arch, depth, mp, P, dtype), by_rank in done:
+        r0 = by_rank[0]
+        tp0, un = r0["tp"], r0["unsharded"]
+        cfg, _ = lm_config(get_config(arch), depth)
+        L, short = cfg.n_layers, SHORT[dtype]
+        want_launches = {f"K4/rmsnorm_{short}": (2 * L + 1) * G,
+                         f"K5/split_{short}": L * (G - 1),
+                         f"K5/combine_{short}": L * (G - 1)}
+        toks = tp0["tokens"]
+        differ = np.argwhere((toks != r0["one_card_tokens"]).any(0))
+        kv_mean = P + G // 2
+        cost = tp_decode(cfg, B, kv_mean, mp, nproc // mp)
+        one_cost = tp_decode(cfg, B, kv_mean, 1)
+        bound = SERVE_TP_RTOL if dtype == "bfloat16" else RTOL
+        held = dtype != "bfloat16" or not (arch in DRIFTING
+                                           and depth is None)
+        line = {"phase": "serve_tp", "nvidia_smi": smi_line, "arch": arch,
+                "reduced": r0["reduced"], "n_layers": L, "dtype": dtype,
+                "batch": B, "prompt": P, "gen": G, "backend": backend,
+                "ranks": nproc, "cards": world, "mesh": tp0["mesh"],
+                "graph": tp0["graph"], "captures": tp0["captures"],
+                "max_norm_rel_err_vs_one_card": max(r0["vs_unsharded"]),
+                "bound": bound, "held": held,
+                "norm_rel_err_by_step": r0["vs_unsharded"],
+                "one_card_floor_max": max(r0["one_card_floor"]),
+                "one_card_floor_by_step": r0["one_card_floor"],
+                "rows_compared": tp0["rows"],
+                "first_token_differing_step": int(differ[0, 0])
+                if len(differ) else None,
+                "tokens_ok": toks.shape == (B, G) and bool(
+                    ((toks >= 0) & (toks < cfg.vocab)).all()),
+                "launches": tp0["launches"],
+                "launches_want": want_launches,
+                "step_ms_median_by_rank": [
+                    float(np.median(r["tp"]["step_ms"])) for r in by_rank],
+                "step_ms": tp0["step_ms"],
+                "first_step_ms": tp0["first_step_ms"],
+                "prefill_ms": tp0["prefill_ms"],
+                "unsharded_step_ms_median": float(np.median(un["step_ms"])),
+                "unsharded_captures": un["captures"],
+                "param_gb_by_rank": [r["tp"]["param_bytes"] / 1e9
+                                     for r in by_rank],
+                "param_gb_unsharded": un["param_bytes"] / 1e9,
+                "peak_gb_by_rank": [r["tp"]["peak_bytes"] / 1e9
+                                    for r in by_rank],
+                "peak_gb_unsharded": un["peak_bytes"] / 1e9,
+                "load_s_by_rank": [r["tp"]["load_s"] for r in by_rank],
+                "costmodel_rank_bound_ms": cost["step_lower_bound_s"] * 1e3,
+                "costmodel": cost,
+                "costmodel_one_card_bound_ms":
+                    one_cost["step_lower_bound_s"] * 1e3,
+                "shapes": tp0["shapes"],
+                "seconds": time.perf_counter() - t0}
+        if backend == "gloo":
+            line["note"] = ("two ranks share the one card over gloo, which "
+                            "stages CUDA tensors through the host and "
+                            "cannot be captured: every step runs eagerly, "
+                            "and the step time is not NCCL's")
+        emit(line)
+        ok = ((line["max_norm_rel_err_vs_one_card"] <= bound or not held)
+              and line["tokens_ok"] and tp0["launches"] == want_launches
+              and all(r["tp"]["param_bytes"] == r["tp"]["param_bytes_want"]
+                      for r in by_rank)
+              and (tp0["graph"] and tp0["captures"] == 1
+                   if backend == "nccl" else not tp0["graph"]))
+        if not ok:
+            failures.append(f"serve_tp {arch} {dtype} {tp0['mesh']}: {line}")
+        if dtype == "bfloat16":
+            records += serve_tp_kernels(cfg, tp0["shapes"], kv_mean,
+                                        tp0["launches"], randn, failures,
+                                        f"{arch} {mp}-way ")
+    return records
+
+
+def serve_tp_kernels(cfg, shapes: dict, kv_len: int, launches: dict, randn,
+                     failures: list, label: str) -> list:
+    """K5 (``kv_len`` in device memory, as the decode reads it) at a
+    rank's shape and K4 at its decode and prefill rows, each against its
+    plain version with a bitwise repeat, then timed (``lm_time``)."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as k5
+    from repro_torch.kernels import ref
+
+    b, hq, hkv, S, d = shapes["K5"]
+    q, kk, vv = randn(b, hq, d), randn(b, S, hkv, d), randn(b, S, hkv, d)
+    kl = torch.full((), kv_len, dtype=torch.int32, device="cuda")
+    got = k5.decode_attention(q, kk, vv, kv_len=kl)
+    again = k5.decode_attention(q, kk, vv, kv_len=kl)
+    rel, mabs = tensor_err(got, ref.decode_attention(q, kk, vv, kv_len=kl))
+    same = torch.equal(bits(got), bits(again))
+    emit({"phase": "serve_tp_kernel", "arch": cfg.name, "kernel": "K5",
+          "shape": shapes["K5"], "kv_len": kv_len, "dtype": "bfloat16",
+          "kv_len_on_device": True, "norm_rel_err": rel,
+          "max_abs_err": mabs, "repeat_bitwise": same})
+    if not (rel <= BF16_KERNEL_RTOL and same):
+        failures.append(f"serve_tp_kernel K5 {shapes['K5']}: error "
+                        f"{rel:.3g}, bitwise repeat {same}")
+    del q, kk, vv, got, again
+    k4_checked = lm_k4_checks(cfg, 0, randn, failures,
+                              rows=[T for T, _ in shapes["K4"]],
+                              phase="serve_tp_kernel")
+    return lm_records(cfg, randn, k4_checked, [
+        ("decode", tuple(shapes["K5"]), kv_len)], launches, failures,
+        label=label, device_kv=True, host_kv=False, path="serve_tp",
+        decode_rows=shapes["K4"][0][0])
+
+
 def decode_vs_forward(cfg, model, seq, steps: int = 1, patches=None,
                       frames=None) -> dict:
     """The reference's serving check (``tests/test_models.py:64-88``) on
@@ -2741,10 +3115,12 @@ def lm_k4_widths(cfg) -> list:
     return [cfg.d_model] + ([cfg.d_inner] if cfg.family in STATEFUL else [])
 
 
-def lm_k4_checks(cfg, P: int, randn, failures: list) -> list:
-    """K4 at ``cfg``'s decode (B, D) and prefill (B·P, D) shapes for each
-    of ``lm_k4_widths`` in bfloat16 against its plain version, with a
-    bitwise repeat; returns ``(T, x, gamma, max_abs_err)`` for each."""
+def lm_k4_checks(cfg, P: int, randn, failures: list, rows=None,
+                 phase: str = "lm_kernel") -> list:
+    """K4 at ``cfg``'s decode (B, D) and prefill (B·P, D) shapes (or at
+    each of ``rows``) for each of ``lm_k4_widths`` in bfloat16 against
+    its plain version, with a bitwise repeat; returns ``(T, x, gamma,
+    max_abs_err)`` for each."""
     import torch
 
     from repro_torch.kernels import ref
@@ -2752,12 +3128,12 @@ def lm_k4_checks(cfg, P: int, randn, failures: list) -> list:
 
     out = []
     for D in lm_k4_widths(cfg):
-        for T in (LM_BATCH, LM_BATCH * P):
+        for T in rows or (LM_BATCH, LM_BATCH * P):
             x, g = randn(T, D), randn(D)
             got, again = k4.rmsnorm(x, g), k4.rmsnorm(x, g)
             rel, mabs = tensor_err(got, ref.rmsnorm(x, g))
             same = torch.equal(bits(got), bits(again))
-            emit({"phase": "lm_kernel", "arch": cfg.name,
+            emit({"phase": phase, "arch": cfg.name,
                   "kernel": "K4/rmsnorm_bf16", "shape": [T, D],
                   "dtype": "bfloat16", "norm_rel_err": rel,
                   "max_abs_err": mabs, "repeat_bitwise": same,
@@ -2771,19 +3147,21 @@ def lm_k4_checks(cfg, P: int, randn, failures: list) -> list:
 
 def lm_records(cfg, randn, k4_checked: list, k5_shapes: list,
                launches: dict, failures: list, label: str = "",
-               device_kv: bool = False) -> list:
-    """K4 (on ``lm_k4_checks``' inputs) and K5 at each of ``k5_shapes``
-    (``lm_k5_shapes``; ``device_kv``: also with ``kv_len`` read from
-    device memory), each timed: the kernel records, named ``<counter>
-    (lm <label><where>)``, with the main run's ``launches`` of each
-    kernel (prefill and decode together)."""
+               device_kv: bool = False, host_kv: bool = True,
+               path: str = "lm", decode_rows: int = LM_BATCH) -> list:
+    """K4 (on ``lm_k4_checks``' inputs; ``decode_rows`` rows at decode)
+    and K5 at each of ``k5_shapes`` (``lm_k5_shapes``) with a host
+    ``kv_len`` where ``host_kv``, with ``kv_len`` read from device
+    memory where ``device_kv``, each timed: the kernel records, named
+    ``<counter> (<path> <label><where>)``, with the main run's
+    ``launches`` of each kernel (prefill and decode together)."""
     import torch
 
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as k4
 
     F = torch.nn.functional
-    B = LM_BATCH
+    B = decode_rows
     timed = []
     for T, x, g, mabs in k4_checked:
         D = x.shape[1]
@@ -2799,11 +3177,12 @@ def lm_records(cfg, randn, k4_checked: list, k5_shapes: list,
                  lib=lambda x=x, g=g, D=D: F.rms_norm(x, (D,), g, eps=1e-6),
                  bound=bound_of(2 * 2 * T * D + 2 * D, 4 * T * D)))
     for where, shape, kv_len in k5_shapes:
-        timed += k5_timed(shape, kv_len, where, randn)
+        if host_kv:
+            timed += k5_timed(shape, kv_len, where, randn)
         if device_kv:
             timed += k5_timed(shape, kv_len, where + ", kv_len on device",
                               randn, on_device=True)
-    return lm_time(timed, launches, failures, label)
+    return lm_time(timed, launches, failures, label, path)
 
 
 def k5_timed(shape, kv_len: int, where: str, randn,
@@ -2860,15 +3239,16 @@ def k5_timed(shape, kv_len: int, where: str, randn,
              bound=b_whole)]
 
 
-def lm_time(timed: list, launches: dict, failures: list, label: str) -> list:
+def lm_time(timed: list, launches: dict, failures: list, label: str,
+            path: str = "lm") -> list:
     """Each of ``lm_records``' kernels timed beside its bound, its plain
-    version and its library call: a ``time`` line each, and the records
-    of those with a launch counter."""
+    version and its library call: a ``time`` line each (``"path":
+    path``), and the records of those with a launch counter."""
     from repro_torch.core.timing import graph_ms, time_ms
     records = []
     for e in timed:
         name = (f"{e['counter'] or 'K5/split+combine_bf16'} "
-                f"(lm {label}{e['where']})")
+                f"({path} {label}{e['where']})")
         ms, how = graph_ms(e["wrapper"])
         lib_ms = lib_err = None
         if e["lib"] is not None:
@@ -2886,7 +3266,7 @@ def lm_time(timed: list, launches: dict, failures: list, label: str) -> list:
                "max_abs_err": e["err"], "ms": ms,
                "plain_ms": time_ms(e["plain"]), "bound_ms": b_ms,
                "bound_by": b_by, "library_ms": lib_ms}
-        emit({"phase": "time", "path": "lm", **rec, "timed_by": how,
+        emit({"phase": "time", "path": path, **rec, "timed_by": how,
               "wrapper_ms": time_ms(e["wrapper"]),
               "library_norm_rel_err": lib_err, "bound_share": b_ms / ms,
               **{k: e[k] for k in ("shape", "kv_len", "chunks", "chunk_len")
@@ -3074,6 +3454,11 @@ def main(argv=None):
     # first, while this process holds nothing on the card: the ranks are
     # processes of their own, each with the whole card to itself
     spmd_recs = spmd_phase(args, failures, smi_line)
+    if failures:
+        fail("; ".join(failures))
+    # -- serve_tp: serve --arch split over ranks, while this process still
+    # holds nothing on the card
+    spmd_recs += serve_tp_phase(args, failures, smi_line)
     if failures:
         fail("; ".join(failures))
     # -- 2. lm: serve --arch at Llama-3-8B's full width and depth, while the

@@ -18,6 +18,11 @@ its stacked leaf, the layer dim dropped.  On a ``DeviceMesh`` a
 ``use_mesh`` installs an ambient mesh (the reference's
 ``jax.sharding.set_mesh``) that ``current_mesh`` returns.
 
+A tensor-parallel serving rank holds blocks: ``param_block`` gives a
+parameter leaf's, ``serving_rows`` its rows of the batch; its decode
+cache holds those rows and its KV heads, as ``cache_pspecs`` places
+them (``train.steps.tensor_parallel_split`` admits only such splits).
+
 ``shard_program`` is the replica side: the reference ``shard_map``s a
 batched program over contiguous row blocks of the global batch, one
 block a replica of the ``data`` axis, with no communication (requests
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import re
 from typing import Any, Sequence
 
@@ -264,6 +270,73 @@ def cache_pspecs(cfg, cache, mesh) -> Any:
         return NamedSharding(mesh, tuple(spec))
 
     return {k: leaf(k, _shape(v)) for k, v in cache.items()}
+
+
+# ---------------------------------------------------------------------------
+# a tensor-parallel serving rank's blocks
+# ---------------------------------------------------------------------------
+
+def param_block(cfg, name: str, tp) -> tuple[int, int, int] | None:
+    """(dim, lo, hi): the part of parameter leaf ``name`` (a top-level
+    leaf's name, or a layer leaf's own, ``wq``) that a tensor-parallel
+    serving rank holds on ``tp`` (a ``dist.spmd.TensorParallel``), the
+    blocks the training's layers cut from whole weights: the columns of
+    its query heads in ``wq`` and ``bq`` and their rows in ``wo``, of
+    the KV heads those read in ``wk``, ``wv``, ``bk``, ``bv``
+    (``models.model.tp_heads``: MQA's one head whole), its block of the
+    MLP's hidden columns in ``wg``, ``wu`` and rows in ``wd``, of the
+    vocabulary's columns in ``unembed`` (``TensorParallel.block``).
+    None for a leaf held whole (``embed``, the norms) and off ``tp``."""
+    if tp is None:
+        return None
+    from ..models.model import tp_heads
+    dh = cfg.dh
+    (q0, q1), (kv0, kv1) = tp_heads(cfg, tp)
+    q, kv = (q0 * dh, q1 * dh), (kv0 * dh, kv1 * dh)
+    ff = tp.block(cfg.d_ff)
+    cut = {"wq": (1, q), "bq": (0, q), "wo": (0, q), "wk": (1, kv),
+           "wv": (1, kv), "bk": (0, kv), "bv": (0, kv), "wg": (1, ff),
+           "wu": (1, ff), "wd": (0, ff),
+           "unembed": (1, tp.block(cfg.vocab))}.get(name)
+    return None if cut is None else (cut[0],) + cut[1]
+
+
+def take_block(t: torch.Tensor, block) -> torch.Tensor:
+    """``t``'s ``block`` (``param_block``) as a tensor of its own (``t``
+    itself where None), so that the whole leaf can be freed."""
+    if block is None:
+        return t
+    dim, lo, hi = block
+    return t.narrow(dim, lo, hi - lo).clone(
+        memory_format=torch.contiguous_format)
+
+
+def rank_param_bytes(cfg, tp, itemsize: int) -> int:
+    """The bytes of the parameters a tensor-parallel serving rank holds
+    (``param_block`` of every leaf of ``models.model_shapes``; the whole
+    model's off ``tp``), at ``itemsize`` bytes an element."""
+    from ..models.model import model_shapes
+    total = 0
+    for name, shape in model_shapes(cfg).items():
+        stacked = isinstance(shape, dict)
+        for leaf, s in (shape.items() if stacked else [(name, shape)]):
+            n, s = (s[0], list(s[1:])) if stacked else (1, list(s))
+            b = param_block(cfg, leaf, tp)
+            if b is not None:
+                s[b[0]] = b[2] - b[1]
+            total += n * math.prod(s)
+    return total * itemsize
+
+
+def serving_rows(cfg, batch: int, spmd) -> tuple[int, int]:
+    """The ``[lo, hi)`` rows of a global batch of ``batch`` a serving rank
+    holds: its block over the data-parallel ranks where ``batch_pspecs``
+    splits the batch, every row where it replicates it."""
+    spec = batch_pspecs(cfg, {"tokens": (batch,)}, spmd.source)["tokens"]
+    if not spec.spec or spec.spec[0] is None:
+        return 0, batch
+    per = batch // spmd.dpn
+    return spmd.dp_rank * per, (spmd.dp_rank + 1) * per
 
 
 # ---------------------------------------------------------------------------

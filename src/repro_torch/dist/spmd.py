@@ -20,6 +20,13 @@ MoE layers use.  ``rows`` says over which ranks the batch rows differ
 config's forward is split over the ``model`` ranks (``TensorParallel``:
 heads, MLP columns and vocabulary blocks, the residual stream cut along
 the sequence between them, ``gather_seq``/``scatter_seq``).
+
+Tensor-parallel serving (``launch.serve``, ``train.steps.serving_spmd``)
+runs on the same view, each rank holding only its blocks
+(``TensorParallel.blocks``); its decode step's collectives carry no
+autograd: ``sum_over_model`` (the row-split outputs added in float32),
+``gather_vocab`` (the logits' blocks joined) and, at the prefill,
+``last_position``.
 """
 from __future__ import annotations
 
@@ -157,6 +164,11 @@ class TensorParallel:
     group: Any
     n: int
     rank: int
+    #: the layers are handed this rank's blocks of the weights (serving:
+    #: each rank holds only its blocks, ``dist.sharding.param_block``),
+    #: not the whole weights to cut them from (training: FSDP2 gathers
+    #: whole ones)
+    blocks: bool = False
 
     def block(self, size: int) -> tuple[int, int]:
         """This rank's ``[lo, hi)`` of ``size``, cut as ``torch.tensor_split``
@@ -361,6 +373,48 @@ def scatter_seq(x: torch.Tensor, tp: TensorParallel, dim: int = 1):
     """The ranks' partial sums ``x`` (B, S, ...) summed, this rank's
     (B, S/n, ...) block of the sum (``_ScatterSeq``)."""
     return _ScatterSeq.apply(x, dim, tp.group, tp.n)
+
+
+# ---------------------------------------------------------------------------
+# the serving collectives of tensor parallelism: no autograd; c10d orders
+# each on the current stream (NCCL's stream joined to it by events, which
+# a CUDA graph capture records), so a captured decode step replays them
+# ---------------------------------------------------------------------------
+
+def sum_over_model(x: torch.Tensor, tp: TensorParallel, dtype
+                   ) -> torch.Tensor:
+    """The ranks' partial sums ``x`` (a row-split matmul's float32 output,
+    ``models.common.partial_matmul``: ``wo``'s, ``wd``'s) added in
+    float32 over ``tp``'s group (in place), rounded once to ``dtype``:
+    every rank gets the same sum."""
+    import torch.distributed as dist
+    y = x.to(torch.float32)
+    dist.all_reduce(y, group=tp.group)
+    return y.to(dtype)
+
+
+def gather_vocab(x: torch.Tensor, tp: TensorParallel, size: int
+                 ) -> torch.Tensor:
+    """Every rank's block ``x`` (..., hi - lo) of a last dim of ``size``
+    cut as ``TensorParallel.block`` cuts it, joined in rank order into
+    (..., size) on every rank.  Blocks one shorter than the first (the
+    ranks do not divide ``size``) are padded for the gather and cut
+    after it."""
+    width = -(-size // tp.n)
+    if x.shape[-1] < width:
+        x = torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+    parts = all_gather_cat(x, x.dim() - 1, tp.group, tp.n).split(width, -1)
+    return torch.cat([p[..., :hi - lo] for p, (lo, hi) in zip(
+        parts, (dataclasses.replace(tp, rank=r).block(size)
+                for r in range(tp.n)))], -1)
+
+
+def last_position(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """The last position (B, 1, D) of a stream cut along the sequence
+    over ``tp``'s ranks (x: this rank's (B, S/n, D) block): the last
+    rank's last row, on every rank."""
+    last = all_gather_cat(x[:, -1:].contiguous(), 1, tp.group, tp.n)
+    return last[:, -1:].contiguous()
 
 
 def chunk_rows(x, rank, size, group, n):

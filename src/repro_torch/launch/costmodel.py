@@ -16,6 +16,11 @@ TPU's.
 
 All quantities are global (the whole job); ``CostEstimate.terms(chips)``
 divides them over the cards and gives the step's lower bound.
+
+``tp_decode(cfg, batch, kv_len, mp)`` is one rank's side of a
+tensor-parallel decode step (``serve --arch --model-parallel``): the
+rank's weight and cache bytes over the card's memory rate, beside the
+bytes of the step's collectives over NVLink.
 """
 from __future__ import annotations
 
@@ -186,3 +191,44 @@ def estimate(cfg, shape) -> CostEstimate:
     notes = {"cache_bytes": cache_bytes, "state_bytes": state_bytes,
              "attn_flops": attn_flops}
     return CostEstimate(model_flops, impl_flops, hbm, pb, notes)
+
+
+def tp_decode(cfg, batch: int, kv_len: int, mp: int, dpn: int = 1) -> dict:
+    """One rank's bound for a decode step served over a ``model`` axis of
+    ``mp`` (and ``dpn`` data-parallel groups, each serving its rows where
+    they divide ``batch``), at ``kv_len`` cached positions: the bytes it
+    reads, its weights' blocks (``dist.sharding.rank_param_bytes``, rank
+    0's: the longest vocabulary block) and its KV heads' rows of the
+    cache, over ``HBM_BW``; beside them the step's collectives, 2 a
+    layer (the float32 sums after ``wo`` and ``wd``) and the
+    vocabulary's gather, their payload and the bytes a ring moves
+    between ranks (an all-reduce 2 (n - 1) / n of its payload, an
+    all-gather (n - 1) / n of its result) over one NVLink direction.
+    The embedding, held whole, is read at the step's rows alone."""
+    from ..dist.sharding import rank_param_bytes
+    from ..dist.spmd import TensorParallel
+    item = 2 if cfg.compute_dtype == "bfloat16" else 4
+    rows = batch // dpn if dpn > 1 and batch % dpn == 0 else batch
+    tp = TensorParallel(None, mp, 0) if mp > 1 else None
+    held = rank_param_bytes(cfg, tp, item)
+    embed = 0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model * item
+    weights = held - embed + rows * cfg.d_model * item * (embed > 0)
+    heads = cfg.n_kv_heads if cfg.n_kv_heads % mp or mp == 1 \
+        else cfg.n_kv_heads // mp
+    cache = cfg.n_layers * rows * kv_len * 2 * heads * cfg.dh * item
+    n_coll = 2 * cfg.n_layers + 1 if mp > 1 else 0
+    reduce_payload = 2 * cfg.n_layers * rows * cfg.d_model * 4
+    gather_payload = rows * -(-cfg.vocab // mp) * mp * item
+    wire = (2 * (mp - 1) / mp * reduce_payload
+            + (mp - 1) / mp * gather_payload) if mp > 1 else 0.0
+    t_memory = (weights + cache) / HBM_BW
+    t_coll = wire / LINK_BW
+    return {"model_parallel": mp, "rows": rows, "held_weight_bytes": held,
+            "weight_bytes": weights,
+            "cache_bytes": cache, "t_memory_s": t_memory,
+            "collectives": n_coll,
+            "collective_payload_bytes": (reduce_payload + gather_payload
+                                         if mp > 1 else 0),
+            "collective_wire_bytes": wire, "t_collective_s": t_coll,
+            "step_lower_bound_s": max(t_memory, t_coll),
+            "dominant": "memory" if t_memory >= t_coll else "collective"}

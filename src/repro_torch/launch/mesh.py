@@ -141,3 +141,35 @@ def make_host_mesh(model_parallel: int = 1, device_type: str | None = None):
         mp -= 1
     return _device_mesh((n // mp, mp), ("data", "model"), "make_host_mesh",
                         device_type)
+
+
+def join_process_group(device: str) -> bool:
+    """Join the process group ``torchrun`` describes in the environment
+    (unless one is up): NCCL with rank r on ``cuda:<LOCAL_RANK>``, gloo
+    with ``device`` ``"cpu"``.  True when there is one."""
+    import os
+
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return True
+    if "WORLD_SIZE" not in os.environ:
+        return False
+    cuda = device != "cpu"
+    if cuda:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if cuda else "gloo", init_method="env://")
+    return True
+
+
+def without_nproc(argv: list) -> list:
+    """``argv`` without its ``--nproc N`` (a launcher's ranks run the rest
+    of its command line)."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a == "--nproc":
+            skip = True
+        elif not a.startswith("--nproc="):
+            out.append(a)
+    return out

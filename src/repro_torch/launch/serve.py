@@ -14,6 +14,21 @@ RMSNorm and K5 every GQA decode attention on the card:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \
         --smoke --device cpu
 
+Tensor-parallel serving of the dense and vlm families:
+``--model-parallel N`` splits each layer over N ranks of a process group
+(``torchrun``, NCCL one rank a GPU or gloo with ``--device cpu``; or
+``--nproc R``, which starts R ranks itself), on ``make_host_mesh(N)``
+(the other ranks serving their rows of the batch): each rank holds its
+blocks of the weights (heads, MLP columns, vocabulary) and of the
+decode cache (its KV heads), and rank 0 prints.  On NCCL the decode
+step, collectives included, replays as one CUDA graph; gloo's steps run
+eagerly:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \
+        --smoke --device cpu --model-parallel 2 --nproc 2
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch llava_next_34b --batch 8 --prompt-len 608 --model-parallel 4
+
 BLAS sequences:
 
 One sequence, one size: compile through the plan cache, then a request
@@ -188,7 +203,7 @@ def grow_cache(cfg, cache, horizon: int) -> dict:
 
 
 def generate(cfg, model, prompts, gen: int, patches=None, frames=None, *,
-             graph: bool = True) -> dict:
+             graph: bool = True, spmd=None) -> dict:
     """The reference's ``--arch`` loop on ``model`` (cast to the compute
     dtype): prefill the prompts (B, P) (with a VLM's ``patches`` and an
     encoder-decoder's ``frames``, numpy or tensors), grow the cache to P
@@ -199,14 +214,33 @@ def generate(cfg, model, prompts, gen: int, patches=None, frames=None, *,
     kernels; the CPU always does).  Returns the (B, gen) tokens (numpy
     int32), the cache, the prefill's milliseconds (with the grow), each
     decode step's (CUDA events on the card, so a step's time includes
-    the device waiting for the host; the capture lies outside them) and
-    the number of captures."""
+    the device waiting for the host; the capture lies outside them),
+    the number of captures, whether the steps replayed a graph
+    (``graph``) and the process group's backend (``backend``, None off
+    one).
+
+    ``spmd`` (``train.steps.serving_spmd``, the model this rank's blocks,
+    ``load_model``): the steps run under it, each rank on its rows of
+    the batch (``dist.sharding.serving_rows``) and, over ``model``, its
+    blocks; the cache is this rank's.  On NCCL the step is captured with
+    its collectives; gloo's cannot be, and every step runs eagerly,
+    decided from the backend before the first step.  Every rank returns
+    the whole batch's tokens."""
     import torch
 
     from repro_torch.train import steps
 
     B, P = prompts.shape
     on_cuda = model.device.type == "cuda"
+    backend = None
+    rows = (0, B)
+    if spmd is not None:
+        import torch.distributed as dist
+
+        from repro_torch.dist.sharding import serving_rows
+        backend = dist.get_backend(spmd.model_group)
+        rows = serving_rows(cfg, B, spmd)
+    capture = graph and on_cuda and gen > 2 and backend in (None, "nccl")
     spans = []
 
     def span():
@@ -220,33 +254,39 @@ def generate(cfg, model, prompts, gen: int, patches=None, frames=None, *,
         spans.append([time.perf_counter(), None])
         return lambda s=spans[-1]: s.__setitem__(1, time.perf_counter())
 
-    batch = {"tokens": torch.as_tensor(np.asarray(prompts, np.int32),
-                                       device=model.device)}
+    lo, hi = rows
+    batch = {"tokens": torch.as_tensor(
+        np.asarray(prompts, np.int32)[lo:hi], device=model.device)}
     for name, a in (("patches", patches), ("frames", frames)):
         if a is not None:
-            batch[name] = torch.as_tensor(a, device=model.device)
+            batch[name] = torch.as_tensor(a[lo:hi], device=model.device)
     stop = span()
-    logits, cache = steps.make_prefill_step(cfg)(model, batch)
+    logits, cache = steps.make_prefill_step(cfg, spmd)(model, batch)
     cache = grow_cache(cfg, cache, P + gen)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     stop()
     del logits
     out = [tok]
-    replay = steps.DecodeReplay(cfg, model, cache, tok, P)
+    replay = steps.DecodeReplay(cfg, model, cache, tok, P, spmd)
     for i in range(gen - 1):
         stop = span()
         out.append(replay())
         stop()
-        if i == 0 and graph and on_cuda and gen > 2:
+        if i == 0 and capture:
             replay.capture()
     if on_cuda:
         spans[-1][1].synchronize()
         ms = [a.elapsed_time(b) for a, b in spans]
     else:
         ms = [(b - a) * 1e3 for a, b in spans]
-    return {"tokens": torch.stack(out, dim=1).cpu().numpy(), "cache": cache,
+    tokens = torch.stack(out, dim=1)
+    if hi - lo < B:
+        from repro_torch.dist.spmd import all_gather_cat
+        tokens = all_gather_cat(tokens, 0, spmd.dp_group, spmd.dpn)
+    return {"tokens": tokens.cpu().numpy(), "cache": cache,
             "prefill_ms": ms[0], "step_ms": ms[1:],
-            "captures": replay.captures}
+            "captures": replay.captures, "graph": replay.captures > 0,
+            "backend": backend}
 
 
 def draw_inputs(cfg, batch: int, prompt_len: int, seed: int) -> dict:
@@ -267,46 +307,113 @@ def draw_inputs(cfg, batch: int, prompt_len: int, seed: int) -> dict:
     return {"prompts": prompts, "patches": patches, "frames": frames}
 
 
-def load_model(cfg, seed: int, device):
+def load_model(cfg, seed: int, device, tp=None):
     """Random parameters from a ``torch.Generator`` on ``device`` seeded
     with ``seed``, each leaf drawn in ``cfg.param_dtype`` and cast to
     ``cfg.compute_dtype`` as it is drawn (the peak is the cast model and
-    one leaf in ``param_dtype``)."""
+    one leaf in ``param_dtype``).  ``tp`` (a serving rank's
+    ``TensorParallel``): every leaf is drawn as the one-device run draws
+    it and this rank keeps its block (``dist.sharding.param_block``), so
+    its peak is its blocks and one whole leaf, and its numbers are the
+    unsharded model's."""
     import torch
 
     from repro_torch.core.codegen import resolve_device
+    from repro_torch.dist.sharding import param_block, take_block
     from repro_torch.models import init_params
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    keep = None if tp is None else (
+        lambda name, t: take_block(t, param_block(cfg, name, tp)))
     return init_params(cfg, gen, dev,
-                       dtype=getattr(torch, cfg.compute_dtype))
+                       dtype=getattr(torch, cfg.compute_dtype), keep=keep)
 
 
-def serve_arch(args):
+def refuse_model_parallel(cfg, model_parallel: int, prompt_len: int):
+    """Raise ``ValueError``, before any rank starts, for what a later
+    tensor-parallel slice brings to ``--model-parallel``: a family other
+    than dense and vlm (the ssm, hybrid, encdec and MoE configs), head,
+    ``d_ff`` or KV-head counts the axis does not divide, ranks reading
+    part of two KV groups (``train.steps.tensor_parallel_split(...,
+    serving=True)``), and a prompt the axis does not divide (the
+    prefill cuts the sequence over it)."""
+    from repro_torch.train.steps import tensor_parallel_split
+    if model_parallel <= 1:
+        return
+    try:
+        tensor_parallel_split(cfg, model_parallel, serving=True)
+    except NotImplementedError as e:
+        raise ValueError(f"--model-parallel {model_parallel}: {e}") from None
+    if prompt_len % model_parallel:
+        raise ValueError(
+            f"--model-parallel {model_parallel}: a prompt of {prompt_len} "
+            f"positions does not split over {model_parallel} "
+            f"tensor-parallel ranks (the prefill cuts the sequence); a "
+            f"split the axis does not divide comes with a later "
+            f"tensor-parallel slice (ROADMAP.md)")
+
+
+def serve_arch(args, argv=None):
     """``--arch``: prompts (and a VLM's patches, an encoder-decoder's
     frames) drawn as the reference draws them (``draw_inputs``), a model
     from ``load_model``, then ``generate``; prints the reference's three
-    lines and returns the (B, gen) tokens."""
+    lines and returns the (B, gen) tokens.
+
+    Over a process group (``torchrun``, or the ``--nproc`` ranks it
+    starts, each running ``argv`` without ``--nproc``) it serves on
+    ``make_host_mesh(--model-parallel)``, as the reference serves under
+    that mesh: each rank holds its blocks of the weights
+    (``load_model``'s ``tp``) and of the cache, and rank 0 prints.
+    ``--model-parallel`` > 1 without a process group raises."""
     from repro_torch.configs import get_config, smoke_config
-    if args.model_parallel > 1:
-        raise ValueError(f"--model-parallel {args.model_parallel}: "
-                         f"tensor-parallel serving comes with a later "
-                         f"tensor-parallel slice of dist (ROADMAP.md); "
-                         f"this path runs on one device")
+    from repro_torch.launch.mesh import join_process_group, make_host_mesh
+    from repro_torch.train.steps import serving_spmd
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     B, P, G = args.batch, args.prompt_len, args.gen
+    refuse_model_parallel(cfg, args.model_parallel, P)
+    if args.nproc:
+        import sys
+
+        from repro_torch.dist.spmd import run_ranks
+        from repro_torch.launch.mesh import without_nproc
+        rest = without_nproc(list(sys.argv[1:] if argv is None else argv))
+        return run_ranks(_spawned, args.nproc, rest,
+                         backend="gloo" if args.device == "cpu" else "nccl",
+                         timeout_s=24 * 3600.0)[0]
+    spmd, rank0 = None, True
+    if join_process_group(args.device):
+        import torch
+        import torch.distributed as dist
+        spmd = serving_spmd(cfg, make_host_mesh(
+            args.model_parallel, torch.device(args.device).type))
+        rank0 = dist.get_rank() == 0
+    elif args.model_parallel > 1:
+        raise ValueError(
+            f"--model-parallel {args.model_parallel}: tensor-parallel "
+            f"serving runs over a torch.distributed process group: start "
+            f"it with --nproc N or torchrun")
     inputs = draw_inputs(cfg, B, P, args.seed)
-    model = load_model(cfg, args.seed, args.device)
+    model = load_model(cfg, args.seed, args.device,
+                       None if spmd is None else spmd.tp)
     res = generate(cfg, model, inputs["prompts"], G,
-                   patches=inputs["patches"], frames=inputs["frames"])
+                   patches=inputs["patches"], frames=inputs["frames"],
+                   spmd=spmd)
     t_decode = sum(res["step_ms"]) / 1e3
     tput = B * (G - 1) / max(t_decode, 1e-9)
-    print(f"prefill {P} toks x{B}: {res['prefill_ms']:.1f} ms")
-    print(f"decode  {G-1} steps x{B}: {t_decode*1e3:.1f} ms "
-          f"({tput:.1f} tok/s)")
-    print("sample generation (first sequence):",
-          res["tokens"][0][:16].tolist())
+    if rank0:
+        if spmd is not None:
+            print(f"mesh: {spmd.describe()}  devices={spmd.world}  "
+                  f"backend={res['backend']}  graph={res['graph']}")
+        print(f"prefill {P} toks x{B}: {res['prefill_ms']:.1f} ms")
+        print(f"decode  {G-1} steps x{B}: {t_decode*1e3:.1f} ms "
+              f"({tput:.1f} tok/s)")
+        print("sample generation (first sequence):",
+              res["tokens"][0][:16].tolist())
     return res["tokens"]
+
+
+def _spawned(rank: int, world: int, argv: list):
+    return main(argv)
 
 
 def engine_stream(ranges, requests: int, seed: int = 0) -> list:
@@ -485,7 +592,12 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
-    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="with --arch: split each layer over this many "
+                    "ranks of a process group (torchrun, or --nproc)")
+    ap.add_argument("--nproc", type=int, default=0,
+                    help="with --arch: start this many ranks (gloo with "
+                    "--device cpu, NCCL one a GPU) and serve over them")
     args = ap.parse_args(argv)
 
     from repro_torch.core.diagnostics import KNOWN_BACKENDS, VerificationError
@@ -500,7 +612,7 @@ def main(argv=None):
         return serve_engine(args) if args.engine else serve_blas(args)
     if not args.arch:
         ap.error("one of --arch or --blas is required")
-    return serve_arch(args)
+    return serve_arch(args, argv)
 
 
 if __name__ == "__main__":

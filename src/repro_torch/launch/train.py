@@ -87,38 +87,8 @@ def _refuse(args, cfg):
                              f"FSDP over the mesh") from None
 
 
-def _process_group(device: str) -> bool:
-    """Join the process group ``torchrun`` describes in the environment
-    (unless one is up); True when there is one."""
-    import os
-
-    import torch
-    import torch.distributed as dist
-    if dist.is_initialized():
-        return True
-    if "WORLD_SIZE" not in os.environ:
-        return False
-    cuda = device != "cpu"
-    if cuda:
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
-    dist.init_process_group("nccl" if cuda else "gloo", init_method="env://")
-    return True
-
-
 def _spawned(rank: int, world: int, argv: list):
     return main(argv)
-
-
-def _without_nproc(argv: list) -> list:
-    out, skip = [], False
-    for a in argv:
-        if skip:
-            skip = False
-        elif a == "--nproc":
-            skip = True
-        elif not a.startswith("--nproc="):
-            out.append(a)
-    return out
 
 
 def main(argv=None):
@@ -162,7 +132,8 @@ def main(argv=None):
     _refuse(args, cfg)
     if args.nproc:
         from repro_torch.dist.spmd import run_ranks
-        rest = _without_nproc(list(sys.argv[1:] if argv is None else argv))
+        from repro_torch.launch.mesh import without_nproc
+        rest = without_nproc(list(sys.argv[1:] if argv is None else argv))
         return run_ranks(_spawned, args.nproc, rest,
                          backend="gloo" if args.device == "cpu" else "nccl",
                          timeout_s=24 * 3600.0)[0]
@@ -182,14 +153,15 @@ def _train(args, cfg):
                                   StepWatchdog, latest_step, restore)
     from repro_torch.configs import ShapeConfig
     from repro_torch.data import make_batch_fn, shard_batch
-    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.launch.mesh import (join_process_group, make_host_mesh,
+                                         make_production_mesh)
     from repro_torch.optim import AdamWHyper
     from repro_torch.train import steps as steps_lib
 
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     hyper = AdamWHyper(lr=args.lr, warmup_steps=max(1, args.steps // 20),
                        total_steps=args.steps)
-    sharded = _process_group(args.device)
+    sharded = join_process_group(args.device)
     if not sharded and (args.mesh != "host" or args.model_parallel > 1):
         if args.mesh != "host":
             make_production_mesh(multi_pod=args.mesh == "multipod")

@@ -24,6 +24,9 @@ and ``wu``, the rows of ``wd``; ``model.gqa_attention``'s heads;
 ``forward.unembed``'s vocabulary), and the sequence-parallel
 boundaries are collectives with their gradients
 (``dist.spmd.gather_seq`` before a block, ``scatter_seq`` after it).
+A serving rank holds only its blocks (``TensorParallel.blocks``): the
+layers use them as they are, and the decode step sums the row-split
+outputs in float32 (``dist.spmd.sum_over_model``).
 """
 from __future__ import annotations
 
@@ -255,8 +258,10 @@ def mlp(cfg, x, wg, wu, wd, tp=None):
     """SwiGLU (wg, wu, wd) or GELU in its tanh form, as ``jax.nn.gelu``
     computes it (wu, wd; wg unused).  ``tp`` (a ``TensorParallel``): this
     rank's block of the hidden columns (``wg``/``wu`` cut by columns,
-    ``wd`` by rows), and the result is this rank's partial sum."""
-    if tp is not None:
+    ``wd`` by rows; the weights as given where they are its blocks
+    already, ``tp.blocks``), and the result is this rank's partial
+    sum (``partial_matmul``: float32 on a serving rank)."""
+    if tp is not None and not tp.blocks:
         lo, hi = tp.block(wd.shape[0])
         wg = None if wg is None else wg[:, lo:hi]
         wu, wd = wu[:, lo:hi], wd[lo:hi]
@@ -264,7 +269,22 @@ def mlp(cfg, x, wg, wu, wd, tp=None):
         h = F.silu(x @ wg) * (x @ wu)
     else:
         h = F.gelu(x @ wu, approximate="tanh")
-    return h @ wd
+    return partial_matmul(h, wd, tp)
+
+
+def partial_matmul(x, w, tp=None):
+    """``x @ w``; on a serving rank (``tp.blocks``) a row-split matmul's
+    partial sum, kept in float32 (on the card cuBLAS writes its float32
+    accumulator, ``torch.mm``'s ``out_dtype``; on the CPU the same sums
+    in float32), so that the sum over ``model`` rounds once to the
+    compute dtype, as the one-device matmul does."""
+    if tp is None or not tp.blocks or x.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda:
+        return torch.mm(x.reshape(-1, x.shape[-1]), w,
+                        out_dtype=torch.float32).reshape(
+                            *x.shape[:-1], w.shape[1])
+    return x.float() @ w.float()
 
 
 # ---------------------------------------------------------------------------

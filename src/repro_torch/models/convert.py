@@ -28,11 +28,15 @@ from ..core.codegen import resolve_device
 from .model import LM, model_shapes
 
 
-def params_from_reference(cfg, tree: dict, device="cuda") -> LM:
+def params_from_reference(cfg, tree: dict, device="cuda", tp=None) -> LM:
     """An ``LM`` on ``device`` (the card unless the caller asks for
     ``"cpu"``; raises without one) holding a copy of the reference's
     parameter ``tree``; raises where a leaf is missing, extra or of
-    another shape than ``model_shapes(cfg)`` gives."""
+    another shape than ``model_shapes(cfg)`` gives.  ``tp`` (a serving
+    rank's ``dist.spmd.TensorParallel``): the rank's blocks of the
+    leaves alone (``dist.sharding.param_block``), as
+    ``launch.serve.load_model`` holds them."""
+    from ..dist.sharding import param_block, take_block
     dev = resolve_device(device)
     shapes = model_shapes(cfg)
     stacks = {k: shapes.pop(k) for k in ("layers", "head_layers",
@@ -51,18 +55,19 @@ def params_from_reference(cfg, tree: dict, device="cuda") -> LM:
                              f"the config {tuple(shape)}")
         return a
 
-    def tensor(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, copy=True)).to(dev)
+    def tensor(name, a) -> torch.Tensor:
+        t = torch.from_numpy(np.array(a, copy=True))
+        return take_block(t, param_block(cfg, name, tp)).to(dev)
 
     def unstack(name):
         per_layer = stacks.get(name, {})
         stacked = {k: array(k, tree[name][k], s)
                    for k, s in per_layer.items()}
         n = next(iter(per_layer.values()))[0] if per_layer else 0
-        return [{k: tensor(a[l]) for k, a in stacked.items()}
+        return [{k: tensor(k, a[l]) for k, a in stacked.items()}
                 for l in range(n)]
 
-    top = {k: tensor(array(k, tree[k], s)) for k, s in shapes.items()}
+    top = {k: tensor(k, array(k, tree[k], s)) for k, s in shapes.items()}
     return LM(cfg, top, unstack("layers"), unstack("head_layers"),
               unstack("enc_layers"))
 

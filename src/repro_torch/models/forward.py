@@ -20,6 +20,11 @@ place by ``decode_step`` (the reference returns a new one):
   slots, position i in slot i mod W;
 * ``xk``, ``xv`` (L, B, F, Hkv, dh): a Whisper decoder's cross-attention
   keys and values over the F encoder frames, written by the prefill.
+
+A tensor-parallel serving rank (``dist.spmd.TensorParallel`` with
+``blocks``, dense and vlm) holds its rows of B and the KV heads its
+query heads read (``model.tp_heads``), as ``dist.sharding.cache_pspecs``
+places them.
 """
 from __future__ import annotations
 
@@ -34,7 +39,8 @@ from . import ssm as ssm_lib
 from .common import apply_norm, mlp, tensor_parallel
 from .model import (_moe_or_mlp, check_family, decode_gqa_attention,
                     decoder_layer, gqa_attention, hybrid_mix,
-                    mla_decode_attention, new_kv, new_latent, ssm_params)
+                    mla_decode_attention, new_kv, new_latent, ssm_params,
+                    tp_heads)
 
 #: the cache leaves kept in float32 whatever the compute dtype
 FLOAT32_LEAVES = ("state",)
@@ -72,9 +78,10 @@ def embed_tokens(cfg, model, tokens):
 def unembed(cfg, model, x, tp=None):
     """The logits of x; ``tp`` (a ``TensorParallel``): this rank's block
     of the vocabulary's columns (``TensorParallel.block``, the last
-    block shorter where the ranks do not divide the vocabulary)."""
+    block shorter where the ranks do not divide the vocabulary), cut
+    from the whole ``unembed`` or, ``tp.blocks``, held as it is."""
     w = model["embed"].T if cfg.tie_embeddings else model["unembed"]
-    if tp is not None:
+    if tp is not None and not tp.blocks:
         lo, hi = tp.block(w.shape[1])
         w = w[:, lo:hi]
     return x @ w
@@ -145,20 +152,22 @@ def _layers(cfg, model, tokens, patches=None, frames=None, collect=None,
     (``model.Layer``), where a sharded step's FSDP hooks gather it.
 
     On a sharded step's ``TensorParallel`` the residual stream is this
-    rank's block of the sequence, taken at the embedding (the
-    reference's constraint after it): x is (B, S/n, D) from there
-    through every layer (``model.decoder_layer``); under ``remat`` each
-    rank recomputes a layer's collectives in the same order."""
+    rank's block of the sequence, cut from the embedded stream (the
+    reference's constraint after the embedding; a VLM's patches already
+    in place): x is (B, S/n, D) from there through every layer
+    (``model.decoder_layer``); under ``remat`` each rank recomputes a
+    layer's collectives in the same order.  A sequence the ranks do not
+    divide raises ``ValueError``."""
     tp = tensor_parallel()
+    x = _embed(cfg, model, tokens, patches)
     if tp is not None:
-        S = tokens.shape[1]
+        S = x.shape[1]
         if S % tp.n:
-            raise NotImplementedError(
+            raise ValueError(
                 f"{cfg.name}: a sequence of {S} does not split over "
                 f"{tp.n} tensor-parallel ranks")
         lo, hi = tp.block(S)
-        tokens = tokens[:, lo:hi]
-    x = _embed(cfg, model, tokens, patches)
+        x = x[:, lo:hi].contiguous()
     enc_out = None
     if cfg.family == "encdec":
         if frames is None:
@@ -271,12 +280,18 @@ def cache_pspec_rules(cfg):
     return rules
 
 
-def cache_shapes(cfg, batch: int, seq: int) -> dict:
+def cache_shapes(cfg, batch: int, seq: int, tp=None) -> dict:
     """The decode cache's leaves at KV length ``seq``, as the reference's
-    ``abstract_cache`` (the module's docstring lists them)."""
+    ``abstract_cache`` (the module's docstring lists them); ``tp`` (a
+    serving rank's ``TensorParallel``): the KV heads its query heads
+    read (``model.tp_heads``)."""
     check_family(cfg)
     L, fam = cfg.n_layers, cfg.family
-    kv = (L, batch, seq, cfg.n_kv_heads, cfg.dh)
+    heads = cfg.n_kv_heads
+    if tp is not None:
+        _, (kv0, kv1) = tp_heads(cfg, tp)
+        heads = kv1 - kv0
+    kv = (L, batch, seq, heads, cfg.dh)
     state = (L, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
     if cfg.kv_lora_rank:
         return {"ckv": (L, batch, seq, cfg.kv_lora_rank),
@@ -298,13 +313,14 @@ def cache_dtype(cfg, name: str) -> torch.dtype:
     return torch.float32 if name in FLOAT32_LEAVES else _compute_dtype(cfg)
 
 
-def zero_cache(cfg, batch: int, seq: int, device="cuda") -> dict:
-    """The decode cache at KV length ``seq`` (``cache_shapes``), zeros in
-    each leaf's ``cache_dtype``."""
+def zero_cache(cfg, batch: int, seq: int, device="cuda", tp=None) -> dict:
+    """The decode cache at KV length ``seq`` (``cache_shapes``, a serving
+    rank's KV heads where ``tp``), zeros in each leaf's
+    ``cache_dtype``."""
     dev = resolve_device(device)
     return {name: torch.zeros(shape, dtype=cache_dtype(cfg, name),
                               device=dev)
-            for name, shape in cache_shapes(cfg, batch, seq).items()}
+            for name, shape in cache_shapes(cfg, batch, seq, tp).items()}
 
 
 def ring_slots(pos, window: int):
@@ -338,13 +354,30 @@ def write_row(leaf, pos, row):
 # decode step
 # ---------------------------------------------------------------------------
 
-def decode_layer(cfg, x, lp, kind: str, cache, l: int, pos):
+def decode_layer(cfg, x, lp, kind: str, cache, l: int, pos, tp=None):
     """One layer of ``decode_step`` on x (B, 1, D) at position ``pos`` (a
     host integer or a 0-d int32 device tensor): writes the layer's k and
     v (MLA: its latent and roped rope key; a hybrid: into ring slot
     ``pos mod W``) into ``cache[...][l]`` before its attention reads
-    them, advances its SSD state in place, and returns x'."""
+    them, advances its SSD state in place, and returns x'.
+
+    ``tp`` (a serving rank's ``TensorParallel``, a dense layer): x and
+    the norms (K4) are whole on every rank, K and V its KV heads', K5
+    its query heads against them; the partial sums after ``wo``'s rows
+    and after ``wd``'s, kept in float32, are added over ``model`` in
+    float32 and rounded once (``dist.spmd.sum_over_model``)."""
     h = apply_norm(cfg, x, lp, "ln1")
+    if tp is not None:
+        from ..dist.spmd import sum_over_model
+        k, v = new_kv(cfg, h, lp, pos, tp)
+        write_row(cache["k"][l], pos, k)
+        write_row(cache["v"][l], pos, v)
+        x = x + sum_over_model(decode_gqa_attention(
+            cfg, h, lp, cache["k"][l], cache["v"][l], pos, tp=tp), tp,
+            x.dtype)
+        h2 = apply_norm(cfg, x, lp, "ln2")
+        return x + sum_over_model(mlp(cfg, h2, lp.get("wg"), lp["wu"],
+                                      lp["wd"], tp=tp), tp, x.dtype)
     if kind == "ssm":
         o, _ = ssm_lib.ssm_mixer(cfg, h, ssm_params(lp),
                                  state=cache["state"][l])
@@ -390,7 +423,12 @@ def decode_step(cfg, model, cache, tokens, pos):
     (B, V), cache).  ``pos`` is a host integer, or a 0-d int32 tensor on
     the model's device, as the reference traces it: no shape and no
     host value then depends on it, so the step can be captured as one
-    CUDA graph and replayed at every position."""
+    CUDA graph and replayed at every position.
+
+    Under a serving rank's ``TensorParallel`` (``dist.spmd.running``)
+    every layer is split over ``model`` (``decode_layer``), the logits
+    are this rank's block of the vocabulary, gathered whole on every
+    rank (``dist.spmd.gather_vocab``)."""
     _check_cast(cfg, model)
     if isinstance(pos, torch.Tensor):
         if pos.shape != () or pos.dtype != torch.int32 \
@@ -400,11 +438,12 @@ def decode_step(cfg, model, cache, tokens, pos):
                              f"{pos.dtype} on {pos.device}")
     else:
         pos = operator.index(pos)
+    tp = _serving_tp(cfg, model)
     x = embed_tokens(cfg, model, tokens[:, None])           # (B, 1, D)
     for l, (lp, kind) in enumerate(model.stacks()):
-        x = decode_layer(cfg, x, lp, kind, cache, l, pos)
+        x = decode_layer(cfg, x, lp, kind, cache, l, pos, tp)
     x = apply_norm(cfg, x, model, "final")
-    return unembed(cfg, model, x)[:, 0], cache
+    return _logits(cfg, model, x, tp)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -450,13 +489,49 @@ def prefill(cfg, model, tokens, *, patches=None, frames=None):
     layer returns them.  The final norm and the unembedding run on the
     last position alone: the same rows as the reference's, without its
     (B, S, V) logits.  An MLA cache holds ``kr`` before rope, as the
-    reference's prefill returns it (``model.mla_attention``)."""
+    reference's prefill returns it (``model.mla_attention``).
+
+    Under a serving rank's ``TensorParallel`` the layers run the
+    training's sequence parallelism (``model.decoder_layer``) on this
+    rank's blocks of the weights: the cache pieces are its KV heads
+    over the whole sequence; the last position, which lies in the last
+    rank's block of the sequence, is taken from it
+    (``dist.spmd.last_position``) for the final norm, and the logits
+    come back whole (``dist.spmd.gather_vocab``)."""
     _check_cast(cfg, model)
+    tp = _serving_tp(cfg, model)
     B, S = tokens.shape
     cache = {name: torch.empty(shape, dtype=cache_dtype(cfg, name),
                                device=model.device)
-             for name, shape in cache_shapes(cfg, B, S).items()}
+             for name, shape in cache_shapes(cfg, B, S, tp).items()}
     x, _ = _layers(cfg, model, tokens, patches, frames,
                    lambda l, pieces: write_layer(cfg, cache, l, pieces, S))
-    x = apply_norm(cfg, x[:, -1:].contiguous(), model, "final")
-    return unembed(cfg, model, x)[:, 0], cache
+    if tp is None:
+        x = x[:, -1:].contiguous()
+    else:
+        from ..dist.spmd import last_position
+        x = last_position(x, tp)
+    x = apply_norm(cfg, x, model, "final")
+    return _logits(cfg, model, x, tp)[:, 0], cache
+
+
+def _serving_tp(cfg, model):
+    """The ``TensorParallel`` a serving step runs under (None off one):
+    the model must hold this rank's blocks (``tp.blocks``), and only
+    the dense and vlm families split."""
+    tp = tensor_parallel()
+    if tp is not None and not (tp.blocks
+                               and cfg.family in ("dense", "vlm")):
+        raise NotImplementedError(
+            f"{cfg.name}: tensor-parallel serving splits the dense and vlm "
+            f"families, the model holding this rank's blocks "
+            f"(launch.serve.load_model)")
+    return tp
+
+
+def _logits(cfg, model, x, tp):
+    """The logits of x, the vocabulary's blocks gathered under ``tp``."""
+    if tp is None:
+        return unembed(cfg, model, x)
+    from ..dist.spmd import gather_vocab
+    return gather_vocab(unembed(cfg, model, x, tp), tp, cfg.vocab)

@@ -34,8 +34,8 @@ from torch import nn
 from ..core.codegen import resolve_device
 from ..kernels import ops
 from . import ssm as ssm_lib
-from .common import (apply_norm, blockwise_attention, mlp, moe_layer, rmsnorm,
-                     rope, tensor_parallel)
+from .common import (apply_norm, blockwise_attention, mlp, moe_layer,
+                     partial_matmul, rmsnorm, rope, tensor_parallel)
 
 #: the kind of a family's main stack of layers
 KINDS = {"dense": "dense", "vlm": "dense", "moe": "moe", "ssm": "ssm",
@@ -256,7 +256,7 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def init_params(cfg, generator: torch.Generator, device="cuda",
-                dtype=None) -> LM:
+                dtype=None, keep=None) -> LM:
     """Random parameters at the config's shapes on ``device``: ones for
     ``*_g`` and ``ssm_D_skip``, zeros for biases (``*_b``, ``b*``),
     ``ssm_dt_bias`` and ``ssm_A_log``, ``0.02 · N(0, 1)`` from
@@ -264,8 +264,13 @@ def init_params(cfg, generator: torch.Generator, device="cuda",
     ``init_params``, each drawn in ``cfg.param_dtype`` and, where
     ``dtype`` is given, cast to it at once: the same numbers as drawing
     them all and then casting (``forward.cast_params``), with one leaf
-    in ``param_dtype`` at a time.  The numbers are not the reference's:
-    its ``jax.random`` key draws others."""
+    in ``param_dtype`` at a time.  ``keep(name, leaf)``, where given,
+    returns the part of each leaf to hold (a tensor-parallel serving
+    rank's block, ``dist.sharding.param_block``; ``name`` a top-level
+    leaf's or a layer leaf's own, ``wq``): every leaf is still drawn
+    whole, in the same order, so the blocks hold the unsharded model's
+    numbers.  The numbers are not the reference's: its ``jax.random``
+    key draws others."""
     dev = resolve_device(device)
     drawn = _dtype(cfg.param_dtype)
     dtype = drawn if dtype is None else dtype
@@ -279,7 +284,8 @@ def init_params(cfg, generator: torch.Generator, device="cuda",
         else:
             t = torch.randn(shape, generator=generator, dtype=drawn,
                             device=dev).mul_(0.02)
-        return t.to(dtype)
+        t = t.to(dtype)
+        return t if keep is None else keep(name, t)
 
     shapes = model_shapes(cfg)
     sizes = _stack_sizes(cfg)
@@ -332,8 +338,9 @@ def gqa_attention(cfg, x, p, *, kv_x=None, causal=True, window=0,
     the query heads (the reference's ``tp`` on q's heads), K and V for
     the KV heads those read alone (all of them on each rank that reads
     one: MQA computes its one head everywhere), ``wo``'s rows of those
-    heads; the result is this rank's partial sum, the cache pieces its
-    heads'."""
+    heads, cut from the whole weights or, ``tp.blocks``, the blocks as
+    given; the result is this rank's partial sum (float32 on a serving
+    rank, ``partial_matmul``), the cache pieces its heads'."""
     B, S, _ = x.shape
     dh, Hq, Hkv = cfg.dh, cfg.n_heads, cfg.n_kv_heads
     kv_x = x if kv_x is None else kv_x
@@ -343,10 +350,11 @@ def gqa_attention(cfg, x, p, *, kv_x=None, causal=True, window=0,
         bq, bk, bv = p["bq"], p["bk"], p["bv"]
     if tp is not None:
         (q0, q1), (kv0, kv1) = tp_heads(cfg, tp)
-        cq, ckv = slice(q0 * dh, q1 * dh), slice(kv0 * dh, kv1 * dh)
-        wq, wk, wv, wo = wq[:, cq], wk[:, ckv], wv[:, ckv], wo[cq]
-        if bias:
-            bq, bk, bv = bq[cq], bk[ckv], bv[ckv]
+        if not tp.blocks:
+            cq, ckv = slice(q0 * dh, q1 * dh), slice(kv0 * dh, kv1 * dh)
+            wq, wk, wv, wo = wq[:, cq], wk[:, ckv], wv[:, ckv], wo[cq]
+            if bias:
+                bq, bk, bv = bq[cq], bk[ckv], bv[ckv]
         Hq, Hkv = q1 - q0, kv1 - kv0
     q, k, v = x @ wq, kv_x @ wk, kv_x @ wv
     if bias:
@@ -359,11 +367,11 @@ def gqa_attention(cfg, x, p, *, kv_x=None, causal=True, window=0,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     o = blockwise_attention(q, k, v, causal=causal, window=window)
-    return o.reshape(B, S, Hq * dh) @ wo, (k, v)
+    return partial_matmul(o.reshape(B, S, Hq * dh), wo, tp), (k, v)
 
 
 def decode_gqa_attention(cfg, x, p, cache_k, cache_v, pos, *,
-                         kv_len=None, use_rope=True, prefix=""):
+                         kv_len=None, use_rope=True, prefix="", tp=None):
     """One token's attention at position ``pos`` (a host integer or a 0-d
     int32 device tensor) against the layer's cache ``cache_k``,
     ``cache_v`` (B, S, Hkv, dh), which already holds this step's k and
@@ -372,9 +380,16 @@ def decode_gqa_attention(cfg, x, p, cache_k, cache_v, pos, *,
     read in place, where the reference masks the rest (the rows after
     ``pos``; a hybrid ring's unfilled slots; nothing of a Whisper
     decoder's cross K/V, whose ``kv_valid_len`` of F - 1 keeps all F
-    frames).  ``prefix`` and ``use_rope`` as in ``gqa_attention``."""
+    frames).  ``prefix`` and ``use_rope`` as in ``gqa_attention``.
+    ``tp`` (a serving rank's ``TensorParallel``, ``tp.blocks``): ``p``
+    holds this rank's blocks, the cache its KV heads (``tp_heads``); the
+    result is this rank's partial sum, in float32
+    (``common.partial_matmul``)."""
     B = x.shape[0]
     dh, Hq = cfg.dh, cfg.n_heads
+    if tp is not None:
+        (q0, q1), _ = tp_heads(cfg, tp)
+        Hq = q1 - q0
     q = _split_heads(x @ p[prefix + "wq"], Hq, dh)
     if cfg.qkv_bias and not prefix:
         q = q + p["bq"].reshape(1, 1, Hq, dh)
@@ -382,13 +397,18 @@ def decode_gqa_attention(cfg, x, p, cache_k, cache_v, pos, *,
         q = rope(q, step_positions(pos, B, x.device), cfg.rope_theta)
     o = ops.decode_attention(q.reshape(B, Hq, dh), cache_k, cache_v,
                              pos + 1 if kv_len is None else kv_len)
-    return o.reshape(B, 1, Hq * dh).to(x.dtype) @ p[prefix + "wo"]
+    return partial_matmul(o.reshape(B, 1, Hq * dh).to(x.dtype),
+                          p[prefix + "wo"], tp)
 
 
-def new_kv(cfg, x, p, pos):
-    """This step's k (after rope) and v, (B, 1, Hkv, dh) each."""
+def new_kv(cfg, x, p, pos, tp=None):
+    """This step's k (after rope) and v, (B, 1, Hkv, dh) each; ``tp`` (a
+    serving rank's, ``p`` its blocks): its KV heads (``tp_heads``)."""
     B = x.shape[0]
     dh, Hkv = cfg.dh, cfg.n_kv_heads
+    if tp is not None:
+        _, (kv0, kv1) = tp_heads(cfg, tp)
+        Hkv = kv1 - kv0
     k = _split_heads(x @ p["wk"], Hkv, dh)
     v = _split_heads(x @ p["wv"], Hkv, dh)
     if cfg.qkv_bias:
@@ -541,7 +561,8 @@ def decoder_layer(cfg, x, lp, kind: str = "dense"):
     sequence (B, S/n, D) and so is x'; each norm (K4) runs on it, its
     output is gathered over the sequence (``gather_seq``) for the
     rank's heads and columns, and their partial sums are
-    reduce-scattered back onto the block (``scatter_seq``)."""
+    reduce-scattered back onto the block (``scatter_seq``; in float32
+    on a serving rank, ``common.partial_matmul``)."""
     tp = tensor_parallel()
     if tp is not None:
         if kind != "dense":
@@ -551,10 +572,11 @@ def decoder_layer(cfg, x, lp, kind: str = "dense"):
         from ..dist.spmd import gather_seq, scatter_seq
         h = gather_seq(apply_norm(cfg, x, lp, "ln1"), tp)
         o, cache = gqa_attention(cfg, h, lp, tp=tp)
-        x = x + scatter_seq(o, tp)
+        x = x + scatter_seq(o, tp).to(x.dtype)
         h2 = gather_seq(apply_norm(cfg, x, lp, "ln2"), tp)
         return x + scatter_seq(mlp(cfg, h2, lp.get("wg"), lp["wu"],
-                                   lp["wd"], tp=tp), tp), cache, 0.0
+                                   lp["wd"], tp=tp), tp).to(x.dtype), \
+            cache, 0.0
     h = apply_norm(cfg, x, lp, "ln1")
     if kind == "ssm":
         o, state = ssm_lib.ssm_mixer(cfg, h, ssm_params(lp))

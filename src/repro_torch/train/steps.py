@@ -129,30 +129,63 @@ def make_train_step(cfg, hyper, accum: int = 1, shardings=None):
     return train_step
 
 
-def make_prefill_step(cfg):
+def _under(spmd):
+    """``dist.spmd.running(spmd)``, or no context where ``spmd`` is
+    None."""
+    import contextlib
+    if spmd is None:
+        return contextlib.nullcontext()
+    from ..dist.spmd import running
+    return running(spmd)
+
+
+def make_prefill_step(cfg, spmd=None):
     """serve prefill: (model, batch) -> (last logits, cache); the batch's
     ``patches`` (a VLM) and ``frames`` (an encoder-decoder) where it has
-    them."""
+    them.  ``spmd`` (``serving_spmd``): the step runs under it, split
+    over its ``model`` ranks where ``spmd.tp`` is set."""
 
     def prefill_step(model, batch):
-        return forward.prefill(cfg, model, batch["tokens"],
-                               patches=batch.get("patches"),
-                               frames=batch.get("frames"))
+        with _under(spmd):
+            return forward.prefill(cfg, model, batch["tokens"],
+                                   patches=batch.get("patches"),
+                                   frames=batch.get("frames"))
 
     return prefill_step
 
 
-def make_decode_step(cfg):
+def make_decode_step(cfg, spmd=None):
     """serve decode: (model, cache, tokens, pos) -> (next ids, logits,
     cache).  One new token against the KV cache, the greedy choice
     (``argmax``, the first of equal maxima, as ``jnp.argmax``); ``pos``
-    a host integer or a 0-d int32 device tensor."""
+    a host integer or a 0-d int32 device tensor.  ``spmd`` as in
+    ``make_prefill_step``: every ``model`` rank computes the same whole
+    logits, so the same ids."""
 
     def decode_step(model, cache, tokens, pos):
-        logits, cache = forward.decode_step(cfg, model, cache, tokens, pos)
+        with _under(spmd):
+            logits, cache = forward.decode_step(cfg, model, cache, tokens,
+                                                pos)
         return torch.argmax(logits, dim=-1).to(torch.int32), logits, cache
 
     return decode_step
+
+
+def serving_spmd(cfg, mesh):
+    """The ``dist.spmd.Spmd`` of tensor-parallel serving on ``mesh`` (a
+    ``DeviceMesh`` over the process group, ``launch.mesh.make_host_mesh``):
+    on a ``model`` axis larger than 1 its ``tp`` splits each layer over
+    the ``model`` ranks, the model holding this rank's blocks
+    (``TensorParallel.blocks``; ``tensor_parallel_split(...,
+    serving=True)`` must hold, or this raises); the data-parallel ranks
+    serve their rows of the batch (``dist.sharding.serving_rows``)."""
+    from ..dist.spmd import Spmd, TensorParallel
+    spmd = Spmd(mesh)
+    if spmd.mp > 1:
+        tensor_parallel_split(cfg, spmd.mp, serving=True)
+        spmd.tp = TensorParallel(spmd.model_group, spmd.mp,
+                                 spmd.model_rank, blocks=True)
+    return spmd
 
 
 class DecodeReplay:
@@ -169,9 +202,13 @@ class DecodeReplay:
     Call it after one eager step, which builds and loads the kernels
     (the capture runs nothing).  Without a capture every call runs the
     step eagerly on the same buffers: the same kernels in the same
-    order.  A failed capture raises."""
+    order.  On the card the first step runs on a side stream, the
+    warm-up ``torch.cuda.graph`` asks for.  A failed capture raises.
+    ``spmd``: the steps run under it (``make_decode_step``); on NCCL
+    the capture records the collectives too, gloo's cannot be captured
+    (``launch.serve.generate`` runs them eagerly)."""
 
-    def __init__(self, cfg, model, cache, tokens, pos: int):
+    def __init__(self, cfg, model, cache, tokens, pos: int, spmd=None):
         self.model, self.cache = model, cache
         self.tokens = tokens.to(device=model.device, dtype=torch.int32,
                                 copy=True)
@@ -179,8 +216,9 @@ class DecodeReplay:
         self.logits = None
         self.launches: list[str] = []
         self.captures = 0
-        self._step = make_decode_step(cfg)
+        self._step = make_decode_step(cfg, spmd)
         self._graph = None
+        self._warm = model.device.type != "cuda"
 
     def _advance(self):
         ids, self.logits, _ = self._step(self.model, self.cache, self.tokens,
@@ -189,7 +227,15 @@ class DecodeReplay:
         self.pos.add_(1)
 
     def __call__(self) -> torch.Tensor:
-        if self._graph is None:
+        if not self._warm:
+            here = torch.cuda.current_stream(self.model.device)
+            side = torch.cuda.Stream(self.model.device)
+            side.wait_stream(here)
+            with torch.cuda.stream(side):
+                self._advance()
+            here.wait_stream(side)
+            self._warm = True
+        elif self._graph is None:
             self._advance()
         else:
             self._graph.replay()
@@ -216,18 +262,25 @@ class DecodeReplay:
 _EXPERT = re.compile(r"^layers\.\d+\.(wg|wu|wd)$")
 
 
-def tensor_parallel_split(cfg, mp: int):
+def tensor_parallel_split(cfg, mp: int, serving: bool = False):
     """Raise unless a ``model`` axis of ``mp`` splits ``cfg``'s forward:
     a dense config whose heads and MLP columns ``mp`` divides, each
     rank's query heads whole groups of a KV head's or part of one
     (``ValueError`` naming the dimension); any other family
-    (``NotImplementedError``): both come with a later slice."""
-    if cfg.family != "dense":
+    (``NotImplementedError``): both come with a later slice.
+    ``serving``: the vlm family too, and the decode cache's KV heads
+    must lie as ``dist.sharding.cache_pspecs`` puts them, over ``model``
+    where ``mp`` divides them, else whole, and so be the heads each
+    rank's queries read: ``mp`` divides ``n_kv_heads``, or there is one
+    (``ValueError``)."""
+    families = ("dense", "vlm") if serving else ("dense",)
+    if cfg.family not in families:
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism over a 'model' axis of {mp} "
             f"on the {cfg.family} family comes with a later "
             f"tensor-parallel slice (ROADMAP.md); this one splits the "
-            f"dense family")
+            f"{' and '.join(families)} "
+            f"famil{'ies' if serving else 'y'}")
     for dim, size in (("n_heads", cfg.n_heads), ("d_ff", cfg.d_ff)):
         if size % mp:
             raise ValueError(
@@ -241,6 +294,13 @@ def tensor_parallel_split(cfg, mp: int):
             f"a KV head (n_kv_heads = {cfg.n_kv_heads}) on a 'model' axis "
             f"of {mp}: a rank reading part of two groups comes with a "
             f"later tensor-parallel slice (ROADMAP.md)")
+    if serving and cfg.n_kv_heads > 1 and cfg.n_kv_heads % mp:
+        raise ValueError(
+            f"{cfg.name}: n_kv_heads = {cfg.n_kv_heads} does not split over "
+            f"a 'model' axis of {mp}: the decode cache would hold every KV "
+            f"head on every rank (cache_pspecs), more than its queries "
+            f"read; such a split comes with a later tensor-parallel slice "
+            f"(ROADMAP.md)")
 
 
 def _rows_over_model(cfg, spmd) -> bool:

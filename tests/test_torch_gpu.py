@@ -1290,3 +1290,24 @@ def test_world_one_sharded_step_is_bitwise_the_unsharded(moments, cuda,
     assert float(m["loss"]) == sharded["losses"][2]
     assert [k for k, t in _flatten(fresh) if not torch.equal(
         _bits(t).cpu(), sharded["bits"][k])] == []
+
+
+@pytest.mark.gpu
+def test_tp_serving_on_gloo_ranks_gives_the_one_rank_tokens(cuda, tmp_path):
+    """``serve --arch llama3_8b --smoke --model-parallel 2`` on two gloo
+    ranks that share the card (the launcher serving over the group
+    ``run_ranks`` starts, as ``--nproc 2`` starts one; gloo carries CUDA
+    tensors, and its steps run eagerly): the greedy tokens of the run
+    on one rank, K4 and K5 launched on each rank."""
+    import torch_tp_serve_ranks as ranks
+    from repro_torch.dist.spmd import run_ranks
+    from repro_torch.launch import serve
+    argv = ["--arch", "llama3_8b", "--smoke", "--batch", "2",
+            "--prompt-len", "24", "--gen", "6"]
+    want = serve.main(argv)
+    got = run_ranks(ranks.serve_main, 2, argv + ["--model-parallel", "2"],
+                    backend="gloo", timeout_s=300, tmpdir=str(tmp_path))
+    for tokens, launches in got:
+        np.testing.assert_array_equal(tokens, want)
+        for k in ("K4/rmsnorm_bf16", "K5/split_bf16", "K5/combine_bf16"):
+            assert launches.get(k), (k, launches)

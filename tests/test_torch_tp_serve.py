@@ -1,0 +1,290 @@
+"""The port's tensor-parallel serving of the dense and vlm families
+(``serve --arch --model-parallel``) against the JAX reference on the
+CPU: each rank holds its blocks of the weights and of the decode cache,
+the decode step's row-split outputs are summed over ``model`` in
+float32, and the logits come back whole.
+
+No process group is started in the pytest process: the ranks run in
+processes of their own (``dist.spmd.run_ranks``, one thread a rank, a
+timeout), what they run in ``torch_tp_serve_ranks.py``, which imports no
+JAX; every rank case shares one group of 4 (``suite``), which runs the
+cases on 4 ranks, then the cases on 2 in two groups of 2.
+
+Each case is float32 at the smoke size, B 2, a prompt of 24 (the smoke
+vlm's 16 patches first), 8 greedy tokens, against the reference's
+prefill and its jitted ``make_decode_step`` on one CPU device (as
+``torch_lm_parity.check_greedy``): the greedy tokens equal; the
+prefill's logits and every step's, teacher-forced on the reference's
+tokens, within 1e-4 norm-relative (``TOL["float32"]``: the ranks'
+partial sums add in another order); each rank's cache leaves, shaped
+as ``cache_pspecs`` gives them, within 1e-4 of the unsharded port's
+cache at the rank's heads and rows.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_tp_serve_ranks as ranks
+from repro.configs import smoke_config as ref_smoke_config
+from repro.train import steps as ref_steps
+from repro_torch.dist.sharding import cache_pspecs, rank_param_bytes
+from repro_torch.dist.spmd import TensorParallel, run_ranks
+from repro_torch.launch import serve
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models import cast_params, model_shapes, zero_cache
+from repro_torch.models.convert import params_from_reference
+from torch_lm_parity import TOL, grow_ref, reference_tree
+
+ARCHS = sorted({arch for arch, _ in ranks.CASES.values()})
+
+
+def _ref_run(arch):
+    """The reference's tree (numpy), its greedy tokens (B, G), and the
+    prefill's and each step's logits (G, B, V), float32."""
+    rcfg = dataclasses.replace(ref_smoke_config(arch),
+                               compute_dtype="float32")
+    tree = reference_tree(rcfg)
+    x = ranks.inputs(ranks.config(arch))
+    batch = {"tokens": jnp.asarray(x["prompts"])}
+    if x["patches"] is not None:
+        batch["patches"] = jnp.asarray(x["patches"])
+    logits, cache = ref_steps.make_prefill_step(rcfg)(tree, batch)
+    cache = grow_ref(rcfg, cache, ranks.P, ranks.P + ranks.G)
+    step = jax.jit(ref_steps.make_decode_step(rcfg))
+    tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+    toks, out = [tok], [logits]
+    for i in range(ranks.G - 1):
+        tok, logits, cache = step(tree, cache, tok,
+                                  jnp.int32(ranks.P + i))
+        toks.append(tok)
+        out.append(logits)
+    return (tree, np.stack([np.asarray(t) for t in toks], axis=1),
+            np.stack([np.asarray(a) for a in out]))
+
+
+@pytest.fixture(scope="module")
+def reference():
+    return {arch: _ref_run(arch) for arch in ARCHS}
+
+
+@pytest.fixture(scope="module")
+def unsharded(reference):
+    """The port on one device, the same model and inputs: its tokens and
+    its cache after ``generate``."""
+    out = {}
+    for arch in ARCHS:
+        cfg = ranks.config(arch)
+        model = cast_params(cfg, params_from_reference(
+            cfg, reference[arch][0], "cpu"))
+        x = ranks.inputs(cfg)
+        res = serve.generate(cfg, model, x["prompts"], ranks.G,
+                             patches=x["patches"])
+        out[arch] = {"tokens": res["tokens"],
+                     "cache": {k: v.numpy() for k, v in res["cache"].items()}}
+    return out
+
+
+@pytest.fixture(scope="module")
+def suite(reference, tmp_path_factory):
+    d = tmp_path_factory.mktemp("tp_serve")
+    trees = {arch: r[0] for arch, r in reference.items()}
+    tokens = {arch: r[1] for arch, r in reference.items()}
+    return run_ranks(ranks.serve_suite, 4, trees, tokens, str(d),
+                     timeout_s=300, tmpdir=str(d))
+
+
+def _ranks_of(case):
+    """The suite's ranks that ran a case, in the rank order of its
+    group."""
+    dpn, mp = ranks.CASES[case][1]
+    if dpn * mp == 4:
+        return [0, 1, 2, 3]
+    pair = next(i for i, names in enumerate(ranks.PAIRS) if case in names)
+    return [2 * pair, 2 * pair + 1]
+
+
+def rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@pytest.mark.parametrize("case", list(ranks.CASES))
+def test_tp_serving_matches_the_reference(suite, reference, case):
+    """Every rank's greedy tokens equal the reference's; its prefill and
+    step logits (its rows, teacher-forced) within 1e-4 of the
+    reference's; gloo runs the steps eagerly and says so."""
+    arch, _ = ranks.CASES[case]
+    _, want_tokens, want_logits = reference[arch]
+    for r in _ranks_of(case):
+        got = suite[r][case]
+        np.testing.assert_array_equal(got["tokens"], want_tokens)
+        assert (got["backend"], got["graph"]) == ("gloo", False)
+        lo, hi = got["rows"]
+        for i in range(ranks.G):
+            assert rel(got["logits"][i], want_logits[i, lo:hi]) \
+                <= TOL["float32"], (r, i)
+
+
+@pytest.mark.parametrize("case", list(ranks.CASES))
+def test_each_rank_holds_its_block_of_the_cache(suite, unsharded, case):
+    """Each rank's cache leaves are shaped as ``cache_pspecs`` puts them
+    on the (data, model) mesh (the batch over ``data``, the KV heads over
+    ``model`` where they divide, else whole) and equal the unsharded
+    port's cache there, its rows and heads."""
+    arch, (dpn, mp) = ranks.CASES[case]
+    cfg = ranks.config(arch)
+    full = unsharded[arch]["cache"]
+    mesh = Mesh(("data", "model"), (dpn, mp),
+                (torch.device("cpu"),) * (dpn * mp))
+    specs = cache_pspecs(cfg, {k: v.shape for k, v in full.items()}, mesh)
+    sizes = {"data": dpn, "model": mp}
+    for r in _ranks_of(case):
+        got = suite[r][case]
+        coords = dict(zip(("data", "model"), got["coords"]))
+        assert set(got["cache"]) == set(full)
+        rows = got["rows"][1] - got["rows"][0]
+        tp = TensorParallel(None, mp, coords["model"], blocks=True)
+        assert {k: tuple(t.shape) for k, t in zero_cache(
+            cfg, rows, ranks.P + ranks.G, "cpu", tp).items()} == \
+            {k: a.shape for k, a in got["cache"].items()}
+        for k, want in full.items():
+            for d, entry in enumerate(specs[k].spec):
+                if entry is not None:
+                    want = np.split(want, sizes[entry], axis=d)[
+                        coords[entry]]
+            assert got["cache"][k].shape == want.shape, (k, r)
+            assert rel(got["cache"][k], want) <= TOL["float32"], (k, r)
+        if dpn > 1:
+            assert got["rows"] == (coords["data"], coords["data"] + 1)
+
+
+@pytest.mark.parametrize("case", list(ranks.CASES))
+def test_a_rank_holds_only_its_blocks_of_the_weights(suite, case):
+    """A rank holds its block of each split leaf (the query heads, the
+    KV heads its queries read, the MLP's columns, the vocabulary), the
+    rest whole: its bytes are the model's split ones over ``model``
+    plus the leaves kept whole, as ``rank_param_bytes`` counts them."""
+    arch, (_, mp) = ranks.CASES[case]
+    cfg = ranks.config(arch)
+    whole = rank_param_bytes(cfg, None, 4)
+    # the leaves every rank holds whole: the embedding, the norms, and
+    # Granite-34B's one KV head
+    kept = 4 * (cfg.vocab * cfg.d_model + cfg.d_model
+                + cfg.n_layers * 2 * cfg.d_model)
+    if cfg.n_kv_heads == 1:
+        kept += 4 * cfg.n_layers * 2 * cfg.d_model * cfg.dh
+    for r in _ranks_of(case):
+        got = suite[r][case]
+        assert got["param_bytes"] == got["param_bytes_want"]
+        assert got["param_bytes"] == (whole - kept) // mp + kept
+        shapes = got["leaf_shapes"]
+        heads = cfg.n_heads // mp * cfg.dh
+        assert shapes["layers.0.wq"] == (cfg.d_model, heads)
+        assert shapes["layers.0.wo"] == (heads, cfg.d_model)
+        assert shapes["layers.0.wd"] == (cfg.d_ff // mp, cfg.d_model)
+        assert shapes["unembed"] == (cfg.d_model, cfg.vocab // mp)
+        assert shapes["embed"] == tuple(model_shapes(cfg)["embed"])
+
+
+def test_tp_serve_cli_prints_the_same_tokens(capfd):
+    """``serve --arch --model-parallel 2 --nproc 2`` on the CPU: rank 0
+    prints the reference's three lines (and the mesh), with the tokens
+    of the run on one device."""
+    argv = ["--arch", "llama3_8b", "--smoke", "--device", "cpu", "--batch",
+            "2", "--prompt-len", "24", "--gen", "5"]
+    want = serve.main(argv)
+    capfd.readouterr()
+    got = serve.main(argv + ["--model-parallel", "2", "--nproc", "2"])
+    np.testing.assert_array_equal(got, want)
+    out = capfd.readouterr().out
+    assert out.count("prefill 24 toks x2") == 1
+    assert out.count("decode  4 steps x2") == 1
+    assert "mesh: {'data': 1, 'model': 2}  devices=2  backend=gloo  " \
+        "graph=False" in out
+    assert f"sample generation (first sequence): {want[0].tolist()}" in out
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--arch", "mamba2_2p7b", "--smoke", "--model-parallel", "2",
+      "--nproc", "2"],
+     r"ssm family comes with a later tensor-parallel slice"),
+    (["--arch", "deepseek_v2_lite", "--smoke", "--model-parallel", "2",
+      "--nproc", "2"],
+     r"moe family comes with a later tensor-parallel slice"),
+    (["--arch", "llama3_8b", "--smoke", "--model-parallel", "2",
+      "--prompt-len", "25", "--nproc", "2"],
+     r"a prompt of 25 positions does not split over 2"),
+    (["--arch", "llama3_8b", "--smoke", "--model-parallel", "4",
+      "--nproc", "4"],
+     r"n_kv_heads = 2 does not split over a 'model' axis of 4"),
+    (["--arch", "qwen2_7b", "--model-parallel", "8", "--nproc", "8"],
+     r"n_heads = 28 does not split"),
+    (["--arch", "llama3_8b", "--smoke", "--model-parallel", "2"],
+     r"runs over a torch.distributed process group: start it with "
+     r"--nproc N or torchrun")])
+def test_serve_refuses_what_a_later_tp_slice_brings(flags, match):
+    """Before any rank starts: the ssm and MoE families, a prompt or a
+    KV-head count the axis does not divide, a head count it does not
+    divide; and ``--model-parallel`` with no process group."""
+    with pytest.raises(ValueError, match=match):
+        serve.main(flags + ["--device", "cpu"])
+
+
+def test_vocabulary_blocks_gather_whole():
+    """``gather_vocab``'s cut: the vocabulary's blocks as
+    ``TensorParallel.block`` cuts them, the ranks' padded blocks cut
+    back, joined in rank order (Granite-3's 49155 over 2 and 8)."""
+    from repro_torch.dist import spmd
+    for V, n in ((49155, 2), (49155, 8), (256, 4)):
+        x = torch.arange(V, dtype=torch.float32)[None]
+        blocks = [x[:, slice(*TensorParallel(None, n, r).block(V))]
+                  for r in range(n)]
+        width = -(-V // n)
+        padded = torch.cat([torch.nn.functional.pad(b, (0, width
+                                                        - b.shape[1]))
+                            for b in blocks], 1)
+
+        def fake_gather(t, dim, group, k, padded=padded):
+            return padded
+        real = spmd.all_gather_cat
+        spmd.all_gather_cat = fake_gather
+        try:
+            got = spmd.gather_vocab(blocks[0], TensorParallel(None, n, 0),
+                                    V)
+        finally:
+            spmd.all_gather_cat = real
+        assert torch.equal(got, x), (V, n)
+
+
+def test_costmodel_bounds_a_tp_decode_step():
+    """``costmodel.tp_decode``: Llama-3-8B at B 8 on a ``model`` axis of 2
+    reads half its split weights and half the cache a step, 65
+    collectives (2 a layer and the vocabulary's gather), the float32
+    sums' and the bf16 logits' bytes; memory bounds it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.costmodel import HBM_BW, tp_decode
+    cfg = get_config("llama3_8b")
+    one, two = tp_decode(cfg, 8, 48, 1), tp_decode(cfg, 8, 48, 2)
+    embed = cfg.vocab * cfg.d_model * 2
+    norms = (2 * cfg.n_layers + 1) * cfg.d_model * 2
+    kept = embed + norms
+    assert two["held_weight_bytes"] == \
+        (one["held_weight_bytes"] - kept) // 2 + kept
+    assert two["weight_bytes"] == two["held_weight_bytes"] - embed \
+        + 8 * cfg.d_model * 2
+    assert two["cache_bytes"] * 2 == one["cache_bytes"] == \
+        32 * 8 * 48 * 2 * 8 * 128 * 2
+    assert (one["collectives"], two["collectives"]) == (0, 65)
+    reduce, gather = 64 * 8 * 4096 * 4, 8 * 128256 * 2
+    assert two["collective_payload_bytes"] == reduce + gather
+    assert two["collective_wire_bytes"] == reduce + gather / 2
+    assert two["t_memory_s"] == (two["weight_bytes"]
+                                 + two["cache_bytes"]) / HBM_BW
+    assert two["dominant"] == "memory"
+    assert two["step_lower_bound_s"] == two["t_memory_s"]
+    # two data groups of two: each serves 4 rows
+    assert tp_decode(cfg, 8, 48, 2, 2)["rows"] == 4
