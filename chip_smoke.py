@@ -372,6 +372,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -455,8 +456,10 @@ SHARDED_ROUNDS = 5
 OPEN_LOOP_HZ = 2000.0
 #: float16 through K1: AXPYDOT over 2**24, GEMVER at 4096
 FP16 = ("AXPYDOT", "GEMVER")
-#: candidates the autotune phase measures for each program
-AUTOTUNE_BUDGET = 8
+#: candidates the autotune phase measures for each program (2, not 8:
+#: its candidates' builds and passes took ~190 s of the whole script's
+#: ~1000 s on one H100; at 2 the run stays well inside its time limit)
+AUTOTUNE_BUDGET = 2
 #: the lm phase: ``serve --arch``'s loop at Llama-3-8B's full width and
 #: depth (32 layers, d_model 4096, 32 heads over 8 KV heads, d_ff 14336,
 #: vocab 128256; src/repro/configs/llama3_8b.py:5-8) in bfloat16, for
@@ -2115,27 +2118,87 @@ def spmd_rank(rank: int, world: int, seed: int, ckdir: str) -> dict:
     return out
 
 
+def _tp_run(cfg, hyper, seed: int, batches, mp: int, device_type,
+            host) -> dict:
+    """``SPMD_STEPS`` sharded steps of ``cfg`` over ``make_host_mesh(mp,
+    device_type)``, the forward split over ``model``, the counts set to 0
+    just before and read just after: the run's line (losses, gradient
+    norms, ms a step, peak, launches, this rank's pieces' largest leaf)
+    and, on rank 0, the gathered state held to ``host``, the unsharded
+    run's (``_spmd_compare``)."""
+    import torch
+
+    from repro_torch.ckpt.checkpoint import _leaves
+    from repro_torch.core import LAUNCHES
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import build_state
+    from repro_torch.train import steps as steps_lib
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = build_state(cfg, seed, "cuda")
+    state, sh = steps_lib.shard_train_state(
+        cfg, state, make_host_mesh(mp, device_type))
+    step = steps_lib.make_train_step(cfg, hyper, shardings=sh)
+    LAUNCHES.reset()
+    state, losses, norms, ms = _spmd_steps(step, state, batches, 0,
+                                           SPMD_STEPS)
+    launches = dict(LAUNCHES.by_kernel)
+    sp, tp = sh.spmd, sh.tp
+    big = max(state["params"], key=lambda n: state["params"][n].numel())
+    run = {"mesh": sp.describe(), "losses": losses, "grad_norms": norms,
+           "step_ms": ms, "peak_bytes": torch.cuda.max_memory_allocated()
+           - base, "launches": launches,
+           "largest_piece": [state["params"][big].numel(), big],
+           "tensor_parallel": [tp.n, tp.rank]}
+    full = {k: v for k, v in _leaves(state, sh)}
+    if host is not None:
+        routed = {k for k in host if cfg.n_experts and ROUTED.search(k)}
+        run["vs_unsharded"] = _spmd_compare(
+            full, {k: v for k, v in host.items() if k not in routed}, False)
+        if routed:
+            run["routed_vs_unsharded"] = _spmd_compare(
+                full, {k: host[k] for k in routed}, False)
+    del full, state, step
+    torch.cuda.empty_cache()
+    return run
+
+
+def _unsharded(cfg, hyper, seed: int, batches) -> tuple:
+    """``SPMD_STEPS`` unsharded steps of ``cfg``: (their line, the state
+    on the host by checkpoint key)."""
+    import torch
+
+    from repro_torch.ckpt.checkpoint import _flatten
+    from repro_torch.launch.train import build_state
+    from repro_torch.train import steps as steps_lib
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = build_state(cfg, seed, "cuda")
+    state, losses, norms, ms = _spmd_steps(
+        steps_lib.make_train_step(cfg, hyper), state, batches, 0,
+        SPMD_STEPS)
+    host = {k: t.detach().cpu() for k, t in _flatten(state)}
+    line = {"losses": losses, "grad_norms": norms, "step_ms": ms,
+            "peak_bytes": torch.cuda.max_memory_allocated() - base}
+    del state
+    torch.cuda.empty_cache()
+    return line, host
+
+
 def spmd_tp_rank(rank: int, world: int, seed: int, mps, device_type) -> dict:
     """One rank of phase ``spmd``'s tensor-parallel runs: rank 0 first
     runs the steps of ``spmd_rank``'s configuration unsharded and keeps
     the state on the host; then for each ``model`` axis of ``mps`` every
-    rank runs them sharded over ``make_host_mesh(mp, device_type)``,
-    the forward split over ``model``, the counts set to 0 just before
-    and read just after; rank 0 holds the gathered state to the
-    unsharded one (``_spmd_compare``)."""
+    rank runs them sharded (``_tp_run``)."""
     import dataclasses
 
     import torch
     import torch.distributed as dist
 
-    from repro_torch.ckpt.checkpoint import _flatten, _leaves
     from repro_torch.configs import ShapeConfig, get_config
-    from repro_torch.core import LAUNCHES
     from repro_torch.data import make_batch_fn, shard_batch
-    from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.train import build_state
     from repro_torch.optim import AdamWHyper
-    from repro_torch.train import steps as steps_lib
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg, _ = lm_config(get_config(TRAIN_ARCH), TRAIN_INT8_DEPTH)
@@ -2148,40 +2211,113 @@ def spmd_tp_rank(rank: int, world: int, seed: int, mps, device_type) -> dict:
     out = {"backend": dist.get_backend(), "world": world, "runs": []}
     host = None
     if rank == 0:
-        state = build_state(cfg, seed, "cuda")
-        state, losses, norms, ms = _spmd_steps(
-            steps_lib.make_train_step(cfg, hyper), state, batches, 0,
-            SPMD_STEPS)
-        host = {k: t.detach().cpu() for k, t in _flatten(state)}
-        out["unsharded"] = {"losses": losses, "grad_norms": norms,
-                            "step_ms": ms}
-        del state
-        torch.cuda.empty_cache()
+        out["unsharded"], host = _unsharded(cfg, hyper, seed, batches)
     dist.barrier()
     for mp in mps:
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        state = build_state(cfg, seed, "cuda")
-        state, sh = steps_lib.shard_train_state(
-            cfg, state, make_host_mesh(mp, device_type))
-        step = steps_lib.make_train_step(cfg, hyper, shardings=sh)
-        LAUNCHES.reset()
-        state, losses, norms, ms = _spmd_steps(step, state, batches, 0,
-                                               SPMD_STEPS)
-        launches = dict(LAUNCHES.by_kernel)
-        sp, tp = sh.spmd, sh.tp
-        lo, hi = tp.block(cfg.vocab)
-        rows = TRAIN_BATCH * TRAIN_SEQ // sp.dpn
-        run = {"mesh": sp.describe(), "losses": losses, "grad_norms": norms,
-               "step_ms": ms, "peak_bytes": torch.cuda.max_memory_allocated()
-               - base, "launches": launches,
-               "shapes": {"K7_block": [rows, hi - lo],
-                          "K4": [rows // mp, cfg.d_model]}}
-        full = {k: v for k, v in _leaves(state, sh)}
-        if rank == 0:
-            run["vs_unsharded"] = _spmd_compare(full, host, False)
+        run = _tp_run(cfg, hyper, seed, batches, mp, device_type, host)
+        lo, hi = _vocab_block(cfg.vocab, mp, run["tensor_parallel"][1])
+        rows = TRAIN_BATCH * TRAIN_SEQ // (world // mp)
+        run["shapes"] = {"K7_block": [rows, hi - lo],
+                         "K4": [rows // mp, cfg.d_model]}
         out["runs"].append(run)
-        del full, state, step
+        dist.barrier()
+    return out
+
+
+def _vocab_block(vocab: int, n: int, rank: int) -> tuple:
+    """A tensor-parallel rank's ``[lo, hi)`` of the vocabulary."""
+    from repro_torch.dist.spmd import TensorParallel
+    return TensorParallel(None, n, rank).block(vocab)
+
+
+#: phase ``spmd``'s MoE tensor-parallel runs, ``moe_impl="gspmd"``:
+#: DeepSeek-V2-Lite at full width, depth 2 (its dense first layer and
+#: one MoE layer) in bfloat16, its 64 experts over ``model`` (expert
+#: parallelism); DeepSeek's smoke shapes in float32, B 8 x 64, with its
+#: 4 experts (expert parallelism) and with ``SPMD_TP_MOE_F_EXPERTS``,
+#: which 2 ranks do not divide (the F-split: each rank its block of
+#: every expert's hidden columns); and on four or more cards Grok-1 at
+#: full width, depth 1, over (1, 4)
+SPMD_TP_MOE_F_EXPERTS, SPMD_TP_MOE_SMOKE_SEQ = 3, 64
+SPMD_TP_MOE_GROK_DEPTH = 1
+#: ... their bounds against the unsharded steps: the bfloat16 run's
+#: losses ``SPMD_LOSS_RTOL``, gradient norms ``SPMD_TP_MOE_GNORM_RTOL``,
+#: masters and copy ``SPMD_TP_RTOL`` but the routed leaves'
+#: (``ROUTED``: the routers and the routed experts),
+#: ``SPMD_TP_ROUTED_RTOL``.  A token whose top-k choice flips between
+#: the two runs (bfloat16 streams that differ in their last bits) moves
+#: the router's gradient and two experts' by its whole contribution:
+#: AdamW's normalised step turns that into a change the size of the
+#: step, and the next step's gradient norm moves with it.  The one-card
+#: run's own gradient norm moves by up to 2.5e-4 between runs of one
+#: seed (the backward's scatter-adds are not deterministic).  Five runs
+#: on H100s, (1, 2) on gloo and (1, 4) on NCCL: losses within 1.65e-4,
+#: gradient norms 1.09e-3, routed leaves 6.38e-2, the rest 2.74e-2.
+#: The float32 runs hold the split itself: losses and gradient norms
+#: ``MEAN_RTOL``, every master ``F32_TP_RTOL`` (the CPU tests' bound;
+#: measured up to 7.2e-5)
+SPMD_TP_MOE_GNORM_RTOL = 5e-3
+SPMD_TP_ROUTED_RTOL = 1e-1
+F32_TP_RTOL = 1e-4
+#: the routed leaves of a MoE state, by checkpoint key
+ROUTED = re.compile(r"(^|/)layers\.\d+\.(router|wg|wu|wd)(/|$)")
+
+
+def spmd_tp_moe_rank(rank: int, world: int, seed: int, mp: int,
+                     device_type, impl: str) -> dict:
+    """One rank of phase ``spmd``'s MoE tensor-parallel runs
+    (``SPMD_TP_MOE_*``, under ``moe_impl=impl``): for each configuration
+    rank 0 first runs its steps unsharded and keeps the state on the
+    host (but Grok-1's, which one card does not hold), then every rank
+    runs them sharded over (1, ``mp``) (``_tp_run``)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeConfig, get_config, smoke_config
+    from repro_torch.data import make_batch_fn, shard_batch
+    from repro_torch.optim import AdamWHyper
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hyper = AdamWHyper(lr=TRAIN_LR, warmup_steps=1, total_steps=SPMD_STEPS)
+    deepseek, reduced = lm_config(get_config(SPMD_EP_ARCH), SPMD_EP_DEPTH)
+    smoke = dataclasses.replace(smoke_config(SPMD_EP_ARCH),
+                                compute_dtype="float32", fsdp_only=False)
+    runs = [("deepseek_v2_lite", deepseek, reduced, TRAIN_SEQ, True),
+            ("deepseek_v2_lite_smoke_f32", smoke, None,
+             SPMD_TP_MOE_SMOKE_SEQ, True),
+            ("deepseek_v2_lite_smoke_f32_fsplit", dataclasses.replace(
+                smoke, n_experts=SPMD_TP_MOE_F_EXPERTS), None,
+             SPMD_TP_MOE_SMOKE_SEQ, True)]
+    if mp >= 4:
+        grok, greduced = lm_config(get_config("grok1_314b"),
+                                   SPMD_TP_MOE_GROK_DEPTH)
+        runs.append(("grok1_314b", grok, greduced, TRAIN_SEQ, False))
+    out = {"backend": dist.get_backend(), "world": world, "runs": []}
+    for name, cfg, cut, seq, unsharded in runs:
+        cfg = dataclasses.replace(cfg, moe_impl=impl)
+        get = make_batch_fn(cfg, ShapeConfig("chip", seq, TRAIN_BATCH,
+                                             "train"))
+        batches = [shard_batch(get(i), "cuda") for i in range(SPMD_STEPS)]
+        line, host = None, None
+        if rank == 0 and unsharded:
+            line, host = _unsharded(cfg, hyper, seed, batches)
+        dist.barrier()
+        t0 = time.perf_counter()
+        run = _tp_run(cfg, hyper, seed, batches, mp, device_type, host)
+        run.update({"arch": name, "reduced": cut, "n_layers": cfg.n_layers,
+                    "n_experts": cfg.n_experts, "seq": seq,
+                    "compute_dtype": cfg.compute_dtype,
+                    "expert_split": "E" if cfg.n_experts % mp == 0
+                    else "F", "unsharded": line,
+                    "seconds": time.perf_counter() - t0})
+        lo, hi = _vocab_block(cfg.vocab, mp, run["tensor_parallel"][1])
+        rows = TRAIN_BATCH * seq
+        run["shapes"] = {"K7_block": [rows, hi - lo],
+                         "K4": [rows // mp, cfg.d_model]}
+        out["runs"].append(run)
+        del host, batches
         torch.cuda.empty_cache()
         dist.barrier()
     return out
@@ -2349,6 +2485,8 @@ def spmd_phase(args, failures: list, smi_line: str) -> list:
                             f"steps: {launches}")
     emit(line)
     tp_launches, tp_shapes = spmd_tp_runs(args, world, failures, smi_line)
+    moe_launches, moe_shapes, moe_piece = spmd_tp_moe_runs(
+        args, world, failures, smi_line)
 
     # K4, K6 and K7 at the sharded path's shapes
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -2419,11 +2557,16 @@ def spmd_phase(args, failures: list, smi_line: str) -> list:
            max(e[1] for e in errs))
     del p, gr, m, v, want, lib
     torch.cuda.empty_cache()
+    worst_moe = moe_tp_records(randn, gen, record, moe_launches, moe_shapes,
+                               moe_piece)
     worst = {"K4": rel4, "K7": rel7, "K6": max(e[0] for e in errs),
-             "K7_block": worst7b}
+             "K7_block": worst7b, "moe_tp": worst_moe}
     emit({"phase": "spmd_kernel", "norm_rel_err": worst})
     if not (rel4 <= BF16_KERNEL_RTOL and rel7 <= BF16_KERNEL_RTOL
-            and worst["K6"] <= K6_TRAIN_RTOL):
+            and worst["K6"] <= K6_TRAIN_RTOL
+            and worst_moe["K4"] <= BF16_KERNEL_RTOL
+            and worst_moe["K7_block"] <= MEAN_RTOL
+            and worst_moe["K6"] <= K6_TRAIN_RTOL):
         failures.append(f"spmd kernels against their plain versions: "
                         f"{worst}")
     return records
@@ -2488,6 +2631,154 @@ def spmd_tp_runs(args, world: int, failures: list, smi_line: str):
                                 f"launched: {run['launches']}")
     first = r0["runs"][0]
     return first["launches"], first["shapes"]
+
+
+def spmd_tp_moe_runs(args, world: int, failures: list, smi_line: str,
+                     impl: str = "gspmd"):
+    """Phase ``spmd``'s MoE tensor-parallel runs (``spmd_tp_moe_rank``):
+    on one card two gloo ranks that share it over (1, 2), on more cards
+    NCCL ranks over (1, world).  One ``"spmd_tp_moe"`` line a run, held
+    to its unsharded run (``SPMD_TP_ROUTED_RTOL`` says how; Grok-1,
+    which one card does not hold, to finite losses); a line saying why
+    Grok-1 did not run on fewer than four cards.  ``impl``: the
+    ``moe_impl`` of every run (the phase runs the reference's default;
+    ``"shard_map"`` times ``dist.moe_ep``'s all-to-all beside it).
+    Returns DeepSeek's launches, its kernels' shapes and its largest
+    piece."""
+    import shutil
+    import tempfile
+
+    from repro_torch.dist.spmd import run_ranks
+
+    t0 = time.perf_counter()
+    if world >= 2:
+        nproc, backend, device_type = world, "nccl", None
+    else:
+        nproc, backend, device_type = 2, "gloo", "cuda"
+    d = tempfile.mkdtemp(prefix="spmd_tp_moe_")
+    try:
+        res = run_ranks(spmd_tp_moe_rank, nproc, args.seed, nproc,
+                        device_type, impl, backend=backend, timeout_s=900,
+                        tmpdir=d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    r0 = res[0]
+    for i, run in enumerate(r0["runs"]):
+        line = {"phase": "spmd_tp_moe", "nvidia_smi": smi_line,
+                **{k: v for k, v in run.items()
+                   if k not in ("tensor_parallel",)},
+                "moe_impl": impl, "batch": TRAIN_BATCH,
+                "steps": SPMD_STEPS, "backend": backend, "ranks": nproc,
+                "cards": world,
+                "peak_gb_per_rank": [r["runs"][i]["peak_bytes"] / 1e9
+                                     for r in res],
+                "phase_seconds": time.perf_counter() - t0}
+        un = run["unsharded"]
+        ok = all(map(math.isfinite, run["losses"] + run["grad_norms"]))
+        if un is not None:
+            f32 = run["compute_dtype"] == "float32"
+            bounds = dict(zip(
+                ("losses", "grad_norms", "held", "routed"),
+                (MEAN_RTOL, MEAN_RTOL, F32_TP_RTOL, F32_TP_RTOL) if f32 else
+                (SPMD_LOSS_RTOL, SPMD_TP_MOE_GNORM_RTOL, SPMD_TP_RTOL,
+                 SPMD_TP_ROUTED_RTOL)))
+
+            def held(c):
+                return max(v for k, v in c["max_norm_rel_err_by_part"].items()
+                           if not k.startswith("opt/"))
+            errs = {k: max(abs(a - b) / abs(b) for a, b in zip(run[k], un[k]))
+                    for k in ("losses", "grad_norms")}
+            errs["held"] = held(run["vs_unsharded"])
+            errs["routed"] = held(run["routed_vs_unsharded"])
+            line["max_rel_err"], line["bounds"] = errs, bounds
+            ok = ok and all(errs[k] <= bounds[k] for k in bounds)
+        if backend == "gloo":
+            line["note"] = ("two ranks share the one card over gloo, which "
+                            "stages CUDA tensors through the host: the "
+                            "step time is not NCCL's")
+        emit(line)
+        if not ok:
+            failures.append(f"spmd_tp_moe {run['arch']} {run['mesh']}: "
+                            f"{line}")
+        dt = "f32" if run["compute_dtype"] == "float32" else "bf16"
+        for k in (f"K4/rmsnorm_{dt}", "K6/adamw_f32", f"K7/xent_block_{dt}"):
+            if not run["launches"].get(k):
+                failures.append(f"spmd_tp_moe {run['arch']}: {k} was not "
+                                f"launched: {run['launches']}")
+    if nproc < 4:
+        emit({"phase": "spmd_tp_moe", "arch": "grok1_314b",
+              "skipped": f"{world} card(s): Grok-1 at full width, depth "
+              f"{SPMD_TP_MOE_GROK_DEPTH}, holds ~5.8e9 parameters; one card "
+              f"would need ~70 GB for its masters, copy, int8 moments and "
+              f"gradients, plus whole-weight gathers; it runs over (1, 4) "
+              f"on four or more cards"})
+    first = r0["runs"][0]
+    return first["launches"], first["shapes"], first["largest_piece"]
+
+
+def moe_tp_records(randn, gen, record, launches, shapes, piece) -> dict:
+    """K4, K7's block entry and K6 at the shapes of the MoE
+    tensor-parallel run (``spmd_tp_moe_runs``: DeepSeek-V2-Lite over (1,
+    2) or (1, world)), each against its plain version and timed beside
+    its bound, plain version and library call (``record``, counted from
+    that run's ``launches``); returns their norm-relative errors."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import adamw as k6
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as k4
+    from repro_torch.kernels import softmax_xent as k7
+
+    from repro_torch.core.timing import device_ms, graph_ms
+    T, D = shapes["K4"]
+    x, g = randn(T, D, dtype=torch.bfloat16), 1 + randn(D, scale=0.1)
+    rel4, mabs = tensor_err(k4.rmsnorm(x, g), ref.rmsnorm(x, g))
+    rms_norm = getattr(F, "rms_norm", None)
+    g_lib = g.to(x.dtype)
+    record("K4/rmsnorm_bf16", "MoE TP, every RMSNorm on this rank's "
+           "sequence block", [T, D], lambda: k4.rmsnorm(x, g),
+           lambda: ref.rmsnorm(x, g),
+           None if rms_norm is None else
+           lambda: graph_ms(lambda: rms_norm(x, (D,), g_lib, eps=1e-6))[0],
+           hand_bound("K4/rmsnorm_bf16", (T, D)), mabs, counted=launches)
+    del x, g, g_lib
+    rows, Vb = shapes["K7_block"]
+    blk = randn(rows, Vb, dtype=torch.bfloat16, scale=2.0)
+    lab = torch.randint(0, Vb, (rows,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    lab[TRAIN_SEQ - 1::TRAIN_SEQ] = -1
+    got = k7.softmax_xent_block(blk, lab, 0)
+    want = ref.softmax_xent_block(blk, lab, 0)
+    rel7 = max(tensor_err(a, b)[0] for a, b in zip(got, want))
+    record("K7/xent_block_bf16", "MoE TP, lm_loss over a vocabulary split, "
+           "one rank's block", [rows, Vb],
+           lambda: k7.softmax_xent_block(blk, lab, 0),
+           lambda: ref.softmax_xent_block(blk, lab, 0), None,
+           k7_block_bound(rows, Vb, "bfloat16"),
+           max(tensor_err(a, b)[1] for a, b in zip(got, want)),
+           counted=launches)
+    del blk, lab, got, want
+    n, leaf = piece
+    p, gr = randn(n), randn(n, scale=1e-3)
+    m, v = randn(n, scale=1e-3), randn(n, scale=1e-3).abs_().square_()
+    h = k6.hyper(lr=TRAIN_LR, beta1=0.9, beta2=0.95, eps=1e-8,
+                 weight_decay=0.1, step=SPMD_STEPS, device=p.device)
+    want = ref.adamw(p, gr, m, v, lr=TRAIN_LR, beta1=0.9, beta2=0.95,
+                     eps=1e-8, weight_decay=0.1, step=SPMD_STEPS)
+    errs = [tensor_err(a, b) for a, b in zip(k6.adamw(p, gr, m, v, h),
+                                               want)]
+    lib = fused_adamw_step(p, gr, m, v, SPMD_STEPS)
+    record("K6/adamw_f32", f"MoE TP, this rank's piece of {leaf}", [n],
+           lambda: k6.adamw(p, gr, m, v, h),
+           lambda: ref.adamw(p, gr, m, v, lr=TRAIN_LR, beta1=0.9,
+                             beta2=0.95, eps=1e-8, weight_decay=0.1,
+                             step=SPMD_STEPS),
+           lambda: device_ms(lib), k6_bound(n, "float32"),
+           max(e[1] for e in errs), counted=launches)
+    del p, gr, m, v, want, lib
+    torch.cuda.empty_cache()
+    return {"K4": rel4, "K7_block": rel7, "K6": max(e[0] for e in errs)}
 
 
 def xent_block_checks(args, randn, gen, record, launches, shape,

@@ -67,7 +67,7 @@ def _model_group(mesh):
     return mesh.get_group("model"), mesh.get_local_rank("model")
 
 
-def moe_layer_ep(cfg, x, p, mesh=None):
+def moe_layer_ep(cfg, x, p, mesh=None, shared: bool = True):
     """Expert-parallel MoE layer; a drop-in for ``models.common.moe_layer``
     on the ranks of the mesh's ``model`` axis (module docstring).
 
@@ -75,8 +75,9 @@ def moe_layer_ep(cfg, x, p, mesh=None):
     ``router`` (D, E), ``wg``/``wu`` (E, D, F) and ``wd`` (E, F, D), or on
     the EP path this rank's experts (E / mp, ...), and the shared
     experts' ``wg_s``/``wu_s``/``wd_s``.  Returns (y (G, Tg, D), aux),
-    the same on every model rank.  Raises ``ValueError`` without a mesh
-    or where ``supported(cfg, mesh)`` is False."""
+    the same on every model rank; ``shared=False`` leaves the shared
+    experts out (the caller runs them).  Raises ``ValueError`` without a
+    mesh or where ``supported(cfg, mesh)`` is False."""
     mesh = current_mesh(mesh)
     if mesh is None or not supported(cfg, mesh):
         raise ValueError(
@@ -129,4 +130,4 @@ def moe_layer_ep(cfg, x, p, mesh=None):
 
     out = combine(ye, gs, plan, x.dtype)                # (gc, Tg, D)
     out = spmd_lib.join_rows(out, j, G, group, mp)
-    return shared_experts(cfg, x, out, p), aux
+    return (shared_experts(cfg, x, out, p) if shared else out), aux

@@ -17,9 +17,20 @@ into one: its ``mesh`` is a ``DeviceMesh`` of the same ranks with axes
 ``("data", "model")``, which the FSDP wrapping, the gathers and the
 MoE layers use.  ``rows`` says over which ranks the batch rows differ
 (the MoE load-balance term averages over them); ``tp``, where a dense
-config's forward is split over the ``model`` ranks (``TensorParallel``:
-heads, MLP columns and vocabulary blocks, the residual stream cut along
-the sequence between them, ``gather_seq``/``scatter_seq``).
+or MoE config's forward is split over the ``model`` ranks
+(``TensorParallel``: heads, MLP columns, experts or their hidden
+columns and vocabulary blocks, the residual stream cut along the
+sequence between them, ``gather_seq``/``scatter_seq``).
+
+Two conventions meet on a ``model`` axis.  Under ``TensorParallel`` a
+tensor every rank holds whole (a gathered stream, a weight) takes on
+each rank the gradient of that rank's use of it, and the ranks'
+gradients are summed once (partial gradients).  The expert-parallel
+MoE layer (``dist.moe_ep``) computes its replicated tensors alike on
+every rank and hands each rank the whole gradient.  ``grad_once`` and
+``as_partial`` join them: the first counts a whole gradient on one rank
+only, the second turns a tensor every rank holds whole into the ranks'
+partial sums of it.
 
 Tensor-parallel serving (``launch.serve``, ``train.steps.serving_spmd``)
 runs on the same view, each rank holding only its blocks
@@ -152,10 +163,11 @@ class RowGroup:
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
     """The ``n`` ranks of ``group`` (this one ``rank``) hold the same rows
-    and split a dense layer between them, as the reference's ``tp``
-    constraints place it: each computes its block of the query heads
-    (and the KV heads those read), of the MLP's columns and of the
-    vocabulary, and holds its block of the sequence of the residual
+    and split a dense or MoE layer between them, as the reference's
+    ``tp`` constraints place it: each computes its block of the query
+    heads (and the KV heads those read; MLA's latent whole), of the
+    MLP's columns, of the experts or of their hidden columns, and of
+    the vocabulary, and holds its block of the sequence of the residual
     stream between the layers.  A tensor every rank holds whole takes
     on each rank only the gradient of this rank's use of it (a partial
     gradient); the blocks are disjoint, so the gradients summed over
@@ -185,10 +197,12 @@ class StateShardings:
     ``v`` and ``step``) with a ``Layout`` a leaf (an int8 moment's
     ``{"q", "scale"}`` a ``Layout`` each), on ``spmd``'s ranks.
     ``rows_over_model``: the ``model`` ranks hold different rows too
-    (a dense config with tensor parallelism off), and the gradients are
-    summed over them.  ``tp``: the ``model`` ranks split a dense
-    config's forward (``TensorParallel``); each rank's gradients are
-    partial, and are summed over them too."""
+    (tensor parallelism off), and the gradients are summed over them.
+    ``tp``: the ``model`` ranks split a dense or MoE config's forward
+    (``TensorParallel``); each rank's gradients are partial, and are
+    summed over them too.  ``tree["params_c"]`` is the compute copy's
+    layout: the masters' but whole over ``model`` where the copy holds
+    a leaf whole (``train.steps``)."""
 
     spmd: Spmd
     tree: dict
@@ -361,6 +375,50 @@ class _ScatterSeq(torch.autograd.Function):
     def backward(ctx, g):
         dim, group, n = ctx.meta
         return all_gather_cat(g, dim, group, n), None, None, None
+
+
+class _GradOnce(torch.autograd.Function):
+    """Forward: the identity.  Backward: the gradient on the group's first
+    rank, zeros on the others."""
+
+    @staticmethod
+    def forward(ctx, x, first: bool):
+        ctx.first = first
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.first else torch.zeros_like(g)), None
+
+
+class _AsPartial(torch.autograd.Function):
+    """Forward: ``x`` on the group's first rank, zeros on the others.
+    Backward: the identity."""
+
+    @staticmethod
+    def forward(ctx, x, first: bool):
+        return x.view_as(x) if first else torch.zeros_like(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def grad_once(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """``x``, a tensor every rank of ``tp`` holds whole, whose use on each
+    rank yields the whole gradient (a replicated computation: the MoE
+    load-balance term, ``dist.moe_ep``'s inputs): the gradient passes
+    on the first rank only, so the ranks' partial gradients sum to it
+    once."""
+    return _GradOnce.apply(x, tp.rank == 0)
+
+
+def as_partial(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """``x``, a result every rank of ``tp`` holds whole, as the ranks'
+    partial sums of it (``x`` on the first rank, zeros on the others),
+    for ``scatter_seq`` to add; each rank takes the whole gradient of
+    the sum, which ``x``'s producer holds on every rank."""
+    return _AsPartial.apply(x, tp.rank == 0)
 
 
 def gather_seq(x: torch.Tensor, tp: TensorParallel, dim: int = 1):

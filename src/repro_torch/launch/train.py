@@ -12,6 +12,8 @@ preemption guard around the step loop, exact resume.
         --arch llama3_8b --smoke --device cpu --model-parallel 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_8b \
         --smoke --device cpu --model-parallel 2 --nproc 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch \
+        deepseek_v2_lite --smoke --device cpu --model-parallel 2 --nproc 2
 
 Sharded training runs over a process group: one started by ``torchrun``
 (NCCL on the card, rank r on ``cuda:<LOCAL_RANK>``; gloo with
@@ -20,13 +22,14 @@ Sharded training runs over a process group: one started by ``torchrun``
 ``--mesh host`` (``make_host_mesh(--model-parallel)``), ``pod`` or
 ``multipod`` (``make_production_mesh``: 256 or 512 ranks); the state is
 sharded by ``train.steps.shard_train_state`` and rank 0 prints.  A dense
-config on ``--model-parallel`` > 1 splits its forward over the ``model``
-ranks (tensor and sequence parallelism: heads, MLP columns and the
-vocabulary; the axis must divide ``n_heads`` and ``d_ff``), or with
-``--no-tensor-parallel`` trains as pure FSDP over the whole mesh; a MoE
-config runs its experts over ``model`` with ``--moe-impl shard_map``.
-The other families under tensor parallelism come with a later slice and
-raise.  Without a process group (and with ``--mesh host
+or MoE config on ``--model-parallel`` > 1 splits its forward over the
+``model`` ranks (tensor and sequence parallelism: heads, MLP columns,
+the experts or their hidden columns, and the vocabulary; the axis must
+divide ``n_heads`` and the columns it cuts), or with
+``--no-tensor-parallel`` trains as pure FSDP over the whole mesh (a
+MoE config with ``--moe-impl shard_map`` keeps its experts over
+``model``).  The other families under tensor parallelism come with a
+later slice and raise.  Without a process group (and with ``--mesh host
 --model-parallel 1``) it trains on one device.
 
 ``--ckpt-dir`` saves the state every ``--ckpt-every`` steps (at step + 1)
@@ -64,21 +67,14 @@ def build_state(cfg, seed: int, device) -> dict:
 def _refuse(args, cfg):
     """Raise, before any rank starts, for what a later tensor-parallel
     slice brings: with tensor parallelism on a ``model`` axis, a family
-    other than dense, or a dense config whose heads or MLP columns the
-    axis does not divide (``train.steps.tensor_parallel_split``); and
-    ``moe_impl="gspmd"`` on one."""
+    other than dense and MoE, or a split the axis does not divide (heads,
+    MLP columns, experts' hidden columns: ``train.steps.
+    tensor_parallel_split``)."""
     if args.model_parallel <= 1:
         return
     from repro_torch.models.common import tensor_parallel_enabled
     from repro_torch.train.steps import tensor_parallel_split
-    if cfg.n_experts:
-        if cfg.moe_impl != "shard_map":
-            raise ValueError(
-                f"--model-parallel {args.model_parallel} with moe_impl="
-                f"{cfg.moe_impl!r}: the expert split GSPMD places comes "
-                f"with a later tensor-parallel slice of dist (ROADMAP.md); "
-                f"--moe-impl shard_map runs the experts over 'model'")
-    elif tensor_parallel_enabled() and not args.no_tensor_parallel:
+    if tensor_parallel_enabled() and not args.no_tensor_parallel:
         try:
             tensor_parallel_split(cfg, args.model_parallel)
         except NotImplementedError as e:

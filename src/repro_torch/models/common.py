@@ -26,7 +26,10 @@ boundaries are collectives with their gradients
 (``dist.spmd.gather_seq`` before a block, ``scatter_seq`` after it).
 A serving rank holds only its blocks (``TensorParallel.blocks``): the
 layers use them as they are, and the decode step sums the row-split
-outputs in float32 (``dist.spmd.sum_over_model``).
+outputs in float32 (``dist.spmd.sum_over_model``).  ``moe_layer``'s
+``tp`` places the experts as the reference's ``gspmd`` constraints do:
+over ``model`` along E where the axis divides E, else each expert's
+hidden columns (F) over it, ``ye`` a partial sum.
 """
 from __future__ import annotations
 
@@ -317,7 +320,7 @@ def dispatch(cfg, idx):
     return C, se, order, counts, starts, rank, rank < C
 
 
-def moe_layer(cfg, x, p):
+def moe_layer(cfg, x, p, tp=None):
     """x: (G, Tg, D) tokens in groups; p: ``router`` (D, E), ``wg``/``wu``
     (E, D, F), ``wd`` (E, F, D), and the shared expert ``wg_s``/``wu_s``/
     ``wd_s`` where ``cfg.n_shared_experts``.  Returns (out (G, Tg, D),
@@ -337,31 +340,68 @@ def moe_layer(cfg, x, p):
     k contributions in a fixed order after the sort is inverted: no
     scatter-add, so a repeated call is bitwise equal.  ``aux`` is the
     Switch-style load-balance term, E · Σ_e mean prob_e · share of
-    first choices_e."""
+    first choices_e.
+
+    ``tp`` (a ``TensorParallel``; x the same tokens on every rank): the
+    routing, sort, capacity and dispatch run alike on every rank, and
+    the experts are split as the reference's constraints place them.
+    Where the ranks divide E (expert parallelism) each runs its block
+    of the experts (``TensorParallel.block``) on their slots alone and
+    combines their contributions; otherwise each runs its block of
+    every expert's hidden columns (F), whose ``ye`` are partial sums.
+    The expert leaves come whole (cut here) or as this rank's block
+    already (a sharded step's, told apart by their shape).  The shared
+    experts are ``mlp``'s split; the result is this rank's partial sum
+    of the layer's output, for ``dist.spmd.scatter_seq`` to add, and the
+    load-balance term's gradient is counted once (``grad_once``)."""
     probs, gate, idx = route(cfg, x, p["router"])
-    xe, plan = expert_batch(cfg, x, idx)
-    ye = expert_ffn(cfg, xe, p["wg"], p["wu"], p["wd"])
-    out = combine(ye, gate, plan, x.dtype)
-    return shared_experts(cfg, x, out, p), load_balance(cfg, probs, idx)
+    ws = [p["wg"], p["wu"], p["wd"]]
+    if tp is None:
+        xe, plan = expert_batch(cfg, x, idx)
+        ye = expert_ffn(cfg, xe, *ws)
+        out = combine(ye, gate, plan, x.dtype)
+        return shared_experts(cfg, x, out, p), load_balance(cfg, probs, idx)
+    from ..dist.spmd import grad_once
+    E, F = cfg.n_experts, cfg.d_ff_moe
+    if E % tp.n == 0:                       # expert parallelism
+        experts = tp.block(E)
+        e0, e1 = experts
+        ws = [w[e0:e1] if w.shape[0] == E else w for w in ws]
+    else:                                   # the experts' hidden columns
+        experts = None
+        f0, f1 = tp.block(F)
+        wg, wu, wd = ws
+        ws = [w[..., f0:f1] if w.shape[-1] == F else w for w in (wg, wu)] \
+            + [wd[:, f0:f1] if wd.shape[1] == F else wd]
+    xe, plan = expert_batch(cfg, x, idx, experts)
+    ye = expert_ffn(cfg, xe, *ws)
+    out = combine(ye, gate, plan, x.dtype, experts)
+    aux = grad_once(load_balance(cfg, probs, idx), tp)
+    return shared_experts(cfg, x, out, p, tp), aux
 
 
-def expert_batch(cfg, x, idx):
+def expert_batch(cfg, x, idx, experts=None):
     """The (G, E, C, D) expert batch of tokens x (G, Tg, D) routed to
     experts ``idx`` (G, Tg, k): slot (e, c) holds the sorted assignment
     at expert e's start + c, zeros past its count; and the plan that
     ``combine`` reads (C, the sort, each assignment's rank and whether
-    it is kept)."""
+    it is kept).  ``experts`` (``[e0, e1)``): those experts' slots
+    alone, (G, e1 - e0, C, D)."""
     G, Tg, D = x.shape
     E, k = cfg.n_experts, cfg.topk
     C, se, order, counts, starts, rank, keep = dispatch(cfg, idx)
+    if experts is not None:
+        counts, starts = (t[:, experts[0]:experts[1]] for t in (counts,
+                                                                starts))
+    El = counts.shape[1]
     A = Tg * k
     c = torch.arange(C, device=x.device)
-    src = (starts[..., None] + c).reshape(G, E * C)       # (G, E·C)
-    filled = (c < counts[..., None]).reshape(G, E * C)
+    src = (starts[..., None] + c).reshape(G, El * C)      # (G, El·C)
+    filled = (c < counts[..., None]).reshape(G, El * C)
     tok = (order // k).gather(1, src.clamp_max(A - 1))
     xe = torch.where(filled[..., None],
-                     x.gather(1, tok[..., None].expand(G, E * C, D)), 0)
-    return xe.reshape(G, E, C, D), (C, k, se, order, rank, keep)
+                     x.gather(1, tok[..., None].expand(G, El * C, D)), 0)
+    return xe.reshape(G, El, C, D), (C, k, se, order, rank, keep)
 
 
 def expert_ffn(cfg, xe, wg, wu, wd):
@@ -375,32 +415,38 @@ def expert_ffn(cfg, xe, wg, wu, wd):
     return torch.einsum("gecf,efd->gecd", h, wd)
 
 
-def combine(ye, gate, plan, dtype):
+def combine(ye, gate, plan, dtype, experts=None):
     """Back to token order: assignment (t, j) reads its slot's output of
     ye (G, E, C, D), dropped ones nothing, weighted by its gate; each
-    token sums its k contributions in a fixed order."""
+    token sums its k contributions in a fixed order.  ``experts`` (``[e0,
+    e1)``, ye those experts' slots, ``expert_batch``): the assignments
+    to other experts contribute nothing."""
     C, k, se, order, rank, keep = plan
-    G, E, _, D = ye.shape
+    G, El, _, D = ye.shape
     A = order.shape[1]
-    ye = ye.reshape(G, E * C, D)
+    ye = ye.reshape(G, El * C, D)
     pos = torch.arange(A, device=ye.device)
     inv = torch.empty_like(order).scatter_(1, order, pos.expand(G, A))
-    slot = (se * C + torch.where(keep, rank, 0)).gather(1, inv)
-    kept = keep.gather(1, inv)
+    if experts is None:
+        slot = se * C + torch.where(keep, rank, 0)
+    else:
+        keep = keep & (se >= experts[0]) & (se < experts[1])
+        slot = torch.where(keep, (se - experts[0]) * C + rank, 0)
+    slot, kept = slot.gather(1, inv), keep.gather(1, inv)
     contrib = ye.gather(1, slot[..., None].expand(G, A, D))
     contrib = torch.where(kept[..., None], contrib, 0) \
         * gate.reshape(G, A, 1).to(dtype)
     return contrib.reshape(G, A // k, k, D).to(torch.float32).sum(2).to(dtype)
 
 
-def shared_experts(cfg, x, out, p):
+def shared_experts(cfg, x, out, p, tp=None):
     """``out`` plus the shared experts' MLP on x where the config has
-    them."""
+    them (``tp``: this rank's block of their columns, ``mlp``)."""
     if not cfg.n_shared_experts:
         return out
     G, Tg, D = x.shape
     return out + mlp(cfg, x.reshape(G * Tg, D), p.get("wg_s"), p["wu_s"],
-                     p["wd_s"]).reshape(G, Tg, D)
+                     p["wd_s"], tp).reshape(G, Tg, D)
 
 
 def load_balance(cfg, probs, idx):

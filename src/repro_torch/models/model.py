@@ -35,7 +35,8 @@ from ..core.codegen import resolve_device
 from ..kernels import ops
 from . import ssm as ssm_lib
 from .common import (apply_norm, blockwise_attention, mlp, moe_layer,
-                     partial_matmul, rmsnorm, rope, tensor_parallel)
+                     partial_matmul, rmsnorm, rope, shared_experts,
+                     tensor_parallel)
 
 #: the kind of a family's main stack of layers
 KINDS = {"dense": "dense", "vlm": "dense", "moe": "moe", "ssm": "ssm",
@@ -418,29 +419,44 @@ def new_kv(cfg, x, p, pos, tp=None):
     return k, v
 
 
-def mla_attention(cfg, x, p):
+def mla_attention(cfg, x, p, tp=None):
     """DeepSeek's MLA over the sequence from position 0 (prefill), in its
     expanded form: returns (out, (c_kv, k_rope)), the latent (B, S, r)
     and the rope key (B, S, rd) for the cache.  ``k_rope`` is the
     projection *before* rope, as the reference returns it; the attention
     itself uses the roped key, and ``decode_step`` writes roped keys (a
-    reference behaviour, ``ROADMAP.md`` §3)."""
+    reference behaviour, ``ROADMAP.md`` §3).
+
+    ``tp`` (a ``TensorParallel``): this rank's block of the heads, as
+    GQA's (the reference constrains none of MLA's own): its columns of
+    ``wq``, ``w_uk`` and ``w_uv`` and its rows of ``wo``; the latent
+    ``c_kv`` and the rope key, which every head reads, from the whole
+    ``w_dkv`` and ``w_kr`` on every rank.  The result is this rank's
+    partial sum."""
     B, S, _ = x.shape
     Hq = cfg.n_heads
     nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    q = _split_heads(x @ p["wq"], Hq, nd + rd)
+    wq, w_uk, w_uv, wo = p["wq"], p["w_uk"], p["w_uv"], p["wo"]
+    if tp is not None:
+        h0, h1 = tp.block(Hq)
+        if not tp.blocks:
+            wq = wq[:, h0 * (nd + rd):h1 * (nd + rd)]
+            w_uk, w_uv = w_uk[:, h0 * nd:h1 * nd], w_uv[:, h0 * vd:h1 * vd]
+            wo = wo[h0 * vd:h1 * vd]
+        Hq = h1 - h0
+    q = _split_heads(x @ wq, Hq, nd + rd)
     q_nope, q_rope = q[..., :nd], q[..., nd:]
     c_kv = x @ p["w_dkv"]
     k_rope = x @ p["w_kr"]
-    k_nope = _split_heads(c_kv @ p["w_uk"], Hq, nd)
-    v = _split_heads(c_kv @ p["w_uv"], Hq, vd)
+    k_nope = _split_heads(c_kv @ w_uk, Hq, nd)
+    v = _split_heads(c_kv @ w_uv, Hq, vd)
     positions = torch.arange(S, device=x.device)[None, :]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
     k_rope_r = rope(k_rope[..., None, :], positions, cfg.rope_theta)
     qf = torch.cat([q_nope, q_rope], -1)
     kf = torch.cat([k_nope, k_rope_r.expand(B, S, Hq, rd)], -1)
     o = blockwise_attention(qf, kf, v, scale=(nd + rd) ** -0.5)
-    return o.reshape(B, S, Hq * vd) @ p["wo"], (c_kv, k_rope)
+    return partial_matmul(o.reshape(B, S, Hq * vd), wo, tp), (c_kv, k_rope)
 
 
 def mla_decode_attention(cfg, x, p, cache_ckv, cache_kr, pos):
@@ -508,35 +524,48 @@ def moe_groups(T: int) -> int:
     return groups // n
 
 
-def _moe_or_mlp(cfg, x, p, is_moe: bool):
+def _moe_or_mlp(cfg, x, p, is_moe: bool, tp=None):
     """The layer's feed-forward on x (B, S, D): the MLP, or the MoE layer
     over the B·S tokens in their groups (``moe_groups``); returns (out,
     aux).  ``moe_impl="shard_map"`` runs ``dist.moe_ep.moe_layer_ep``
     where ``moe_ep.supported`` holds on the ambient mesh, ``moe_layer``
-    otherwise (off a mesh, or on a ``model`` axis of 1), as the
-    reference; ``moe_layer`` on a ``model`` axis larger than 1 comes
-    with a later tensor-parallel slice and raises."""
+    otherwise (off a mesh, or on a ``model`` axis that does not divide
+    and is not divided by the expert count), as the reference.
+
+    ``tp`` (a sharded step's ``TensorParallel``; x the gathered sequence,
+    the same on every rank): the result is this rank's partial sum.
+    ``moe_layer`` splits the experts itself; around ``moe_layer_ep``,
+    which hands every rank the whole gradient of what it holds whole,
+    its token groups and router count their gradient once
+    (``dist.spmd.grad_once``; its expert leaves too where it holds them
+    whole, the replica path), its output is made a partial sum
+    (``as_partial``), and the shared experts are ``mlp``'s split.  A
+    ``model`` axis larger than 1 with no ``TensorParallel`` (tensor
+    parallelism off) runs ``moe_layer`` whole on each rank's rows."""
     if not is_moe:
-        return mlp(cfg, x, p.get("wg"), p["wu"], p["wd"]), 0.0
+        return mlp(cfg, x, p.get("wg"), p["wu"], p["wd"], tp=tp), 0.0
     B, S, D = x.shape
     T = B * S
     groups = moe_groups(T)
     xg = x.reshape(groups, T // groups, D)
     from ..dist import moe_ep
     if cfg.moe_impl == "shard_map" and moe_ep.supported(cfg):
-        y, aux = moe_ep.moe_layer_ep(cfg, xg, p)
+        if tp is None:
+            y, aux = moe_ep.moe_layer_ep(cfg, xg, p)
+            return y.reshape(B, S, D), aux
+        from ..dist.spmd import as_partial, grad_once
+        # experts held whole (cut by ``moe_layer_ep``, or the replica
+        # path) get the whole gradient on every rank; a rank's own
+        # experts (a sharded step's leaves) get theirs on it alone
+        held = {k: grad_once(p[k], tp) if k == "router"
+                or p[k].shape[0] == cfg.n_experts else p[k]
+                for k in ("router", "wg", "wu", "wd")}
+        y, aux = moe_ep.moe_layer_ep(cfg, grad_once(xg, tp), held,
+                                     shared=False)
+        y = shared_experts(cfg, xg, as_partial(y, tp), p, tp)
         return y.reshape(B, S, D), aux
-    from ..dist.sharding import current_mesh, mesh_axis_sizes
-    mesh = current_mesh()
-    mp = mesh_axis_sizes(mesh).get("model", 1) if mesh is not None else 1
-    if mp > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: moe_impl={cfg.moe_impl!r} with {cfg.n_experts} "
-            f"experts on a 'model' axis of {mp}: the expert split GSPMD "
-            f"places comes with a later tensor-parallel slice of dist "
-            f"(ROADMAP.md); moe_impl='shard_map' runs it where the expert "
-            f"count and the axis divide")
-    y, aux = moe_layer(cfg, xg, p)
+    y, aux = moe_layer(cfg, xg, p) if tp is None else \
+        moe_layer(cfg, xg, p, tp)
     return y.reshape(B, S, D), aux
 
 
@@ -556,27 +585,27 @@ def decoder_layer(cfg, x, lp, kind: str = "dense"):
     aux): (k, v), MLA's (c_kv, k_rope), the SSD mixer's (final state,)
     or a hybrid's (k, v, final state).
 
-    On a sharded step's ``TensorParallel`` (a dense layer), the
-    reference's sequence parallelism: x is this rank's block of the
-    sequence (B, S/n, D) and so is x'; each norm (K4) runs on it, its
-    output is gathered over the sequence (``gather_seq``) for the
-    rank's heads and columns, and their partial sums are
+    On a sharded step's ``TensorParallel`` (a dense or MoE layer, GQA or
+    MLA), the reference's sequence parallelism: x is this rank's block
+    of the sequence (B, S/n, D) and so is x'; each norm (K4) runs on it,
+    its output is gathered over the sequence (``gather_seq``) for the
+    rank's heads, columns or experts, and their partial sums are
     reduce-scattered back onto the block (``scatter_seq``; in float32
     on a serving rank, ``common.partial_matmul``)."""
     tp = tensor_parallel()
     if tp is not None:
-        if kind != "dense":
+        if kind not in ("dense", "moe"):
             raise NotImplementedError(
                 f"{cfg.name}: a {kind} layer under tensor parallelism comes "
                 f"with a later slice (ROADMAP.md)")
         from ..dist.spmd import gather_seq, scatter_seq
         h = gather_seq(apply_norm(cfg, x, lp, "ln1"), tp)
-        o, cache = gqa_attention(cfg, h, lp, tp=tp)
+        attention = mla_attention if cfg.kv_lora_rank else gqa_attention
+        o, cache = attention(cfg, h, lp, tp=tp)
         x = x + scatter_seq(o, tp).to(x.dtype)
         h2 = gather_seq(apply_norm(cfg, x, lp, "ln2"), tp)
-        return x + scatter_seq(mlp(cfg, h2, lp.get("wg"), lp["wu"],
-                                   lp["wd"], tp=tp), tp).to(x.dtype), \
-            cache, 0.0
+        m, aux = _moe_or_mlp(cfg, h2, lp, kind == "moe", tp)
+        return x + scatter_seq(m, tp).to(x.dtype), cache, aux
     h = apply_norm(cfg, x, lp, "ln1")
     if kind == "ssm":
         o, state = ssm_lib.ssm_mixer(cfg, h, ssm_params(lp))

@@ -28,11 +28,13 @@ float32 moment lies as its parameter does.  An int8 moment's ``q`` and
 ``scale`` lie by their own shapes (the reference's ``opt_pspecs``), so
 they may be cut on another dim, or at other elements, than the
 parameter; and the 128-blocks are the global last dim's.  Where the
-parameter's, ``q``'s and ``scale``'s cuts are the same dim and that is
-not the last, each piece holds whole blocks and the update is local;
-otherwise the moment is gathered over the data-parallel ranks,
-dequantized, cut as the parameter, updated, gathered again and
-quantized on the global block grid, each rank keeping its pieces.
+parameter's, ``q``'s and ``scale``'s cuts over the data-parallel ranks,
+and over ``model``, are the same dim and that is not the last, each
+piece holds whole blocks and the update is local; otherwise the moment
+is gathered over the data-parallel ranks (and over ``model`` where its
+cut there differs), dequantized, cut as the parameter, updated,
+gathered again and quantized on the global block grid, each rank
+keeping its pieces.
 """
 from __future__ import annotations
 
@@ -150,35 +152,42 @@ def _update(p, g, m, v, h: AdamWHyper, lr, step, hvec):
     return tuple(o.reshape(p.shape) for o in outs)
 
 
-def _aligned(lp, lq, ls, spmd) -> bool:
+def _aligned(lp, lq, ls, spmd, dim: str) -> bool:
     """Do an int8 moment's ``q`` and ``scale`` pieces (layouts ``lq``,
-    ``ls``) hold whole 128-blocks of the parameter's piece (``lp``)?"""
-    if spmd.dpn == 1:
+    ``ls``) hold whole 128-blocks of the parameter's piece (``lp``) over
+    the ranks of ``dim`` (``"dp_dim"`` or ``"model_dim"``)?"""
+    if (spmd.dpn if dim == "dp_dim" else spmd.mp) == 1:
         return True
-    last = len(lp.shape) - 1
-    return lp.dp_dim == lq.dp_dim == ls.dp_dim and lp.dp_dim != last
+    cut = getattr(lp, dim)
+    return cut == getattr(lq, dim) == getattr(ls, dim) \
+        and cut != len(lp.shape) - 1
 
 
 def _moment_in(m, lay, lp, spmd, last: int):
     """An int8 moment (sqrt-domain ``v`` squared by the caller) as float32
     on the parameter's piece."""
-    if _aligned(lp, lay["q"], lay["scale"], spmd):
+    over_model = not _aligned(lp, lay["q"], lay["scale"], spmd, "model_dim")
+    if not over_model and _aligned(lp, lay["q"], lay["scale"], spmd,
+                                   "dp_dim"):
         return dequantize(m["q"], m["scale"], last)
-    full = dequantize(lay["q"].gather(m["q"], spmd, over_model=False),
-                      lay["scale"].gather(m["scale"], spmd, over_model=False),
-                      lp.shape[-1])
-    return lp.local(full, spmd, over_model=False)
+    full = dequantize(
+        lay["q"].gather(m["q"], spmd, over_model=over_model),
+        lay["scale"].gather(m["scale"], spmd, over_model=over_model),
+        lp.shape[-1])
+    return lp.local(full, spmd, over_model=over_model)
 
 
 def _moment_out(x, lay, lp, spmd) -> dict:
     """A float32 moment on the parameter's piece quantized on the global
     block grid, as the rank's ``q`` and ``scale`` pieces."""
-    if _aligned(lp, lay["q"], lay["scale"], spmd):
+    over_model = not _aligned(lp, lay["q"], lay["scale"], spmd, "model_dim")
+    if not over_model and _aligned(lp, lay["q"], lay["scale"], spmd,
+                                   "dp_dim"):
         q, sc = quantize(x)
         return {"q": q, "scale": sc}
-    q, sc = quantize(lp.gather(x, spmd, over_model=False))
-    return {"q": lay["q"].local(q, spmd, over_model=False),
-            "scale": lay["scale"].local(sc, spmd, over_model=False)}
+    q, sc = quantize(lp.gather(x, spmd, over_model=over_model))
+    return {"q": lay["q"].local(q, spmd, over_model=over_model),
+            "scale": lay["scale"].local(sc, spmd, over_model=over_model)}
 
 
 def apply_adamw(cfg, h: AdamWHyper, params: dict, grads: dict, opt: dict,

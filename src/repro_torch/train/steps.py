@@ -12,38 +12,52 @@ shardings=)``) runs the reference's FSDP layout on the ranks of a
 * the float32 masters and the moments hold each rank's piece of the
   reference's spec (``dist.sharding.param_pspecs``/``opt_pspecs``): the
   data-parallel axes (``pod`` x ``data``, flattened) cut the dim the
-  spec gives them.  A dense config's spec (``fsdp_only``) replicates
-  every leaf over ``model``; the ``model`` entries of a MoE config's
-  spec wait for a later tensor-parallel slice, so those leaves are
-  replicated over ``model`` too; on the expert-parallel path
-  (``moe_impl="shard_map"``, ``n_experts % model == 0``) the expert
-  leaves (E, ...) are cut over ``model`` along E;
+  spec gives them, and ``model`` the second dim a MoE config's spec
+  gives it (a dense config's spec, ``fsdp_only``, replicates every leaf
+  over ``model``).  The expert leaves (E, ...) a tensor-parallel MoE
+  step splits are cut over ``model`` where it computes with them
+  instead: along E where the axis divides the experts (either
+  ``moe_impl``; ``shard_map``'s expert-parallel path without tensor
+  parallelism too), along their hidden dim F for ``moe_layer``'s
+  F-split; an int8 moment of such a leaf cut along its last dim lies as
+  its own spec says;
 * the compute copy ``params_c`` is FSDP2 (``fully_shard``, one unit a
   layer and the root), each parameter ``Shard(d)`` on the same dim over
   the data-parallel ranks, a leaf the spec replicates left out of FSDP
-  (its gradient all-reduced); gradients are summed, never averaged;
+  (its gradient all-reduced); gradients are summed, never averaged.
+  Over ``model`` it holds a rank's own piece of a split expert leaf and
+  every other leaf whole: after the update the masters' pieces cut
+  over ``model`` are gathered into it (one all-gather a leaf a step),
+  and its gradients are reduce-scattered onto them;
 * the batch (the global batch on every rank) is laid out as
   ``batch_pspecs`` lays it: the rows over the data-parallel ranks where
   they divide, replicated otherwise.  A dense config with tensor
   parallelism off (``set_tensor_parallel(False)``) runs its rows over
   the ``model`` ranks as well (the reference's ``dp`` absorbing
   ``model``), its gradients summed over ``model`` too;
-* a dense config with tensor parallelism on (the default) splits its
-  forward over the ``model`` ranks (``dist.spmd.TensorParallel``): each
-  takes its block of the query heads, the MLP's columns and the
-  vocabulary from the gathered weights, the residual stream is cut
-  along the sequence between the layers, and the loss comes from K7's
-  block entry (``models.forward.lm_loss``).  The ``model`` ranks hold
-  the same rows; each one's gradients are partial (its blocks, its
-  block of the sequence) and are summed over ``model`` once;
+* a dense or MoE config with tensor parallelism on (the default)
+  splits its forward over the ``model`` ranks
+  (``dist.spmd.TensorParallel``): each takes its block of the query
+  heads (GQA's or MLA's), the MLP's columns (a MoE config's dense
+  layers' and shared experts' too), the experts or their hidden columns
+  (``models.common.moe_layer``; ``moe_impl="shard_map"``:
+  ``dist.moe_ep``'s all-to-all over the same ranks) and the vocabulary,
+  the residual stream is cut along the sequence between the layers, and
+  the loss comes from K7's block entry (``models.forward.lm_loss``).
+  The ``model`` ranks hold the same rows; each one's gradients are
+  partial (its blocks, its block of the sequence) and are summed over
+  ``model`` once;
 * each rank's loss is its rows' masked sum over the whole batch's label
   count, plus the load-balance term averaged over the ranks' rows,
   divided by the number of ranks holding the same rows with the same
   forward, so the summed gradients are the reference's.
 
-``moe_impl="gspmd"`` on a ``model`` axis larger than 1, and a family
-other than dense with tensor parallelism on one, raise: they come with
-a later tensor-parallel slice.
+A family other than dense and MoE with tensor parallelism on a
+``model`` axis larger than 1, and a split the axis does not divide,
+raise: they come with a later tensor-parallel slice.  With tensor
+parallelism off a MoE config trains its rows over ``model`` (the
+experts whole on every rank) or, on ``moe_ep``'s path, its experts
+over ``model``.
 """
 from __future__ import annotations
 
@@ -263,32 +277,43 @@ _EXPERT = re.compile(r"^layers\.\d+\.(wg|wu|wd)$")
 
 
 def tensor_parallel_split(cfg, mp: int, serving: bool = False):
-    """Raise unless a ``model`` axis of ``mp`` splits ``cfg``'s forward:
-    a dense config whose heads and MLP columns ``mp`` divides, each
-    rank's query heads whole groups of a KV head's or part of one
-    (``ValueError`` naming the dimension); any other family
-    (``NotImplementedError``): both come with a later slice.
-    ``serving``: the vlm family too, and the decode cache's KV heads
-    must lie as ``dist.sharding.cache_pspecs`` puts them, over ``model``
-    where ``mp`` divides them, else whole, and so be the heads each
-    rank's queries read: ``mp`` divides ``n_kv_heads``, or there is one
+    """Raise unless a ``model`` axis of ``mp`` splits ``cfg``'s forward
+    (``ValueError`` naming the dimension; a family it does not split,
+    ``NotImplementedError``: both come with a later slice).  Training
+    splits the dense and MoE families: ``mp`` must divide the heads,
+    the MLP's columns (a MoE config's dense head layers' ``d_ff``, its
+    shared experts' ``d_ff_moe · n_shared_experts``) and, where it does
+    not divide the experts and the MoE layer is ``moe_layer``'s (the
+    F-split), ``d_ff_moe``; a GQA rank's query heads must be whole groups
+    of a KV head's or part of one.  ``serving``: the dense and vlm
+    families, and the decode cache's KV heads must lie as
+    ``dist.sharding.cache_pspecs`` puts them, over ``model`` where ``mp``
+    divides them, else whole, and so be the heads each rank's queries
+    read: ``mp`` divides ``n_kv_heads``, or there is one
     (``ValueError``)."""
-    families = ("dense", "vlm") if serving else ("dense",)
+    families = ("dense", "vlm") if serving else ("dense", "moe")
     if cfg.family not in families:
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism over a 'model' axis of {mp} "
             f"on the {cfg.family} family comes with a later "
             f"tensor-parallel slice (ROADMAP.md); this one splits the "
-            f"{' and '.join(families)} "
-            f"famil{'ies' if serving else 'y'}")
-    for dim, size in (("n_heads", cfg.n_heads), ("d_ff", cfg.d_ff)):
+            f"{' and '.join(families)} families")
+    dims = [("n_heads", cfg.n_heads)]
+    if cfg.family != "moe" or cfg.first_dense_layers:
+        dims.append(("d_ff", cfg.d_ff))
+    if cfg.n_shared_experts:
+        dims.append(("d_ff_moe · n_shared_experts",
+                     cfg.d_ff_moe * cfg.n_shared_experts))
+    if cfg.n_experts and cfg.n_experts % mp and not _ep_path(cfg, mp):
+        dims.append(("d_ff_moe", cfg.d_ff_moe))
+    for dim, size in dims:
         if size % mp:
             raise ValueError(
                 f"{cfg.name}: {dim} = {size} does not split over a 'model' "
                 f"axis of {mp}: a split the axis does not divide comes "
                 f"with a later tensor-parallel slice (ROADMAP.md)")
     heads, G = cfg.n_heads // mp, cfg.n_heads // cfg.n_kv_heads
-    if heads % G and G % heads:
+    if not cfg.kv_lora_rank and heads % G and G % heads:
         raise ValueError(
             f"{cfg.name}: {heads} query heads a rank over groups of {G} "
             f"a KV head (n_kv_heads = {cfg.n_kv_heads}) on a 'model' axis "
@@ -304,33 +329,52 @@ def tensor_parallel_split(cfg, mp: int, serving: bool = False):
 
 
 def _rows_over_model(cfg, spmd) -> bool:
-    """What the ``model`` axis carries: False for 1 rank, the experts, or
-    a dense config's tensor-parallel split (``tensor_parallel_split``
-    checks it); True for a dense config with tensor parallelism off
-    (more data-parallel rows)."""
+    """What the ``model`` axis carries: False for 1 rank, a tensor-parallel
+    split (``tensor_parallel_split`` checks it) or, with tensor
+    parallelism off, a MoE config's experts on ``moe_ep``'s path; True
+    for any other config with tensor parallelism off (more data-parallel
+    rows: the reference's ``dp`` absorbing ``model``)."""
     from ..models.common import tensor_parallel_enabled
     mp = spmd.mp
     if mp == 1:
         return False
-    if cfg.n_experts:
-        E = cfg.n_experts
-        if cfg.moe_impl == "shard_map" and (E % mp == 0 or mp % E == 0):
-            return False
-        raise NotImplementedError(
-            f"{cfg.name}: moe_impl={cfg.moe_impl!r} with {E} experts on a "
-            f"'model' axis of {mp}: the expert split GSPMD places comes "
-            f"with a later tensor-parallel slice (ROADMAP.md); "
-            f"moe_impl='shard_map' runs it where the counts divide")
     if tensor_parallel_enabled():
         tensor_parallel_split(cfg, mp)
         return False
-    return True
+    return not _ep_path(cfg, mp)
 
 
-def _dp_dim(spec, dp) -> int | None:
+def _ep_path(cfg, mp: int) -> bool:
+    """Does the MoE layer run ``moe_ep``'s expert parallelism over a
+    ``model`` axis of ``mp`` (``moe_impl="shard_map"``, the counts
+    dividing one way or the other)?"""
+    E = cfg.n_experts
+    return bool(E) and cfg.moe_impl == "shard_map" and (E % mp == 0
+                                                        or mp % E == 0)
+
+
+def _expert_dims(cfg, spmd, tp, rows_over_model) -> dict:
+    """The dim of each expert leaf (``wg``, ``wu``, ``wd``) that the
+    ``model`` ranks split between them, each computing with its own
+    piece: E where they divide it and run the experts split (both
+    impls under tensor parallelism, ``moe_ep``'s path without), the
+    hidden dim F for ``moe_layer``'s F-split; {} where each rank uses
+    the experts whole (``moe_ep``'s replica path, rows over ``model``)."""
+    mp, E = spmd.mp, cfg.n_experts
+    if mp == 1 or not E or rows_over_model:
+        return {}
+    if E % mp == 0:
+        return dict.fromkeys(("wg", "wu", "wd"), 0)
+    if tp is not None and not _ep_path(cfg, mp):
+        return {"wg": 2, "wu": 2, "wd": 1}
+    return {}
+
+
+def _dim_of(spec, axes) -> int | None:
+    """The dim a spec cuts over any of the mesh ``axes``, or None."""
     for d, entry in enumerate(spec):
         names = (entry,) if isinstance(entry, str) else entry or ()
-        if any(a in dp for a in names):
+        if any(a in axes for a in names):
             return d
     return None
 
@@ -363,40 +407,55 @@ def state_shardings(cfg, spmd):
     ``spmd``'s ranks (module docstring)."""
     from ..dist.sharding import dp_axes, opt_pspecs, param_pspecs
     from ..dist.spmd import Layout, StateShardings, TensorParallel
+    from ..models.common import tensor_parallel_enabled
     mesh = spmd.source
     dp = dp_axes(mesh)
     rows_over_model = _rows_over_model(cfg, spmd)
     tp = None
-    if spmd.mp > 1 and not cfg.n_experts and not rows_over_model:
+    if spmd.mp > 1 and not rows_over_model and tensor_parallel_enabled():
         tp = TensorParallel(spmd.model_group, spmd.mp, spmd.model_rank)
-    # the expert leaves lie on ``model`` along E (``moe_ep``'s EP path)
-    ep = spmd.mp > 1 and cfg.n_experts > 0 and cfg.n_experts % spmd.mp == 0
+    experts = _expert_dims(cfg, spmd, tp, rows_over_model)
     shapes = _global_shapes(cfg)
 
-    def layout(name, spec, shape):
-        model_dim = 0 if ep and _EXPERT.match(name) else None
-        lay = Layout(tuple(shape), _dp_dim(spec, dp), model_dim)
-        if model_dim is not None and lay.dp_dim == 0 \
-                and (shape[0] // spmd.mp) % spmd.dpn:
+    def split(name):
+        """The dim of leaf ``name`` a rank computes with its piece of."""
+        m = _EXPERT.match(name)
+        return experts.get(m.group(1)) if m else None
+
+    def layout(name, spec, shape, quantized=False):
+        # an int8 moment's 128-blocks run along its last dim: cut there,
+        # it lies as its own spec says (``optim.adamw`` gathers it)
+        model_dim = split(name)
+        if model_dim is None or quantized and model_dim == len(shape) - 1:
+            model_dim = _dim_of(spec, ("model",))
+        lay = Layout(tuple(shape), _dim_of(spec, dp), model_dim)
+        if model_dim is not None and lay.dp_dim == model_dim \
+                and (shape[model_dim] // spmd.mp) % spmd.dpn:
             raise NotImplementedError(
-                f"{name}: {shape[0] // spmd.mp} experts a model rank do "
-                f"not split over {spmd.dpn} data-parallel ranks")
+                f"{name}: {shape[model_dim] // spmd.mp} of dim {model_dim} "
+                f"a model rank do not split over {spmd.dpn} data-parallel "
+                f"ranks")
         return lay
 
     pspecs = param_pspecs(cfg, shapes, mesh)
     params = {n: layout(n, pspecs[n].spec, s) for n, s in shapes.items()}
+    # the compute copy: a rank's own piece of a split expert leaf, every
+    # other leaf whole over ``model`` (gathered after each update)
+    params_c = {n: lay if split(n) is not None else
+                Layout(lay.shape, lay.dp_dim, None)
+                for n, lay in params.items()}
     moments = {n: _moment_shapes(cfg, s) for n, s in shapes.items()}
     ospecs = opt_pspecs(cfg, {"m": moments}, mesh)["m"]
 
     def moment(n):
         if isinstance(moments[n], dict):
-            return {k: layout(n, ospecs[n][k].spec, moments[n][k])
+            return {k: layout(n, ospecs[n][k].spec, moments[n][k], True)
                     for k in moments[n]}
         return layout(n, ospecs[n].spec, moments[n])
 
     opt = {k: {n: moment(n) for n in shapes} for k in ("m", "v")}
     opt["step"] = Layout(())
-    return StateShardings(spmd, {"params": params, "params_c": dict(params),
+    return StateShardings(spmd, {"params": params, "params_c": params_c,
                                  "opt": opt}, rows_over_model, tp)
 
 
@@ -424,7 +483,8 @@ def shard_train_state(cfg, state, mesh):
     model = state["params_c"]
     for n, p in list(model.named_parameters()):
         lay = tree["params_c"][n]
-        if lay.model_dim is not None:   # this rank's experts; FSDP cuts dp
+        if lay.model_dim is not None:   # its piece of split experts; FSDP
+            # cuts it over dp
             stack, l, leaf = n.split(".")
             getattr(model, stack)[int(l)][leaf] = torch.nn.Parameter(
                 Layout(lay.shape, None, lay.model_dim).local(p.data, spmd))
@@ -485,7 +545,7 @@ def _rows(sh, B: int):
 
 def _sharded_step(cfg, hyper, accum: int, sh):
     import torch.distributed as dist
-    from ..dist.spmd import running
+    from ..dist.spmd import all_gather_cat, reduce_scatter_cat, running
     sp = sh.spmd
     reduce_group = dist.group.WORLD if sh.rows_over_model else sp.dp_group
     reduce_n = sp.world if sh.rows_over_model else sp.dpn
@@ -520,6 +580,33 @@ def _sharded_step(cfg, hyper, accum: int, sh):
         aux = aux.detach() if isinstance(aux, torch.Tensor) else aux
         return xent + 0.01 * aux, {"xent": xent, "aux": aux}
 
+    def over_model(n, g):
+        """A compute-copy gradient of ``n`` (its piece over dp) as the
+        master's piece: summed over ``model`` where the ranks' gradients
+        are partial (tensor parallelism, rows over ``model``), and cut
+        to this rank's piece where the master is cut over ``model`` and
+        the compute copy is not."""
+        lay, copy = sh.tree["params"][n], sh.tree["params_c"][n]
+        if sp.mp == 1 or copy.model_dim is not None:
+            return g
+        partial = sh.rows_over_model or sh.tp is not None
+        if lay.model_dim is None:
+            if partial:
+                dist.all_reduce(g, group=sp.model_group)
+            return g
+        if partial:
+            return reduce_scatter_cat(g, lay.model_dim, sp.model_group,
+                                      sp.mp)
+        return g.chunk(sp.mp, lay.model_dim)[sp.model_rank].contiguous()
+
+    def whole_over_model(n, t):
+        """A master's piece of ``n`` as the compute copy's: joined over
+        ``model`` where the master is cut over it and the copy not."""
+        lay, copy = sh.tree["params"][n], sh.tree["params_c"][n]
+        if sp.mp == 1 or lay.model_dim is None or copy.model_dim is not None:
+            return t
+        return all_gather_cat(t, lay.model_dim, sp.model_group, sp.mp)
+
     def take_grads(model, grads):
         for n, p in model.named_parameters():
             g = torch.zeros(_local(p).shape, dtype=f32, device=_local(
@@ -550,14 +637,13 @@ def _sharded_step(cfg, hyper, accum: int, sh):
         for n, p in model.named_parameters():
             if not hasattr(p, "to_local") and sp.dpn > 1:
                 dist.all_reduce(grads[n], group=sp.dp_group)
-            if sh.rows_over_model or sh.tp is not None:
-                dist.all_reduce(grads[n], group=sp.model_group)
+            grads[n] = over_model(n, grads[n])
         params, opt, opt_metrics = apply_adamw(
             cfg, hyper, state["params"], grads, state["opt"], shardings=sh)
         del grads
         with torch.no_grad():
             for n, p in model.named_parameters():
-                _local(p).copy_(params[n])
+                _local(p).copy_(whole_over_model(n, params[n]))
         state = {"params": params, "params_c": model, "opt": opt}
         return state, metrics | opt_metrics | {"loss": loss}
 

@@ -29,6 +29,7 @@ from repro_torch.core import autotune
 from repro_torch.core.cuda_codegen import GroupLayout
 from repro_torch.programs import BLAS, REGISTRY, make_inputs
 from repro_torch.serving import ServingEngine
+from torch_threads import capped_torch_threads  # noqa: F401
 
 PARITY = sorted(BLAS) + ["LM_RMSNORM"]
 N = 256

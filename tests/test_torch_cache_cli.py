@@ -24,6 +24,7 @@ from repro_torch.core import (FusionCompiler, PlanCache, build_plan,
                               build_space, graph_signature, trace)
 from repro_torch.launch import serve
 from repro_torch.serving import ServingEngine
+from torch_threads import capped_torch_threads  # noqa: F401
 
 # ---------------------------------------------------------------------------
 # PlanCache.clear and the .tmp sweep

@@ -37,6 +37,7 @@ from repro_torch.models.convert import train_state_from_reference
 from repro_torch.optim import AdamWHyper
 from repro_torch.train import steps as steps_lib
 from torch_lm_parity import configs, reference_tree
+from torch_threads import capped_torch_threads  # noqa: F401
 
 MOMENTS = ["float32", "int8"]
 

@@ -20,6 +20,7 @@ from repro_torch.core.diagnostics import VerificationError
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.launch import serve
 from repro_torch.programs import BLAS, make_inputs
+from torch_threads import capped_torch_threads  # noqa: F401
 
 N = 256
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(

@@ -10,6 +10,7 @@ from repro.configs import get_config as ref_get_config
 from repro.launch import costmodel as ref_costmodel
 from repro_torch.configs import ARCHS, SHAPES, get_config, supported_cells
 from repro_torch.launch import costmodel
+from torch_threads import capped_torch_threads  # noqa: F401
 
 CELLS = [(a, s) for a in ARCHS for s in supported_cells(a)]
 

@@ -30,6 +30,7 @@ from repro_torch.models.forward import ring_slots
 from repro_torch.train import steps
 from torch_lm_parity import both, extras, grow_ref, inputs
 from torch_lm_parity import rel as _rel
+from torch_threads import capped_torch_threads  # noqa: F401
 
 
 def rel(got, want) -> float:

@@ -15,6 +15,7 @@ from repro.core import trace as ref_trace
 from repro.programs import BLAS as REF_BLAS
 from repro_torch.core import FusionCompiler, PlanCache, execute_dense, trace
 from repro_torch.programs import BLAS, make_inputs
+from torch_threads import capped_torch_threads  # noqa: F401
 
 N = 256
 

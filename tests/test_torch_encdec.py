@@ -12,6 +12,7 @@ import torch_lm_parity as lp
 from repro.models import common as ref_common
 from repro.models import forward as ref_forward
 from repro_torch.models import common, forward
+from torch_threads import capped_torch_threads  # noqa: F401
 
 ARCH = "whisper_medium"
 P, STEPS = 24, 4

@@ -21,6 +21,7 @@ from repro_torch.launch import serve
 from repro_torch.programs import REGISTRY, Sequence, make_inputs
 from repro_torch.serving import (ServingEngine, bucket_of, input_pad_values,
                                  pad_to_shape)
+from torch_threads import capped_torch_threads  # noqa: F401
 
 RTOL = 1e-5
 #: (sequence, n): off-grid sizes, two buckets each, ragged KV lengths

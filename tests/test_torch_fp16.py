@@ -22,6 +22,7 @@ from repro_torch.core import FusionCompiler, PlanCache, make_tensor_map
 from repro_torch.core.diagnostics import UnsupportedGroupError
 from repro_torch.core.cuda_codegen import GroupLayout
 from repro_torch.programs import REGISTRY, make_inputs
+from torch_threads import capped_torch_threads  # noqa: F401
 
 N = 256
 

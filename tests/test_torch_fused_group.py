@@ -52,6 +52,7 @@ from repro_torch.core.predictor import cost_impl
 from repro_torch.core.scheduler import build_space
 from repro_torch.kernels import _build, _launch
 from repro_torch.programs import BLAS, REGISTRY, make_inputs
+from torch_threads import capped_torch_threads  # noqa: F401
 
 N = 256
 #: enumerated combinations per program (groups deduplicated across them)

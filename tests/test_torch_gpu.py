@@ -1311,3 +1311,42 @@ def test_tp_serving_on_gloo_ranks_gives_the_one_rank_tokens(cuda, tmp_path):
         np.testing.assert_array_equal(tokens, want)
         for k in ("K4/rmsnorm_bf16", "K5/split_bf16", "K5/combine_bf16"):
             assert launches.get(k), (k, launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_experts", [4, 3])
+def test_moe_tp_training_on_gloo_ranks_matches_one_card(n_experts, cuda,
+                                                        tmp_path):
+    """DeepSeek's smoke shapes in float32 on (1, 2), two gloo ranks that
+    share the card, ``moe_impl="gspmd"``: 4 experts split over the ranks
+    (expert parallelism), 3 experts each split along its hidden columns
+    (the F-split).  Three steps: the losses within 1e-5 and every master
+    within 1e-4 norm-relative of the steps on one card
+    (``tests/test_torch_tp_moe.py``'s bounds); K4, K6 and K7's block
+    entry launched on each rank."""
+    import torch_tp_moe_ranks as ranks
+    from repro_torch.ckpt.checkpoint import _flatten
+    from repro_torch.dist.spmd import run_ranks
+    from repro_torch.launch.train import build_state
+    from repro_torch.optim import AdamWHyper
+    from repro_torch.train.steps import make_train_step
+    got = run_ranks(ranks.on_the_card, 2, n_experts, backend="gloo",
+                    timeout_s=300, tmpdir=str(tmp_path))
+    cfg = ranks.config("deepseek_v2_lite", "float32",
+                       ranks.MOE | {"n_experts": n_experts})
+    state = build_state(cfg, 0, "cuda")
+    step = make_train_step(cfg, AdamWHyper(**ranks.HYPER))
+    get = ranks.make_batch_fn(cfg, ranks.ShapeConfig("t", ranks.S, ranks.B,
+                                                     "train"))
+    losses = []
+    for i in range(ranks.STEPS):
+        state, m = step(state, ranks.shard_batch(get(i), "cuda"))
+        losses.append(float(m["loss"]))
+    want = {k: t.detach().float().cpu() for k, t in _flatten(state)}
+    for l, _, launches in got:
+        assert np.allclose(l, losses, rtol=1e-5, atol=0), (l, losses)
+        for k in ("K4/rmsnorm_f32", "K6/adamw_f32", "K7/xent_block_f32"):
+            assert launches.get(k), (k, launches)
+    for k, a in got[0][1].items():
+        w = want[k]
+        assert float((torch.from_numpy(a) - w).norm() / w.norm()) <= 1e-4, k

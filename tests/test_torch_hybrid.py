@@ -17,6 +17,7 @@ from repro.models import common as ref_common
 from repro.models import forward as ref_forward
 from repro_torch.models import common, forward
 from repro_torch.models.model import decode_gqa_attention
+from torch_threads import capped_torch_threads  # noqa: F401
 
 ARCH = "hymba_1p5b"
 W = 32

@@ -51,6 +51,7 @@ from repro_torch.kernels import gemver as k3
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as k4
 from repro_torch.kernels import softmax_xent as k7
+from torch_threads import capped_torch_threads  # noqa: F401
 
 
 def randn(rng, *shape, scale=1.0):

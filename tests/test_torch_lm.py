@@ -43,6 +43,7 @@ from repro_torch.models import (cast_params, decode_step, forward_lm,
                                 zero_cache)
 from repro_torch.models.convert import params_from_reference
 from repro_torch.train import steps
+from torch_threads import capped_torch_threads  # noqa: F401
 
 DENSE = ["llama3_8b", "qwen2_7b", "granite3_8b", "granite_34b"]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}

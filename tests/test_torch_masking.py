@@ -32,6 +32,7 @@ from repro_torch.core.plan import graph_signature
 from repro_torch.programs import REGISTRY, make_inputs
 from repro_torch.programs import model_lib as mlib
 from repro_torch.serving import input_pad_values
+from torch_threads import capped_torch_threads  # noqa: F401
 
 RTOL = 1e-5
 

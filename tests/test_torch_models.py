@@ -47,6 +47,7 @@ from repro_torch.core.cuda_codegen import (GroupLayout, plan_source,
 from repro_torch.optim import fused as optim_fused
 from repro_torch.programs import MODELS, REGISTRY, make_inputs
 from repro_torch.programs import model_lib
+from torch_threads import capped_torch_threads  # noqa: F401
 
 NAMES = ("FUSED_ADAMW", "LM_BLOCK", "LM_DECODE_ATTN", "LM_RMSNORM")
 MODES = ("best", "unfused") + tuple(range(8))

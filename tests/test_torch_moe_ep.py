@@ -36,6 +36,7 @@ from repro_torch.models import forward_lm, lm_loss
 from repro_torch.models.convert import params_from_reference
 from repro_torch.models.forward import cast_params
 from torch_lm_parity import configs, reference_tree
+from torch_threads import capped_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASES = {"ep": (4, 2), "replica": (2, 1)}

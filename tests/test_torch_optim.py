@@ -17,6 +17,7 @@ from repro.kernels import ref as jref
 from repro.optim import fused_adamw_update as ref_fused_adamw_update
 from repro_torch.kernels import ref
 from repro_torch.optim import fused_adamw_update, make_fused_adamw
+from torch_threads import capped_torch_threads  # noqa: F401
 
 N = 1024
 KW = dict(lr=2e-3, beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1,

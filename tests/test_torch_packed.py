@@ -28,6 +28,7 @@ from repro_torch.core import (FusionCompiler, PackedPlan, PlanCache,
                               pack_signature, plan_fingerprint)
 from repro_torch.core.diagnostics import VerificationError
 from repro_torch.programs import REGISTRY, make_inputs
+from torch_threads import capped_torch_threads  # noqa: F401
 
 RTOL = 1e-5
 #: port backend -> the reference's name for it

@@ -24,6 +24,7 @@ from repro_torch.core import (FusionCompiler, build_plan, build_space,
                               plan_from_reference, trace)
 from repro_torch.core.diagnostics import VerificationError
 from repro_torch.programs import BLAS, make_inputs
+from torch_threads import capped_torch_threads  # noqa: F401
 
 MODES = ("best", "unfused") + tuple(range(8))
 

@@ -27,6 +27,7 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import serve
 from repro_torch.serving import (ServingEngine, ShardedServingEngine,
                                  replica_fill)
+from torch_threads import capped_torch_threads  # noqa: F401
 
 
 def cpu_compiler(cache=None):

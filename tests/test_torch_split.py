@@ -32,6 +32,7 @@ from repro_torch.core.cuda_codegen import (MIN_SLICE_POINTS, SPLIT_BELOW,
                                            GroupLayout, group_source)
 from repro_torch.core.scheduler import build_space
 from repro_torch.programs import REGISTRY
+from torch_threads import capped_torch_threads  # noqa: F401
 
 #: programs over long vectors, sized 2**24 in ``chip_smoke.py``
 BLAS1 = ("AXPYDOT", "VADD", "WAXPBY", "SSCAL", "FUSED_ADAMW")

@@ -53,6 +53,7 @@ from repro_torch.models.forward import cache_pspec_rules
 from repro_torch.optim import adamw as port_adamw
 from repro_torch.train import steps
 from torch_lm_parity import reference_tree
+from torch_threads import capped_torch_threads  # noqa: F401
 
 MESHES = [((8,), ("data",)), ((2, 4), ("data", "model")),
           ((2, 2, 2), ("pod", "data", "model"))]
@@ -471,7 +472,8 @@ def test_launch_train_over_four_ranks_resumes_on_another_mesh(tmp_path,
 def test_launch_train_refuses_the_dense_split_with_tensor_parallelism(
         capfd):
     """The dense split, once refused, trains with tensor parallelism on
-    over (2, 2); ``moe_impl="gspmd"`` on a ``model`` axis still raises."""
+    over (2, 2); so does ``moe_impl="gspmd"`` on a ``model`` axis, once
+    refused too: DeepSeek's smoke config over (1, 2)."""
     hist = train_launcher.main(["--arch", "llama3_8b", "--smoke", "--device",
                                 "cpu", "--steps", "2", "--batch", "4",
                                 "--seq", "32", "--model-parallel", "2",
@@ -479,7 +481,10 @@ def test_launch_train_refuses_the_dense_split_with_tensor_parallelism(
     out = capfd.readouterr().out
     assert "mesh: {'data': 2, 'model': 2}  devices=4" in out
     assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
-    with pytest.raises(ValueError, match="tensor-parallel slice"):
-        train_launcher.main(["--arch", "deepseek_v2_lite", "--smoke",
-                             "--device", "cpu", "--steps", "1",
-                             "--model-parallel", "2"])
+    hist = train_launcher.main(["--arch", "deepseek_v2_lite", "--smoke",
+                                "--device", "cpu", "--steps", "2",
+                                "--batch", "4", "--seq", "32",
+                                "--model-parallel", "2", "--nproc", "2"])
+    out = capfd.readouterr().out
+    assert "mesh: {'data': 1, 'model': 2}  devices=2" in out
+    assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)

@@ -12,6 +12,7 @@ import torch_lm_parity as lp
 from repro.models import ssm as ref_ssm
 from repro_torch.models import ssm
 from repro_torch.models.model import ssm_params
+from torch_threads import capped_torch_threads  # noqa: F401
 
 ARCH = "mamba2_2p7b"
 P, STEPS = 24, 4

@@ -20,6 +20,7 @@ from repro_torch.core import (FusionCompiler, PlanCache, compile_combination,
 from repro_torch.core import scheduler
 from repro_torch.examples import custom_sequence, quickstart
 from repro_torch.programs import BLAS, REGISTRY, make_inputs
+from torch_threads import capped_torch_threads  # noqa: F401
 
 N = 256
 

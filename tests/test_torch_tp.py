@@ -51,6 +51,7 @@ from repro_torch.models.convert import train_state_from_reference
 from repro_torch.train import steps
 from test_torch_spmd import _ref_state, check_metrics, check_state
 from torch_lm_parity import reference_tree
+from torch_threads import capped_torch_threads  # noqa: F401
 
 
 def _key(case):

@@ -38,6 +38,7 @@ from repro_torch.launch.mesh import Mesh
 from repro_torch.models import cast_params, model_shapes, zero_cache
 from repro_torch.models.convert import params_from_reference
 from torch_lm_parity import TOL, grow_ref, reference_tree
+from torch_threads import capped_torch_threads  # noqa: F401
 
 ARCHS = sorted({arch for arch, _ in ranks.CASES.values()})
 

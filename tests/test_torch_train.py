@@ -45,6 +45,7 @@ from repro_torch.models.convert import (params_from_reference,
                                         train_state_from_reference)
 from repro_torch.train import steps
 from torch_lm_parity import configs, reference_tree
+from torch_threads import capped_torch_threads  # noqa: F401
 
 B, S = 2, 32
 

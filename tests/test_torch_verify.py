@@ -33,6 +33,7 @@ from repro_torch.core import (ExecutionPlan, FusionCompiler, PlanCache,
                               compile_combination, plan_from_reference,
                               trace)
 from repro_torch.programs import REGISTRY, make_inputs
+from torch_threads import capped_torch_threads  # noqa: F401
 
 BACKENDS = {"jnp": "torch", "pallas": "cuda"}
 

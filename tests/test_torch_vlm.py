@@ -8,6 +8,7 @@ import torch
 
 import torch_lm_parity as lp
 from repro_torch.models import forward_lm, prefill
+from torch_threads import capped_torch_threads  # noqa: F401
 
 ARCH = "llava_next_34b"
 P, STEPS = 24, 4
