@@ -196,7 +196,12 @@ Phases, each printed as JSON lines:
    8, P 32, 32 greedy tokens), LLaVA-NeXT-34B at full width (P 608:
    its 576 patches and 32 tokens; one card: 8 of its 60 layers),
    Granite-34B at full width and depth 8 (its one KV head on both
-   ranks) and Llama at depth 4 in float32 (``SERVE_TP_RUNS``), on
+   ranks), Llama at depth 4 in float32, DeepSeek-V2-Lite (MLA, 64
+   experts, 32 a rank) at full width and depth 8 (on 2 or more cards
+   its full 27), Grok-1 (GQA, 8 experts) at full width and depth 2 (on
+   4 or more cards depth 4 on (1, 4)), DeepSeek at depth 2 in float32
+   and DeepSeek's smoke shapes with 3 experts in float32 (each expert's
+   hidden columns split, the F-split) (``SERVE_TP_RUNS``), on
    ranks spawned over a ``FileStore``: one card, (1, 2) on two gloo
    ranks that share it, every step eager (gloo cannot be captured; the
    line says so); on 2 or more cards NCCL ranks, one a card, the step
@@ -204,9 +209,11 @@ Phases, each printed as JSON lines:
    at full depth on (1, 4), the float32 run on (2, 2)).  Rank 0 first
    serves the run unsharded on its card; the counts are set to 0 just
    before the split run's ``generate`` and read just after (K4 (2L + 1)
-   a pass, K5's split and combine L a step); the prefill's and every
-   step's logits, teacher-forced on the one-card tokens with every
-   plain version forbidden, within 5e-2 norm-relative of the one-card
+   a pass, K5's split and combine L a step but for MLA); the prefill's
+   and every step's logits, teacher-forced on the one-card tokens with
+   every plain version forbidden (a MoE run's tokens also routed to
+   the one-card run's experts, ``serve_tp_routes``: the flips of near
+   ties are printed), within 5e-2 norm-relative of the one-card
    run's in bfloat16 (``SERVE_TP_RTOL``; LLaVA at its full 60 layers
    printed, as in phase lm), 1e-4 in float32, printed beside the
    one-card run's own floor (its logits computed on two halves of its
@@ -2920,29 +2927,47 @@ class layer_gaps:
 SERVE_TP_BATCH, SERVE_TP_GEN = 8, 32
 #: its runs by the cards present (1; 2 or 3; 4 or more), in groups of
 #: ranks spawned together: (ranks, ((arch, depth or None for the full
-#: depth, model axis, prompt length, compute dtype), ...)).  Llama-3-8B
-#: at full width and depth, a prompt of 32, on (1, 2); LLaVA-NeXT-34B at
-#: full width, its 576 patches then 32 tokens (608 positions, which 2, 4
-#: and 8 divide), on one card at 8 of its 60 layers (the unsharded run
+#: depth, model axis, prompt length, compute dtype[, config overrides,
+#: ``"smoke"`` for the arch's smoke shapes]), ...)).  Llama-3-8B at full
+#: width and depth, a prompt of 32, on (1, 2); LLaVA-NeXT-34B at full
+#: width, its 576 patches then 32 tokens (608 positions, which 2, 4 and
+#: 8 divide), on one card at 8 of its 60 layers (the unsharded run
 #: beside the ranks holds ~11 GB), on more its full 60 ((1, 2), and on
 #: four cards (1, 4)); Granite-34B at full width, its one KV head held
 #: whole by both ranks (K5 with G = 24 a rank), 8 of its 88 layers, on
 #: (1, 2); and Llama at depth 4 in float32, the split's exactness
 #: without bfloat16's rounding ((1, 2), on four cards (2, 2): the rows
-#: over data too)
+#: over data too).  The MoE family: DeepSeek-V2-Lite at full width, on
+#: one card 8 of its 27 layers (~1.17 GB a layer; ~9.9 GB unsharded,
+#: ~5.7 GB a rank), on more its full depth (~31 GB unsharded, ~16 GB a
+#: rank); Grok-1 at full width, depth 2 (~22.9 GB unsharded, ~12.3 GB a
+#: rank beside one whole leaf drawn at a time), on four cards depth 4
+#: over (1, 4) (~43 GB unsharded on rank 0's card before its ranks
+#: load); DeepSeek at depth 2 in float32; and DeepSeek's smoke shapes
+#: in float32 with 3 experts, which 2 ranks do not divide (the F-split)
+_SERVE_TP_MOE = (("grok1_314b", 2, 2, 32, "bfloat16"),
+                 ("deepseek_v2_lite", 2, 2, 32, "float32"),
+                 ("deepseek_v2_lite", None, 2, 32, "float32",
+                  {"smoke": True, "n_experts": 3}))
 SERVE_TP_RUNS = {
     1: ((2, (("llama3_8b", None, 2, 32, "bfloat16"),
              ("llava_next_34b", 8, 2, 608, "bfloat16"),
              ("granite_34b", 8, 2, 32, "bfloat16"),
-             ("llama3_8b", 4, 2, 32, "float32"))),),
+             ("llama3_8b", 4, 2, 32, "float32"),
+             ("deepseek_v2_lite", 8, 2, 32, "bfloat16")) + _SERVE_TP_MOE),),
     2: ((2, (("llama3_8b", None, 2, 32, "bfloat16"),
              ("llava_next_34b", None, 2, 608, "bfloat16"),
              ("granite_34b", 8, 2, 32, "bfloat16"),
-             ("llama3_8b", 4, 2, 32, "float32"))),),
+             ("llama3_8b", 4, 2, 32, "float32"),
+             ("deepseek_v2_lite", None, 2, 32, "bfloat16"))
+         + _SERVE_TP_MOE),),
     4: ((2, (("llama3_8b", None, 2, 32, "bfloat16"),
-             ("granite_34b", 8, 2, 32, "bfloat16"))),
+             ("granite_34b", 8, 2, 32, "bfloat16"),
+             ("deepseek_v2_lite", None, 2, 32, "bfloat16"))
+         + _SERVE_TP_MOE[1:]),
         (4, (("llava_next_34b", None, 4, 608, "bfloat16"),
-             ("llama3_8b", 4, 2, 32, "float32")))),
+             ("llama3_8b", 4, 2, 32, "float32"),
+             ("grok1_314b", 4, 4, 32, "bfloat16")))),
 }
 #: the logits of the split model against the one-card run on the same
 #: seed, norm-relative, every step teacher-forced on the one-card run's
@@ -2985,24 +3010,79 @@ def forced_logits(cfg, model, x, tokens, spmd=None, rows=None):
     return torch.stack(out)
 
 
+def serve_tp_config(arch, depth, dtype, over=None):
+    """A ``SERVE_TP_RUNS`` run's config: ``arch``'s (its smoke shapes
+    where ``over`` says ``"smoke"``) with ``over`` and the compute
+    ``dtype``, at ``depth`` layers (``lm_config``: with its ``reduced``
+    record)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+    over = dict(over or {})
+    cfg = smoke_config(arch) if over.pop("smoke", False) else \
+        get_config(arch)
+    return lm_config(dataclasses.replace(cfg, compute_dtype=dtype, **over),
+                     depth)
+
+
+class serve_tp_routes:
+    """Within the block, every MoE layer's router (``common.route``)
+    records its expert ids, on the host, in call order (``ids``); with
+    ``pinned`` (another run's ``ids``, call for call) the tokens go to
+    those experts instead, gated by this router's own probabilities
+    renormalised over them, and each token whose own experts differ
+    adds the relative gap of its k-th and (k+1)-th probabilities to
+    ``flips`` (a near tie flips under bfloat16 noise).  The check's
+    routing, never the serving path's."""
+
+    def __init__(self, pinned=None):
+        self.pinned, self.ids, self.flips = pinned, [], []
+
+    def __enter__(self):
+        from repro_torch.models import common
+        self.common, self.route = common, common.route
+        pinned = None if self.pinned is None else iter(self.pinned)
+
+        def tapped(cfg, x, router):
+            probs, gate, idx = self.route(cfg, x, router)
+            own = idx.cpu()
+            self.ids.append(own)
+            if pinned is None:
+                return probs, gate, idx
+            want = next(pinned)
+            differ = (own.sort(-1).values != want.sort(-1).values).any(-1)
+            if differ.any():
+                k = cfg.topk
+                ps = probs.sort(-1, descending=True).values.cpu()
+                gap = (ps[..., k - 1] - ps[..., k]) / ps[..., k - 1]
+                self.flips += gap[differ].tolist()
+            want = want.to(idx.device)
+            g = probs.gather(-1, want)
+            return probs, g / g.sum(-1, keepdim=True).clamp_min(1e-9), want
+        common.route = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.common.route = self.route
+
+
 def serve_tp_rank(rank: int, world: int, seed: int, runs,
                   device_type) -> dict:
     """One rank of phase ``serve_tp``: for each of ``runs`` ((arch,
-    depth, model axis, prompt, dtype)), rank 0 first serves it on its
-    card unsharded (``launch.serve.generate``) and keeps the tokens, the
-    logits teacher-forced on them and, as the one-card run's own floor,
+    depth, model axis, prompt, dtype[, overrides])), rank 0 first serves
+    it on its card unsharded (``launch.serve.generate``) and keeps the
+    tokens, the logits teacher-forced on them (a MoE model's routing
+    recorded, ``serve_tp_routes``) and, as the one-card run's own floor,
     the same logits computed in two halves of the rows; then every rank
     serves it split over ``make_host_mesh(mp, device_type)``
     (``load_model`` at the rank's blocks, one warm-up prefill and step,
     then the counts set to 0 just before ``generate`` and read just
     after), and computes the logits teacher-forced on the one-card
-    tokens at its rows, with every plain version forbidden."""
-    import dataclasses
-
+    tokens at its rows, routed to the one-card run's experts, with every
+    plain version forbidden."""
     import torch
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
     from repro_torch.core import LAUNCHES
     from repro_torch.dist.sharding import rank_param_bytes, serving_rows
     from repro_torch.kernels import ref
@@ -3019,13 +3099,12 @@ def serve_tp_rank(rank: int, world: int, seed: int, runs,
     def held(model):
         return sum(p.numel() * p.element_size() for p in model.parameters())
 
-    for arch, depth, mp, P, dtype in runs:
-        cfg, reduced = lm_config(get_config(arch), depth)
-        cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+    for arch, depth, mp, P, dtype, *over in runs:
+        cfg, reduced = serve_tp_config(arch, depth, dtype, *over)
         x = draw_inputs(cfg, B, P, seed)
-        run = {"arch": arch, "reduced": reduced, "n_layers": cfg.n_layers,
-               "prompt": P, "dtype": dtype}
-        box = [None]
+        run = {"arch": arch, "config": cfg.name, "reduced": reduced,
+               "n_layers": cfg.n_layers, "prompt": P, "dtype": dtype}
+        box = [None, None]
         if rank == 0:           # the one-card run, kept on the host
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -3039,7 +3118,9 @@ def serve_tp_rank(rank: int, world: int, seed: int, runs,
                 "param_bytes": held(model),
                 "peak_bytes": torch.cuda.max_memory_allocated() - base}
             del res
-            whole = forced_logits(cfg, model, x, box[0])
+            with serve_tp_routes() as routes:
+                whole = forced_logits(cfg, model, x, box[0])
+            box[1] = routes.ids
             halves = torch.cat([forced_logits(cfg, model, x, box[0],
                                               rows=r)
                                 for r in ((0, B // 2), (B // 2, B))], 1)
@@ -3048,7 +3129,7 @@ def serve_tp_rank(rank: int, world: int, seed: int, runs,
             del model, halves
             torch.cuda.empty_cache()
         dist.broadcast_object_list(box, src=0)
-        tokens = box[0]
+        tokens, routed = box
 
         spmd = serving_spmd(cfg, make_host_mesh(mp, device_type))
         rows = serving_rows(cfg, B, spmd)
@@ -3069,7 +3150,7 @@ def serve_tp_rank(rank: int, world: int, seed: int, runs,
         torch.cuda.synchronize()
         launches = dict(LAUNCHES.by_kernel)
         peak = torch.cuda.max_memory_allocated() - base
-        with forbid_plain(ref):
+        with forbid_plain(ref), serve_tp_routes(routed) as routes:
             logits = forced_logits(cfg, model, x, tokens, spmd, rows)
         tp = spmd.tp
         (q0, q1), (kv0, kv1) = tp_heads(cfg, tp)
@@ -3085,7 +3166,10 @@ def serve_tp_rank(rank: int, world: int, seed: int, runs,
             "peak_bytes": peak, "param_bytes": held(model),
             "param_bytes_want": rank_param_bytes(cfg, tp, ES[dtype]),
             "launches": launches,
-            "shapes": {"K5": [b, q1 - q0, kv1 - kv0, P + G, cfg.dh],
+            "moe_calls_routed": len(routes.ids),
+            "routing_flip_gaps": routes.flips,
+            "shapes": {"K5": None if cfg.kv_lora_rank else
+                       [b, q1 - q0, kv1 - kv0, P + G, cfg.dh],
                        "K4": [[b, cfg.d_model],
                               [b * P // mp, cfg.d_model]]}}
         if rank == 0:
@@ -3109,9 +3193,12 @@ def serve_tp_phase(args, failures: list, smi_line: str) -> list:
     ``"serve_tp"`` line a run: the logits of every step within
     ``SERVE_TP_RTOL`` (float32: ``RTOL``) of the one-card run, the first
     step at which the greedy tokens differ from its tokens (printed: a
-    bfloat16 near-tie may flip), K4 and K5 launched as often as the path
-    launches them, each rank's weight bytes its blocks', its peak and
-    step ms, the cost model's bound beside them.  Then K4 and K5 at each
+    bfloat16 near-tie may flip; a MoE run's logits are taken with its
+    tokens routed to the one-card run's experts, and the near ties its
+    own router flipped are printed), K4 and K5 launched as often as the
+    path launches them (MLA's decode: no K5), each rank's weight bytes
+    its blocks', its peak and step ms, the cost model's bound beside
+    them.  Then K4 and K5 at each
     bfloat16 run's shapes on a rank against their plain versions, and
     timed; returns their records (``"path": "serve_tp"``)."""
     import shutil
@@ -3120,7 +3207,6 @@ def serve_tp_phase(args, failures: list, smi_line: str) -> list:
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.dist.spmd import run_ranks
     from repro_torch.launch.costmodel import tp_decode
 
@@ -3147,14 +3233,15 @@ def serve_tp_phase(args, failures: list, smi_line: str) -> list:
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    for nproc, (arch, depth, mp, P, dtype), by_rank in done:
+    for nproc, (arch, depth, mp, P, dtype, *over), by_rank in done:
         r0 = by_rank[0]
         tp0, un = r0["tp"], r0["unsharded"]
-        cfg, _ = lm_config(get_config(arch), depth)
+        cfg, _ = serve_tp_config(arch, depth, dtype, *over)
         L, short = cfg.n_layers, SHORT[dtype]
-        want_launches = {f"K4/rmsnorm_{short}": (2 * L + 1) * G,
-                         f"K5/split_{short}": L * (G - 1),
-                         f"K5/combine_{short}": L * (G - 1)}
+        want_launches = {f"K4/rmsnorm_{short}": (2 * L + 1) * G}
+        if not cfg.kv_lora_rank:           # MLA's decode launches no K5
+            want_launches |= {f"K5/split_{short}": L * (G - 1),
+                              f"K5/combine_{short}": L * (G - 1)}
         toks = tp0["tokens"]
         differ = np.argwhere((toks != r0["one_card_tokens"]).any(0))
         kv_mean = P + G // 2
@@ -3164,6 +3251,7 @@ def serve_tp_phase(args, failures: list, smi_line: str) -> list:
         held = dtype != "bfloat16" or not (arch in DRIFTING
                                            and depth is None)
         line = {"phase": "serve_tp", "nvidia_smi": smi_line, "arch": arch,
+                "config": cfg.name, "overrides": over[0] if over else None,
                 "reduced": r0["reduced"], "n_layers": L, "dtype": dtype,
                 "batch": B, "prompt": P, "gen": G, "backend": backend,
                 "ranks": nproc, "cards": world, "mesh": tp0["mesh"],
@@ -3174,6 +3262,9 @@ def serve_tp_phase(args, failures: list, smi_line: str) -> list:
                 "one_card_floor_max": max(r0["one_card_floor"]),
                 "one_card_floor_by_step": r0["one_card_floor"],
                 "rows_compared": tp0["rows"],
+                "moe_calls_routed_to_one_card": tp0["moe_calls_routed"],
+                "routing_flip_gaps_by_rank": [r["tp"]["routing_flip_gaps"]
+                                              for r in by_rank],
                 "first_token_differing_step": int(differ[0, 0])
                 if len(differ) else None,
                 "tokens_ok": toks.shape == (B, G) and bool(
@@ -3225,34 +3316,39 @@ def serve_tp_kernels(cfg, shapes: dict, kv_len: int, launches: dict, randn,
                      failures: list, label: str) -> list:
     """K5 (``kv_len`` in device memory, as the decode reads it) at a
     rank's shape and K4 at its decode and prefill rows, each against its
-    plain version with a bitwise repeat, then timed (``lm_time``)."""
+    plain version with a bitwise repeat, then timed (``lm_time``); no
+    K5 where MLA's decode launches none."""
     import torch
 
     from repro_torch.kernels import decode_attention as k5
     from repro_torch.kernels import ref
 
-    b, hq, hkv, S, d = shapes["K5"]
-    q, kk, vv = randn(b, hq, d), randn(b, S, hkv, d), randn(b, S, hkv, d)
-    kl = torch.full((), kv_len, dtype=torch.int32, device="cuda")
-    got = k5.decode_attention(q, kk, vv, kv_len=kl)
-    again = k5.decode_attention(q, kk, vv, kv_len=kl)
-    rel, mabs = tensor_err(got, ref.decode_attention(q, kk, vv, kv_len=kl))
-    same = torch.equal(bits(got), bits(again))
-    emit({"phase": "serve_tp_kernel", "arch": cfg.name, "kernel": "K5",
-          "shape": shapes["K5"], "kv_len": kv_len, "dtype": "bfloat16",
-          "kv_len_on_device": True, "norm_rel_err": rel,
-          "max_abs_err": mabs, "repeat_bitwise": same})
-    if not (rel <= BF16_KERNEL_RTOL and same):
-        failures.append(f"serve_tp_kernel K5 {shapes['K5']}: error "
-                        f"{rel:.3g}, bitwise repeat {same}")
-    del q, kk, vv, got, again
+    decode = []
+    if shapes["K5"] is not None:
+        b, hq, hkv, S, d = shapes["K5"]
+        q, kk, vv = (randn(b, hq, d), randn(b, S, hkv, d),
+                     randn(b, S, hkv, d))
+        kl = torch.full((), kv_len, dtype=torch.int32, device="cuda")
+        got = k5.decode_attention(q, kk, vv, kv_len=kl)
+        again = k5.decode_attention(q, kk, vv, kv_len=kl)
+        rel, mabs = tensor_err(got, ref.decode_attention(q, kk, vv,
+                                                         kv_len=kl))
+        same = torch.equal(bits(got), bits(again))
+        emit({"phase": "serve_tp_kernel", "arch": cfg.name, "kernel": "K5",
+              "shape": shapes["K5"], "kv_len": kv_len, "dtype": "bfloat16",
+              "kv_len_on_device": True, "norm_rel_err": rel,
+              "max_abs_err": mabs, "repeat_bitwise": same})
+        if not (rel <= BF16_KERNEL_RTOL and same):
+            failures.append(f"serve_tp_kernel K5 {shapes['K5']}: error "
+                            f"{rel:.3g}, bitwise repeat {same}")
+        del q, kk, vv, got, again
+        decode = [("decode", tuple(shapes["K5"]), kv_len)]
     k4_checked = lm_k4_checks(cfg, 0, randn, failures,
                               rows=[T for T, _ in shapes["K4"]],
                               phase="serve_tp_kernel")
-    return lm_records(cfg, randn, k4_checked, [
-        ("decode", tuple(shapes["K5"]), kv_len)], launches, failures,
-        label=label, device_kv=True, host_kv=False, path="serve_tp",
-        decode_rows=shapes["K4"][0][0])
+    return lm_records(cfg, randn, k4_checked, decode, launches, failures,
+                      label=label, device_kv=True, host_kv=False,
+                      path="serve_tp", decode_rows=shapes["K4"][0][0])
 
 
 def decode_vs_forward(cfg, model, seq, steps: int = 1, patches=None,

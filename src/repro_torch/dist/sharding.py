@@ -276,27 +276,56 @@ def cache_pspecs(cfg, cache, mesh) -> Any:
 # a tensor-parallel serving rank's blocks
 # ---------------------------------------------------------------------------
 
-def param_block(cfg, name: str, tp) -> tuple[int, int, int] | None:
+def param_block(cfg, name: str, shape, tp) -> tuple[int, int, int] | None:
     """(dim, lo, hi): the part of parameter leaf ``name`` (a top-level
-    leaf's name, or a layer leaf's own, ``wq``) that a tensor-parallel
-    serving rank holds on ``tp`` (a ``dist.spmd.TensorParallel``), the
-    blocks the training's layers cut from whole weights: the columns of
-    its query heads in ``wq`` and ``bq`` and their rows in ``wo``, of
-    the KV heads those read in ``wk``, ``wv``, ``bk``, ``bv``
-    (``models.model.tp_heads``: MQA's one head whole), its block of the
-    MLP's hidden columns in ``wg``, ``wu`` and rows in ``wd``, of the
-    vocabulary's columns in ``unembed`` (``TensorParallel.block``).
-    None for a leaf held whole (``embed``, the norms) and off ``tp``."""
+    leaf's name, or a layer leaf's own, ``wq``) of ``shape`` (one
+    layer's, unstacked) that a tensor-parallel serving rank holds on
+    ``tp`` (a ``dist.spmd.TensorParallel``), the blocks the training's
+    layers cut from whole weights:
+
+    * GQA: the columns of its query heads in ``wq`` and ``bq`` and their
+      rows in ``wo``, of the KV heads those read in ``wk``, ``wv``,
+      ``bk``, ``bv`` (``models.model.tp_heads``: MQA's one head whole);
+    * MLA (``model.mla_attention``): its heads' ``nope + rope`` columns
+      of ``wq``, ``nope`` columns of ``w_uk``, ``v_head_dim`` columns of
+      ``w_uv`` and rows of ``wo``; the latent's ``w_dkv`` and ``w_kr``
+      whole;
+    * a dense MLP (a dense layer's, an MoE model's ``head_layers``): its
+      block of the hidden columns of ``wg``, ``wu`` and rows of ``wd``;
+      the shared experts' alike in ``wg_s``, ``wu_s``, ``wd_s``;
+    * the experts, (E, D, F) ``wg``/``wu`` and (E, F, D) ``wd``
+      (``common.moe_layer``): its block of E where the ranks divide it,
+      else its block of every expert's F;
+    * ``unembed``: its block of the vocabulary's columns
+      (``TensorParallel.block``).
+
+    None for a leaf held whole (``embed``, the norms, ``router``) and
+    off ``tp``."""
     if tp is None:
         return None
+    if name in ("wg", "wu", "wd") and len(shape) == 3:
+        E = cfg.n_experts
+        if E % tp.n == 0:
+            return (0,) + tp.block(E)
+        return (2 if name != "wd" else 1,) + tp.block(cfg.d_ff_moe)
+    if cfg.kv_lora_rank:
+        h0, h1 = tp.block(cfg.n_heads)
+        nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        heads = {"wq": (1, nd + rd), "w_uk": (1, nd), "w_uv": (1, vd),
+                 "wo": (0, vd)}.get(name)
+        if heads is not None:
+            dim, w = heads
+            return dim, h0 * w, h1 * w
     from ..models.model import tp_heads
     dh = cfg.dh
     (q0, q1), (kv0, kv1) = tp_heads(cfg, tp)
     q, kv = (q0 * dh, q1 * dh), (kv0 * dh, kv1 * dh)
     ff = tp.block(cfg.d_ff)
+    fs = tp.block(cfg.d_ff_moe * cfg.n_shared_experts)
     cut = {"wq": (1, q), "bq": (0, q), "wo": (0, q), "wk": (1, kv),
            "wv": (1, kv), "bk": (0, kv), "bv": (0, kv), "wg": (1, ff),
-           "wu": (1, ff), "wd": (0, ff),
+           "wu": (1, ff), "wd": (0, ff), "wg_s": (1, fs), "wu_s": (1, fs),
+           "wd_s": (0, fs),
            "unembed": (1, tp.block(cfg.vocab))}.get(name)
     return None if cut is None else (cut[0],) + cut[1]
 
@@ -313,15 +342,16 @@ def take_block(t: torch.Tensor, block) -> torch.Tensor:
 
 def rank_param_bytes(cfg, tp, itemsize: int) -> int:
     """The bytes of the parameters a tensor-parallel serving rank holds
-    (``param_block`` of every leaf of ``models.model_shapes``; the whole
-    model's off ``tp``), at ``itemsize`` bytes an element."""
+    (``param_block`` of every leaf of ``models.model_shapes``, rank
+    ``tp.rank``'s; the whole model's off ``tp``), at ``itemsize`` bytes
+    an element."""
     from ..models.model import model_shapes
     total = 0
     for name, shape in model_shapes(cfg).items():
         stacked = isinstance(shape, dict)
         for leaf, s in (shape.items() if stacked else [(name, shape)]):
             n, s = (s[0], list(s[1:])) if stacked else (1, list(s))
-            b = param_block(cfg, leaf, tp)
+            b = param_block(cfg, leaf, s, tp)
             if b is not None:
                 s[b[0]] = b[2] - b[1]
             total += n * math.prod(s)

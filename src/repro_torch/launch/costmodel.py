@@ -198,13 +198,17 @@ def tp_decode(cfg, batch: int, kv_len: int, mp: int, dpn: int = 1) -> dict:
     ``mp`` (and ``dpn`` data-parallel groups, each serving its rows where
     they divide ``batch``), at ``kv_len`` cached positions: the bytes it
     reads, its weights' blocks (``dist.sharding.rank_param_bytes``, rank
-    0's: the longest vocabulary block) and its KV heads' rows of the
-    cache, over ``HBM_BW``; beside them the step's collectives, 2 a
-    layer (the float32 sums after ``wo`` and ``wd``) and the
-    vocabulary's gather, their payload and the bytes a ring moves
+    0's: the longest vocabulary block) and its rows of the cache (its KV
+    heads'; MLA's latent and rope key whole, L · rows · kv_len · (r +
+    rd)), over ``HBM_BW``; beside them the step's collectives, 2 a layer
+    (the float32 sums after the attention and the MLP or MoE layer) and
+    the vocabulary's gather, their payload and the bytes a ring moves
     between ranks (an all-reduce 2 (n - 1) / n of its payload, an
     all-gather (n - 1) / n of its result) over one NVLink direction.
-    The embedding, held whole, is read at the step's rows alone."""
+    The embedding, held whole, is read at the step's rows alone.  A MoE
+    rank's experts all count as read: a decode step at B tokens touches
+    up to B · k of them (DeepSeek-V2-Lite at B 8, top-6: up to 48 of
+    its 64), so the bound is a step that reaches every one."""
     from ..dist.sharding import rank_param_bytes
     from ..dist.spmd import TensorParallel
     item = 2 if cfg.compute_dtype == "bfloat16" else 4
@@ -213,9 +217,13 @@ def tp_decode(cfg, batch: int, kv_len: int, mp: int, dpn: int = 1) -> dict:
     held = rank_param_bytes(cfg, tp, item)
     embed = 0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model * item
     weights = held - embed + rows * cfg.d_model * item * (embed > 0)
-    heads = cfg.n_kv_heads if cfg.n_kv_heads % mp or mp == 1 \
-        else cfg.n_kv_heads // mp
-    cache = cfg.n_layers * rows * kv_len * 2 * heads * cfg.dh * item
+    if cfg.kv_lora_rank:
+        per_row = cfg.kv_lora_rank + cfg.qk_rope_dim
+    else:
+        heads = cfg.n_kv_heads if cfg.n_kv_heads % mp or mp == 1 \
+            else cfg.n_kv_heads // mp
+        per_row = 2 * heads * cfg.dh
+    cache = cfg.n_layers * rows * kv_len * per_row * item
     n_coll = 2 * cfg.n_layers + 1 if mp > 1 else 0
     reduce_payload = 2 * cfg.n_layers * rows * cfg.d_model * 4
     gather_payload = rows * -(-cfg.vocab // mp) * mp * item

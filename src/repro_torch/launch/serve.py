@@ -14,18 +14,20 @@ RMSNorm and K5 every GQA decode attention on the card:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \
         --smoke --device cpu
 
-Tensor-parallel serving of the dense and vlm families:
+Tensor-parallel serving of the dense, vlm and MoE families:
 ``--model-parallel N`` splits each layer over N ranks of a process group
 (``torchrun``, NCCL one rank a GPU or gloo with ``--device cpu``; or
 ``--nproc R``, which starts R ranks itself), on ``make_host_mesh(N)``
 (the other ranks serving their rows of the batch): each rank holds its
-blocks of the weights (heads, MLP columns, vocabulary) and of the
-decode cache (its KV heads), and rank 0 prints.  On NCCL the decode
-step, collectives included, replays as one CUDA graph; gloo's steps run
-eagerly:
+blocks of the weights (heads, MLP columns, experts or their hidden
+columns, vocabulary) and of the decode cache (its KV heads; MLA's
+latent whole), and rank 0 prints.  On NCCL the decode step, collectives
+included, replays as one CUDA graph; gloo's steps run eagerly:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \
         --smoke --device cpu --model-parallel 2 --nproc 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch \
+        deepseek_v2_lite --smoke --device cpu --model-parallel 2 --nproc 2
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
         --arch llava_next_34b --batch 8 --prompt-len 608 --model-parallel 4
 
@@ -221,11 +223,13 @@ def generate(cfg, model, prompts, gen: int, patches=None, frames=None, *,
 
     ``spmd`` (``train.steps.serving_spmd``, the model this rank's blocks,
     ``load_model``): the steps run under it, each rank on its rows of
-    the batch (``dist.sharding.serving_rows``) and, over ``model``, its
-    blocks; the cache is this rank's.  On NCCL the step is captured with
-    its collectives; gloo's cannot be, and every step runs eagerly,
-    decided from the backend before the first step.  Every rank returns
-    the whole batch's tokens."""
+    the batch (``dist.sharding.serving_rows``; where they differ over
+    the data-parallel ranks, ``spmd.rows`` says so, and the MoE layer
+    groups the whole batch's tokens, ``models.model.moe_groups``) and,
+    over ``model``, its blocks; the cache is this rank's.  On NCCL the
+    step is captured with its collectives; gloo's cannot be, and every
+    step runs eagerly, decided from the backend before the first step.
+    Every rank returns the whole batch's tokens."""
     import torch
 
     from repro_torch.train import steps
@@ -238,8 +242,11 @@ def generate(cfg, model, prompts, gen: int, patches=None, frames=None, *,
         import torch.distributed as dist
 
         from repro_torch.dist.sharding import serving_rows
+        from repro_torch.dist.spmd import RowGroup
         backend = dist.get_backend(spmd.model_group)
         rows = serving_rows(cfg, B, spmd)
+        if rows[1] - rows[0] < B:
+            spmd.rows = RowGroup(spmd.dp_group, spmd.dpn)
     capture = graph and on_cuda and gen > 2 and backend in (None, "nccl")
     spans = []
 
@@ -324,7 +331,7 @@ def load_model(cfg, seed: int, device, tp=None):
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     keep = None if tp is None else (
-        lambda name, t: take_block(t, param_block(cfg, name, tp)))
+        lambda name, t: take_block(t, param_block(cfg, name, t.shape, tp)))
     return init_params(cfg, gen, dev,
                        dtype=getattr(torch, cfg.compute_dtype), keep=keep)
 
@@ -332,11 +339,11 @@ def load_model(cfg, seed: int, device, tp=None):
 def refuse_model_parallel(cfg, model_parallel: int, prompt_len: int):
     """Raise ``ValueError``, before any rank starts, for what a later
     tensor-parallel slice brings to ``--model-parallel``: a family other
-    than dense and vlm (the ssm, hybrid, encdec and MoE configs), head,
-    ``d_ff`` or KV-head counts the axis does not divide, ranks reading
-    part of two KV groups (``train.steps.tensor_parallel_split(...,
-    serving=True)``), and a prompt the axis does not divide (the
-    prefill cuts the sequence over it)."""
+    than dense, vlm and MoE (the ssm, hybrid and encdec configs), head,
+    ``d_ff``, expert-column or KV-head counts the axis does not divide,
+    ranks reading part of two KV groups (``train.steps.
+    tensor_parallel_split(..., serving=True)``), and a prompt the axis
+    does not divide (the prefill cuts the sequence over it)."""
     from repro_torch.train.steps import tensor_parallel_split
     if model_parallel <= 1:
         return

@@ -26,10 +26,12 @@ boundaries are collectives with their gradients
 (``dist.spmd.gather_seq`` before a block, ``scatter_seq`` after it).
 A serving rank holds only its blocks (``TensorParallel.blocks``): the
 layers use them as they are, and the decode step sums the row-split
-outputs in float32 (``dist.spmd.sum_over_model``).  ``moe_layer``'s
-``tp`` places the experts as the reference's ``gspmd`` constraints do:
-over ``model`` along E where the axis divides E, else each expert's
-hidden columns (F) over it, ``ye`` a partial sum.
+outputs in float32 (``dist.spmd.sum_over_model``): ``wo``'s and
+``wd``'s, and a MoE layer's (its experts' and its shared experts'),
+kept in float32 until then.  ``moe_layer``'s ``tp`` places the experts
+as the reference's ``gspmd`` constraints do: over ``model`` along E
+where the axis divides E, else each expert's hidden columns (F) over
+it, ``ye`` a partial sum.
 """
 from __future__ import annotations
 
@@ -276,13 +278,16 @@ def mlp(cfg, x, wg, wu, wd, tp=None):
 
 
 def partial_matmul(x, w, tp=None):
-    """``x @ w``; on a serving rank (``tp.blocks``) a row-split matmul's
-    partial sum, kept in float32 (on the card cuBLAS writes its float32
-    accumulator, ``torch.mm``'s ``out_dtype``; on the CPU the same sums
-    in float32), so that the sum over ``model`` rounds once to the
-    compute dtype, as the one-device matmul does."""
+    """``x @ w`` (w (K, N), or (E, K, N) against x (E, M, K)); on a
+    serving rank (``tp.blocks``) a row-split matmul's partial sum, kept
+    in float32 (on the card cuBLAS writes its float32 accumulator,
+    ``torch.mm``'s and ``torch.bmm``'s ``out_dtype``; on the CPU the
+    same sums in float32), so that the sum over ``model`` rounds once to
+    the compute dtype, as the one-device matmul does."""
     if tp is None or not tp.blocks or x.dtype == torch.float32:
         return x @ w
+    if x.is_cuda and w.dim() == 3:
+        return torch.bmm(x, w, out_dtype=torch.float32)
     if x.is_cuda:
         return torch.mm(x.reshape(-1, x.shape[-1]), w,
                         out_dtype=torch.float32).reshape(
@@ -350,9 +355,12 @@ def moe_layer(cfg, x, p, tp=None):
     combines their contributions; otherwise each runs its block of
     every expert's hidden columns (F), whose ``ye`` are partial sums.
     The expert leaves come whole (cut here) or as this rank's block
-    already (a sharded step's, told apart by their shape).  The shared
-    experts are ``mlp``'s split; the result is this rank's partial sum
-    of the layer's output, for ``dist.spmd.scatter_seq`` to add, and the
+    already (a sharded step's or a serving rank's, told apart by their
+    shape).  The shared experts are ``mlp``'s split; the result is this
+    rank's partial sum of the layer's output, for ``dist.spmd.
+    scatter_seq`` or ``sum_over_model`` to add (float32 on a serving
+    rank: the experts' outputs and their gated sum are not rounded to
+    x's dtype before the ranks' partial sums meet), and the
     load-balance term's gradient is counted once (``grad_once``)."""
     probs, gate, idx = route(cfg, x, p["router"])
     ws = [p["wg"], p["wu"], p["wd"]]
@@ -374,8 +382,9 @@ def moe_layer(cfg, x, p, tp=None):
         ws = [w[..., f0:f1] if w.shape[-1] == F else w for w in (wg, wu)] \
             + [wd[:, f0:f1] if wd.shape[1] == F else wd]
     xe, plan = expert_batch(cfg, x, idx, experts)
-    ye = expert_ffn(cfg, xe, *ws)
-    out = combine(ye, gate, plan, x.dtype, experts)
+    ye = expert_ffn(cfg, xe, *ws, tp)
+    out = combine(ye, gate, plan, torch.float32 if tp.blocks else x.dtype,
+                  experts)
     aux = grad_once(load_balance(cfg, probs, idx), tp)
     return shared_experts(cfg, x, out, p, tp), aux
 
@@ -404,15 +413,22 @@ def expert_batch(cfg, x, idx, experts=None):
     return xe.reshape(G, El, C, D), (C, k, se, order, rank, keep)
 
 
-def expert_ffn(cfg, xe, wg, wu, wd):
+def expert_ffn(cfg, xe, wg, wu, wd, tp=None):
     """Each expert's MLP on its slots: xe (G, E, C, D) against (E, D, F)
-    ``wg``/``wu`` and (E, F, D) ``wd``."""
+    ``wg``/``wu`` and (E, F, D) ``wd``; on a serving rank (``tp.blocks``)
+    the output in float32 (``partial_matmul``: the F-split's partial
+    sums, or its experts' whole outputs, rounded once after the sum over
+    ``model``)."""
     h = torch.einsum("gecd,edf->gecf", xe, wg)
     if cfg.act == "swiglu":
         h = F.silu(h) * torch.einsum("gecd,edf->gecf", xe, wu)
     else:
         h = F.gelu(h, approximate="tanh")
-    return torch.einsum("gecf,efd->gecd", h, wd)
+    if tp is None or not tp.blocks:
+        return torch.einsum("gecf,efd->gecd", h, wd)
+    G, E, C, Fb = h.shape
+    y = partial_matmul(h.transpose(0, 1).reshape(E, G * C, Fb), wd, tp)
+    return y.reshape(E, G, C, -1).transpose(0, 1)
 
 
 def combine(ye, gate, plan, dtype, experts=None):

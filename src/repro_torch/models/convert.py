@@ -57,7 +57,7 @@ def params_from_reference(cfg, tree: dict, device="cuda", tp=None) -> LM:
 
     def tensor(name, a) -> torch.Tensor:
         t = torch.from_numpy(np.array(a, copy=True))
-        return take_block(t, param_block(cfg, name, tp)).to(dev)
+        return take_block(t, param_block(cfg, name, t.shape, tp)).to(dev)
 
     def unstack(name):
         per_layer = stacks.get(name, {})

@@ -22,9 +22,9 @@ place by ``decode_step`` (the reference returns a new one):
   keys and values over the F encoder frames, written by the prefill.
 
 A tensor-parallel serving rank (``dist.spmd.TensorParallel`` with
-``blocks``, dense and vlm) holds its rows of B and the KV heads its
-query heads read (``model.tp_heads``), as ``dist.sharding.cache_pspecs``
-places them.
+``blocks``: dense, vlm and MoE) holds its rows of B and the KV heads its
+query heads read (``model.tp_heads``), or MLA's whole latent and rope
+key, as ``dist.sharding.cache_pspecs`` places them.
 """
 from __future__ import annotations
 
@@ -361,23 +361,21 @@ def decode_layer(cfg, x, lp, kind: str, cache, l: int, pos, tp=None):
     ``pos mod W``) into ``cache[...][l]`` before its attention reads
     them, advances its SSD state in place, and returns x'.
 
-    ``tp`` (a serving rank's ``TensorParallel``, a dense layer): x and
-    the norms (K4) are whole on every rank, K and V its KV heads', K5
-    its query heads against them; the partial sums after ``wo``'s rows
-    and after ``wd``'s, kept in float32, are added over ``model`` in
-    float32 and rounded once (``dist.spmd.sum_over_model``)."""
-    h = apply_norm(cfg, x, lp, "ln1")
-    if tp is not None:
+    ``tp`` (a serving rank's ``TensorParallel``, a dense or MoE layer): x
+    and the norms (K4) are whole on every rank; GQA's K and V are its KV
+    heads', K5 its query heads against them; MLA's latent and rope key
+    are whole, its heads' absorbed decode reads them; the MLP, or the
+    MoE layer's experts and shared experts, its block.  The attention's
+    and the feed-forward's partial sums, kept in float32, are added over
+    ``model`` in float32 and rounded once (``dist.spmd.sum_over_model``)."""
+
+    def summed(o):
+        if tp is None:
+            return o
         from ..dist.spmd import sum_over_model
-        k, v = new_kv(cfg, h, lp, pos, tp)
-        write_row(cache["k"][l], pos, k)
-        write_row(cache["v"][l], pos, v)
-        x = x + sum_over_model(decode_gqa_attention(
-            cfg, h, lp, cache["k"][l], cache["v"][l], pos, tp=tp), tp,
-            x.dtype)
-        h2 = apply_norm(cfg, x, lp, "ln2")
-        return x + sum_over_model(mlp(cfg, h2, lp.get("wg"), lp["wu"],
-                                      lp["wd"], tp=tp), tp, x.dtype)
+        return sum_over_model(o, tp, x.dtype)
+
+    h = apply_norm(cfg, x, lp, "ln1")
     if kind == "ssm":
         o, _ = ssm_lib.ssm_mixer(cfg, h, ssm_params(lp),
                                  state=cache["state"][l])
@@ -396,14 +394,14 @@ def decode_layer(cfg, x, lp, kind: str, cache, l: int, pos, tp=None):
         write_row(cache["ckv"][l], pos, ckv)
         write_row(cache["kr"][l], pos, kr)
         o = mla_decode_attention(cfg, h, lp, cache["ckv"][l],
-                                 cache["kr"][l], pos)
+                                 cache["kr"][l], pos, tp)
     else:
-        k, v = new_kv(cfg, h, lp, pos)
+        k, v = new_kv(cfg, h, lp, pos, tp)
         write_row(cache["k"][l], pos, k)
         write_row(cache["v"][l], pos, v)
         o = decode_gqa_attention(cfg, h, lp, cache["k"][l], cache["v"][l],
-                                 pos)
-    x = x + o
+                                 pos, tp=tp)
+    x = x + summed(o)
     if cfg.family == "encdec":
         hx = apply_norm(cfg, x, lp, "lnx")
         x = x + decode_gqa_attention(
@@ -411,7 +409,7 @@ def decode_layer(cfg, x, lp, kind: str, cache, l: int, pos, tp=None):
             kv_len=cfg.encoder_frames, use_rope=False, prefix="x_")
     if kind != "ssm":
         h2 = apply_norm(cfg, x, lp, "ln2")
-        x = x + _moe_or_mlp(cfg, h2, lp, kind == "moe")[0]
+        x = x + summed(_moe_or_mlp(cfg, h2, lp, kind == "moe", tp)[0])
     return x
 
 
@@ -518,13 +516,13 @@ def prefill(cfg, model, tokens, *, patches=None, frames=None):
 def _serving_tp(cfg, model):
     """The ``TensorParallel`` a serving step runs under (None off one):
     the model must hold this rank's blocks (``tp.blocks``), and only
-    the dense and vlm families split."""
+    the dense, vlm and MoE families split."""
     tp = tensor_parallel()
     if tp is not None and not (tp.blocks
-                               and cfg.family in ("dense", "vlm")):
+                               and cfg.family in ("dense", "vlm", "moe")):
         raise NotImplementedError(
-            f"{cfg.name}: tensor-parallel serving splits the dense and vlm "
-            f"families, the model holding this rank's blocks "
+            f"{cfg.name}: tensor-parallel serving splits the dense, vlm and "
+            f"MoE families, the model holding this rank's blocks "
             f"(launch.serve.load_model)")
     return tp
 

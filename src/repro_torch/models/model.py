@@ -459,16 +459,25 @@ def mla_attention(cfg, x, p, tp=None):
     return partial_matmul(o.reshape(B, S, Hq * vd), wo, tp), (c_kv, k_rope)
 
 
-def mla_decode_attention(cfg, x, p, cache_ckv, cache_kr, pos):
+def mla_decode_attention(cfg, x, p, cache_ckv, cache_kr, pos, tp=None):
     """One token's MLA against the layer's latent cache ``cache_ckv`` (B,
     S, r) and rope keys ``cache_kr`` (B, S, rd), which already hold this
     step's rows at ``pos`` (a host integer or a 0-d device tensor): the
     absorbed form (``w_uk`` folded into the query, ``w_uv`` applied
     after), scores and values in float32 over all S rows, those after
     ``pos`` masked, as the reference computes it (no shape depends on
-    ``pos``), and never read into the output."""
+    ``pos``), and never read into the output.
+
+    ``tp`` (a serving rank's ``TensorParallel``, ``tp.blocks``): ``p``
+    holds this rank's blocks of the heads (``dist.sharding.param_block``:
+    its columns of ``wq``, ``w_uk`` and ``w_uv``, its rows of ``wo``),
+    which run against the whole latent cache; the result is this rank's
+    partial sum, in float32 (``common.partial_matmul``)."""
     B = x.shape[0]
     Hq = cfg.n_heads
+    if tp is not None:
+        h0, h1 = tp.block(Hq)
+        Hq = h1 - h0
     nd, rd, vd, r = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
                      cfg.kv_lora_rank)
     f32 = torch.float32
@@ -489,12 +498,13 @@ def mla_decode_attention(cfg, x, p, cache_ckv, cache_kr, pos):
     o_lat = torch.einsum("bhst,btr->bshr", w, ckv)
     o = torch.einsum("bshr,rhd->bshd", o_lat,
                      p["w_uv"].reshape(r, Hq, vd).to(f32))
-    return o.reshape(B, 1, Hq * vd).to(x.dtype) @ p["wo"]
+    return partial_matmul(o.reshape(B, 1, Hq * vd).to(x.dtype), p["wo"], tp)
 
 
 def new_latent(cfg, x, p, pos):
     """This step's MLA cache rows: the latent (B, 1, r) and the rope key
-    after rope (B, 1, rd)."""
+    after rope (B, 1, rd); alike on every tensor-parallel rank, which
+    holds ``w_dkv`` and ``w_kr`` whole."""
     B = x.shape[0]
     kr = rope((x @ p["w_kr"])[..., None, :],
               step_positions(pos, B, x.device), cfg.rope_theta)
@@ -532,8 +542,9 @@ def _moe_or_mlp(cfg, x, p, is_moe: bool, tp=None):
     otherwise (off a mesh, or on a ``model`` axis that does not divide
     and is not divided by the expert count), as the reference.
 
-    ``tp`` (a sharded step's ``TensorParallel``; x the gathered sequence,
-    the same on every rank): the result is this rank's partial sum.
+    ``tp`` (a sharded step's or a serving rank's ``TensorParallel``; x
+    the same on every rank, a gathered sequence or a decode step's
+    tokens): the result is this rank's partial sum.
     ``moe_layer`` splits the experts itself; around ``moe_layer_ep``,
     which hands every rank the whole gradient of what it holds whole,
     its token groups and router count their gradient once

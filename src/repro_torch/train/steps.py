@@ -285,19 +285,26 @@ def tensor_parallel_split(cfg, mp: int, serving: bool = False):
     shared experts' ``d_ff_moe · n_shared_experts``) and, where it does
     not divide the experts and the MoE layer is ``moe_layer``'s (the
     F-split), ``d_ff_moe``; a GQA rank's query heads must be whole groups
-    of a KV head's or part of one.  ``serving``: the dense and vlm
-    families, and the decode cache's KV heads must lie as
+    of a KV head's or part of one.  ``serving``: the dense, vlm and MoE
+    families, the MoE layer ``moe_layer``'s (``moe_impl="gspmd"``); a
+    GQA decode cache's KV heads must lie as
     ``dist.sharding.cache_pspecs`` puts them, over ``model`` where ``mp``
     divides them, else whole, and so be the heads each rank's queries
     read: ``mp`` divides ``n_kv_heads``, or there is one
-    (``ValueError``)."""
-    families = ("dense", "vlm") if serving else ("dense", "moe")
+    (``ValueError``); MLA's latent cache, which every head reads, is
+    whole on every rank."""
+    families = ("dense", "vlm", "moe") if serving else ("dense", "moe")
     if cfg.family not in families:
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism over a 'model' axis of {mp} "
             f"on the {cfg.family} family comes with a later "
             f"tensor-parallel slice (ROADMAP.md); this one splits the "
-            f"{' and '.join(families)} families")
+            f"{', '.join(families[:-1])} and {families[-1]} families")
+    if serving and cfg.moe_impl == "shard_map":
+        raise NotImplementedError(
+            f"{cfg.name}: tensor-parallel serving runs the MoE layer as "
+            f"moe_impl='gspmd' places it; moe_impl='shard_map' comes with "
+            f"a later tensor-parallel slice (ROADMAP.md)")
     dims = [("n_heads", cfg.n_heads)]
     if cfg.family != "moe" or cfg.first_dense_layers:
         dims.append(("d_ff", cfg.d_ff))

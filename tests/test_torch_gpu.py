@@ -1314,6 +1314,28 @@ def test_tp_serving_on_gloo_ranks_gives_the_one_rank_tokens(cuda, tmp_path):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek_v2_lite", "grok1_314b"])
+def test_moe_tp_serving_on_gloo_ranks_gives_the_one_rank_tokens(
+        arch, cuda, tmp_path):
+    """``serve --arch <MoE> --smoke --model-parallel 2`` on two gloo ranks
+    that share the card, as the dense test above: the greedy tokens of
+    the run on one rank; K4 launched on each rank, K5 on Grok-1's (GQA)
+    and none on DeepSeek-V2-Lite's (MLA's absorbed decode)."""
+    import torch_tp_serve_ranks as ranks
+    from repro_torch.dist.spmd import run_ranks
+    from repro_torch.launch import serve
+    argv = ["--arch", arch, "--smoke", "--batch", "2", "--prompt-len",
+            "24", "--gen", "6"]
+    want = serve.main(argv)
+    got = run_ranks(ranks.serve_main, 2, argv + ["--model-parallel", "2"],
+                    backend="gloo", timeout_s=300, tmpdir=str(tmp_path))
+    for tokens, launches in got:
+        np.testing.assert_array_equal(tokens, want)
+        assert launches.get("K4/rmsnorm_bf16"), launches
+        assert bool(launches.get("K5/split_bf16")) == (arch == "grok1_314b")
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n_experts", [4, 3])
 def test_moe_tp_training_on_gloo_ranks_matches_one_card(n_experts, cuda,
                                                         tmp_path):

@@ -43,6 +43,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from jax.sharding import AbstractMesh
 
 import torch_spmd_ranks as spmd_ranks
@@ -333,15 +334,108 @@ def test_deepseek_bytes_a_rank_on_the_production_mesh():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--arch", "deepseek_v2_lite", "--smoke", "--model-parallel", "2"],
-     r"deepseek_v2_lite_smoke.*moe family.*later tensor-parallel slice"),
-    (["--arch", "grok1_314b", "--smoke", "--model-parallel", "2"],
-     r"grok1_314b_smoke.*moe family.*later tensor-parallel slice")])
+    (["--arch", "deepseek_v2_lite", "--model-parallel", "32"],
+     r"deepseek_v2_lite: n_heads = 16 does not split .* of 32.*later"),
+    (["--arch", "grok1_314b", "--model-parallel", "16"],
+     r"grok1_314b: n_kv_heads = 8 does not split .* of 16.*later")])
 def test_moe_serving_on_model_parallel_is_still_refused(argv, match):
-    """``serve --arch --model-parallel`` keeps refusing the MoE family,
-    before any rank starts."""
+    """``serve --arch --model-parallel`` serves the MoE family, but still
+    refuses, before any rank starts, the splits a later tensor-parallel
+    slice brings: DeepSeek-V2-Lite's 16 heads over 32 ranks, and
+    Grok-1's 8 KV heads over 16 (each rank's decode cache would hold
+    every KV head)."""
     with pytest.raises(ValueError, match=match):
         serve_launcher.main(argv + ["--device", "cpu", "--nproc", "2"])
+
+
+@pytest.mark.parametrize("n_experts,mp", [(4, 2), (4, 4), (6, 4)])
+def test_serving_blocks_are_the_training_layers_cuts(n_experts, mp):
+    """Each serving rank's block of every MoE and MLA leaf
+    (``dist.sharding.param_block``) is the slice the tensor-parallel
+    training layers cut from the whole weight: on DeepSeek's smoke
+    shapes in float32
+    (MLA, a dense first layer, shared experts; 4 experts over 2 and 4
+    ranks, expert parallelism, 6 over 4, the F-split), ``mla_attention``,
+    ``moe_layer`` and ``mlp`` on ``head_layers`` give rank by rank the
+    same partial sums from the rank's blocks (``TensorParallel.blocks``)
+    as from the whole weights they cut themselves, and the ranks' sums
+    are the unsplit layer's; the blocks' shapes are those cuts'."""
+    from repro_torch.dist.sharding import param_block, take_block
+    from repro_torch.dist.spmd import TensorParallel
+    from repro_torch.models import common, model as mm
+    from repro_torch.models import init_params
+    cfg = ranks.config("deepseek_v2_lite",
+                       overrides={"n_experts": n_experts})
+    gen = torch.Generator().manual_seed(0)
+    lm = init_params(cfg, gen, "cpu")
+    dense, moe = dict(lm.head_layers[0].items()), dict(lm.layers[0].items())
+    x = torch.randn(2, 8, cfg.d_model, generator=gen)  # 2 groups of 8
+
+    def mlp_of(p, tp):
+        return common.mlp(cfg, x, p["wg"], p["wu"], p["wd"], tp)
+
+    def attention_of(p, tp):
+        return mm.mla_attention(cfg, x, p, tp)[0]
+
+    def moe_of(p, tp):
+        return common.moe_layer(cfg, x, p, tp)[0]
+
+    E, F = n_experts, cfg.d_ff_moe
+    for layer, fn in ((dense, mlp_of), (dense, attention_of),
+                      (moe, moe_of)):
+        whole = fn(layer, None)
+        total = torch.zeros_like(whole)
+        for r in range(mp):
+            train, serve = (TensorParallel(None, mp, r, blocks=b)
+                            for b in (False, True))
+            blocks = {k: take_block(t, param_block(cfg, k, t.shape, serve))
+                      for k, t in layer.items()}
+            got, want = fn(blocks, serve), fn(layer, train)
+            assert got.dtype == torch.float32
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+            total += got
+            if layer is moe:
+                e0, e1 = serve.block(E)
+                f0, f1 = serve.block(F)
+                want_wg = (layer["wg"][e0:e1] if E % mp == 0
+                           else layer["wg"][..., f0:f1])
+                want_wd = (layer["wd"][e0:e1] if E % mp == 0
+                           else layer["wd"][:, f0:f1])
+                assert torch.equal(blocks["wg"], want_wg)
+                assert torch.equal(blocks["wd"], want_wd)
+                for k in ("router", "ln1_g", "w_dkv", "w_kr"):
+                    assert blocks[k] is layer[k], k
+                fs = F * cfg.n_shared_experts
+                s0, s1 = serve.block(fs)
+                assert torch.equal(blocks["wd_s"], layer["wd_s"][s0:s1])
+            else:
+                h0, h1 = serve.block(cfg.n_heads)
+                nd, rd = cfg.qk_nope_dim, cfg.qk_rope_dim
+                assert torch.equal(blocks["wq"], layer["wq"][
+                    :, h0 * (nd + rd):h1 * (nd + rd)])
+                assert torch.equal(blocks["wo"], layer["wo"][
+                    h0 * cfg.v_head_dim:h1 * cfg.v_head_dim])
+                c0, c1 = serve.block(cfg.d_ff)
+                assert torch.equal(blocks["wg"], layer["wg"][:, c0:c1])
+        torch.testing.assert_close(total, whole, rtol=1e-5, atol=1e-6)
+
+
+def test_costmodel_counts_mla_latent_whole_on_every_rank():
+    """``costmodel.tp_decode`` for DeepSeek-V2-Lite at B 8, 48 cached
+    positions: every rank reads the whole latent cache, L · rows ·
+    kv_len · (kv_lora_rank + qk_rope_dim) bf16 elements, on one card as
+    on 2 ranks; a rank's weights are ``rank_param_bytes``'s; 2
+    collectives a layer and the vocabulary's gather."""
+    from repro_torch.dist.sharding import rank_param_bytes
+    from repro_torch.dist.spmd import TensorParallel
+    from repro_torch.launch.costmodel import tp_decode
+    cfg = get_config("deepseek_v2_lite")
+    one, two = tp_decode(cfg, 8, 48, 1), tp_decode(cfg, 8, 48, 2)
+    assert one["cache_bytes"] == two["cache_bytes"] \
+        == 27 * 8 * 48 * (512 + 64) * 2
+    assert two["held_weight_bytes"] == rank_param_bytes(
+        cfg, TensorParallel(None, 2, 0), 2) < one["held_weight_bytes"]
+    assert two["collectives"] == 2 * 27 + 1
 
 
 @pytest.mark.parametrize("flags,match", [
@@ -366,7 +460,8 @@ def test_tensor_parallel_split_names_the_moe_dimensions():
     """The MoE dims a split needs: the shared experts' columns, and
     ``d_ff_moe`` where the axis does not divide the experts (the
     F-split; ``moe_impl="shard_map"``'s replica path needs neither); the
-    full configs' splits that divide pass."""
+    full configs' splits that divide pass, in serving too, which refuses
+    ``moe_impl="shard_map"``."""
     base = ranks.config("deepseek_v2_lite", overrides=ranks.MOE)
     with pytest.raises(ValueError, match=r"d_ff = 150 does not split"):
         steps.tensor_parallel_split(dataclasses.replace(base, d_ff=150), 4)
@@ -382,3 +477,8 @@ def test_tensor_parallel_split_names_the_moe_dimensions():
         six, n_experts=2, moe_impl="shard_map"), 4)
     steps.tensor_parallel_split(get_config("deepseek_v2_lite"), 16)
     steps.tensor_parallel_split(get_config("grok1_314b"), 16)
+    steps.tensor_parallel_split(get_config("deepseek_v2_lite"), 16,
+                                serving=True)
+    with pytest.raises(NotImplementedError, match=r"moe_impl='shard_map'"):
+        steps.tensor_parallel_split(dataclasses.replace(
+            base, moe_impl="shard_map"), 2, serving=True)

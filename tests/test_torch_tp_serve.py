@@ -1,8 +1,9 @@
-"""The port's tensor-parallel serving of the dense and vlm families
+"""The port's tensor-parallel serving of the dense, vlm and MoE families
 (``serve --arch --model-parallel``) against the JAX reference on the
-CPU: each rank holds its blocks of the weights and of the decode cache,
-the decode step's row-split outputs are summed over ``model`` in
-float32, and the logits come back whole.
+CPU: each rank holds its blocks of the weights (heads, MLP columns,
+experts or their hidden columns, vocabulary) and of the decode cache
+(its KV heads; MLA's latent whole), the decode step's row-split outputs
+are summed over ``model`` in float32, and the logits come back whole.
 
 No process group is started in the pytest process: the ranks run in
 processes of their own (``dist.spmd.run_ranks``, one thread a rank, a
@@ -10,8 +11,11 @@ timeout), what they run in ``torch_tp_serve_ranks.py``, which imports no
 JAX; every rank case shares one group of 4 (``suite``), which runs the
 cases on 4 ranks, then the cases on 2 in two groups of 2.
 
-Each case is float32 at the smoke size, B 2, a prompt of 24 (the smoke
-vlm's 16 patches first), 8 greedy tokens, against the reference's
+Each case is float32 at the smoke size (DeepSeek-V2-Lite's with 4
+experts on (1, 2) and (1, 4), expert parallelism, and with 6 on (1, 4),
+the F-split; Grok-1's GQA 4/2 with 4 experts on (1, 2)), B 2, a prompt
+of 24 (the smoke vlm's 16 patches first), 8 greedy tokens, against the
+reference's
 prefill and its jitted ``make_decode_step`` on one CPU device (as
 ``torch_lm_parity.check_greedy``): the greedy tokens equal; the
 prefill's logits and every step's, teacher-forced on the reference's
@@ -40,16 +44,18 @@ from repro_torch.models.convert import params_from_reference
 from torch_lm_parity import TOL, grow_ref, reference_tree
 from torch_threads import capped_torch_threads  # noqa: F401
 
-ARCHS = sorted({arch for arch, _ in ranks.CASES.values()})
+MODELS = sorted({ranks.model_of(c) for c in ranks.CASES.values()})
 
 
-def _ref_run(arch):
+def _ref_run(model):
     """The reference's tree (numpy), its greedy tokens (B, G), and the
-    prefill's and each step's logits (G, B, V), float32."""
+    prefill's and each step's logits (G, B, V), float32, for ``model``
+    (``ranks.model_of``)."""
+    arch, over = model
     rcfg = dataclasses.replace(ref_smoke_config(arch),
-                               compute_dtype="float32")
+                               compute_dtype="float32", **dict(over))
     tree = reference_tree(rcfg)
-    x = ranks.inputs(ranks.config(arch))
+    x = ranks.inputs(ranks.config(*model))
     batch = {"tokens": jnp.asarray(x["prompts"])}
     if x["patches"] is not None:
         batch["patches"] = jnp.asarray(x["patches"])
@@ -69,7 +75,7 @@ def _ref_run(arch):
 
 @pytest.fixture(scope="module")
 def reference():
-    return {arch: _ref_run(arch) for arch in ARCHS}
+    return {model: _ref_run(model) for model in MODELS}
 
 
 @pytest.fixture(scope="module")
@@ -77,23 +83,23 @@ def unsharded(reference):
     """The port on one device, the same model and inputs: its tokens and
     its cache after ``generate``."""
     out = {}
-    for arch in ARCHS:
-        cfg = ranks.config(arch)
+    for m in MODELS:
+        cfg = ranks.config(*m)
         model = cast_params(cfg, params_from_reference(
-            cfg, reference[arch][0], "cpu"))
+            cfg, reference[m][0], "cpu"))
         x = ranks.inputs(cfg)
         res = serve.generate(cfg, model, x["prompts"], ranks.G,
                              patches=x["patches"])
-        out[arch] = {"tokens": res["tokens"],
-                     "cache": {k: v.numpy() for k, v in res["cache"].items()}}
+        out[m] = {"tokens": res["tokens"],
+                  "cache": {k: v.numpy() for k, v in res["cache"].items()}}
     return out
 
 
 @pytest.fixture(scope="module")
 def suite(reference, tmp_path_factory):
     d = tmp_path_factory.mktemp("tp_serve")
-    trees = {arch: r[0] for arch, r in reference.items()}
-    tokens = {arch: r[1] for arch, r in reference.items()}
+    trees = {m: r[0] for m, r in reference.items()}
+    tokens = {m: r[1] for m, r in reference.items()}
     return run_ranks(ranks.serve_suite, 4, trees, tokens, str(d),
                      timeout_s=300, tmpdir=str(d))
 
@@ -118,8 +124,8 @@ def test_tp_serving_matches_the_reference(suite, reference, case):
     """Every rank's greedy tokens equal the reference's; its prefill and
     step logits (its rows, teacher-forced) within 1e-4 of the
     reference's; gloo runs the steps eagerly and says so."""
-    arch, _ = ranks.CASES[case]
-    _, want_tokens, want_logits = reference[arch]
+    model = ranks.model_of(ranks.CASES[case])
+    _, want_tokens, want_logits = reference[model]
     for r in _ranks_of(case):
         got = suite[r][case]
         np.testing.assert_array_equal(got["tokens"], want_tokens)
@@ -134,11 +140,13 @@ def test_tp_serving_matches_the_reference(suite, reference, case):
 def test_each_rank_holds_its_block_of_the_cache(suite, unsharded, case):
     """Each rank's cache leaves are shaped as ``cache_pspecs`` puts them
     on the (data, model) mesh (the batch over ``data``, the KV heads over
-    ``model`` where they divide, else whole) and equal the unsharded
-    port's cache there, its rows and heads."""
-    arch, (dpn, mp) = ranks.CASES[case]
-    cfg = ranks.config(arch)
-    full = unsharded[arch]["cache"]
+    ``model`` where they divide, else whole; MLA's ``ckv`` and ``kr``
+    whole) and equal the unsharded port's cache there, its rows and
+    heads."""
+    _, (dpn, mp), _ = ranks.CASES[case]
+    model = ranks.model_of(ranks.CASES[case])
+    cfg = ranks.config(*model)
+    full = unsharded[model]["cache"]
     mesh = Mesh(("data", "model"), (dpn, mp),
                 (torch.device("cpu"),) * (dpn * mp))
     specs = cache_pspecs(cfg, {k: v.shape for k, v in full.items()}, mesh)
@@ -163,13 +171,18 @@ def test_each_rank_holds_its_block_of_the_cache(suite, unsharded, case):
             assert got["rows"] == (coords["data"], coords["data"] + 1)
 
 
-@pytest.mark.parametrize("case", list(ranks.CASES))
+DENSE = [c for c, (arch, _, _) in ranks.CASES.items()
+         if ranks.config(arch).family != "moe"]
+MOE = [c for c in ranks.CASES if c not in DENSE]
+
+
+@pytest.mark.parametrize("case", DENSE)
 def test_a_rank_holds_only_its_blocks_of_the_weights(suite, case):
     """A rank holds its block of each split leaf (the query heads, the
     KV heads its queries read, the MLP's columns, the vocabulary), the
     rest whole: its bytes are the model's split ones over ``model``
     plus the leaves kept whole, as ``rank_param_bytes`` counts them."""
-    arch, (_, mp) = ranks.CASES[case]
+    arch, (_, mp), _ = ranks.CASES[case]
     cfg = ranks.config(arch)
     whole = rank_param_bytes(cfg, None, 4)
     # the leaves every rank holds whole: the embedding, the norms, and
@@ -191,6 +204,73 @@ def test_a_rank_holds_only_its_blocks_of_the_weights(suite, case):
         assert shapes["embed"] == tuple(model_shapes(cfg)["embed"])
 
 
+def _moe_rank_bytes(cfg, mp: int) -> int:
+    """A hand count of the float32 bytes one rank of a ``model`` axis of
+    ``mp`` holds of a smoke MoE config, from its fields: the embedding,
+    the norms, the router and MLA's ``w_dkv`` and ``w_kr`` whole; its
+    heads' blocks; its block of the vocabulary, of the dense layer's and
+    the shared experts' columns; and its mp-th of the experts, E/mp of
+    them whole or every one's F/mp columns (the same count)."""
+    D, V, E, F = cfg.d_model, cfg.vocab, cfg.n_experts, cfg.d_ff_moe
+    h = cfg.n_heads // mp
+    if cfg.kv_lora_rank:
+        nd, rd, vd, r = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                         cfg.kv_lora_rank)
+        attn = (D * h * (nd + rd) + D * r + D * rd + r * h * nd
+                + r * h * vd + h * vd * D)
+    else:
+        dh, kv = cfg.dh, cfg.n_kv_heads // mp
+        attn = D * h * dh + 2 * D * kv * dh + h * dh * D
+    mats = 3 if cfg.act == "swiglu" else 2
+    moe = (D * E + mats * E * D * F // mp
+           + mats * D * F * cfg.n_shared_experts // mp)
+    dense = mats * D * cfg.d_ff // mp
+    L, Ld = cfg.n_layers, cfg.first_dense_layers
+    return 4 * (V * D + D * V // mp + D + 2 * D * L + L * attn + Ld * dense
+                + (L - Ld) * moe)
+
+
+@pytest.mark.parametrize("case", MOE)
+def test_a_moe_rank_holds_its_heads_experts_and_blocks(suite, case):
+    """A MoE serving rank holds its block of the heads (MLA's ``wq``,
+    ``w_uk``, ``w_uv`` and ``wo``; GQA's and the KV heads they read), of
+    the experts (E/mp of them where the axis divides E, else every
+    expert's F/mp hidden columns), of the dense layer's and the shared
+    experts' columns and of the vocabulary, the rest whole: its bytes
+    are ``rank_param_bytes``'s and a hand count's."""
+    _, (_, mp), _ = ranks.CASES[case]
+    cfg = ranks.config(*ranks.model_of(ranks.CASES[case]))
+    D, E, F = cfg.d_model, cfg.n_experts, cfg.d_ff_moe
+    for r in _ranks_of(case):
+        got = suite[r][case]
+        assert got["param_bytes"] == got["param_bytes_want"] \
+            == _moe_rank_bytes(cfg, mp)
+        shapes = got["leaf_shapes"]
+        want = {"layers.0.router": (D, E)}
+        if E % mp == 0:
+            want |= {"layers.0.wg": (E // mp, D, F),
+                     "layers.0.wd": (E // mp, F, D)}
+        else:
+            want |= {"layers.0.wg": (E, D, F // mp),
+                     "layers.0.wd": (E, F // mp, D)}
+        h = cfg.n_heads // mp
+        if cfg.kv_lora_rank:
+            nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+            r = cfg.kv_lora_rank
+            want |= {"layers.0.wq": (D, h * (nd + rd)),
+                     "layers.0.w_uk": (r, h * nd),
+                     "layers.0.w_uv": (r, h * vd),
+                     "layers.0.wo": (h * vd, D),
+                     "layers.0.w_dkv": (D, r),
+                     "head_layers.0.wd": (cfg.d_ff // mp, D),
+                     "layers.0.wd_s": (F * cfg.n_shared_experts // mp, D)}
+        else:
+            want |= {"layers.0.wq": (D, h * cfg.dh),
+                     "layers.0.wk": (D, cfg.n_kv_heads // mp * cfg.dh)}
+        for name, shape in want.items():
+            assert shapes[name] == shape, (name, r)
+
+
 def test_tp_serve_cli_prints_the_same_tokens(capfd):
     """``serve --arch --model-parallel 2 --nproc 2`` on the CPU: rank 0
     prints the reference's three lines (and the mesh), with the tokens
@@ -209,13 +289,30 @@ def test_tp_serve_cli_prints_the_same_tokens(capfd):
     assert f"sample generation (first sequence): {want[0].tolist()}" in out
 
 
+def test_moe_tp_serve_cli_prints_the_one_device_tokens(capfd):
+    """``serve --arch deepseek_v2_lite --smoke --model-parallel 2 --nproc
+    2`` on the CPU (bf16, the launcher's defaults): rank 0 prints the
+    mesh and the tokens of the run on one device, which serves the same
+    random model."""
+    argv = ["--arch", "deepseek_v2_lite", "--smoke", "--device", "cpu"]
+    want = serve.main(argv)
+    capfd.readouterr()
+    got = serve.main(argv + ["--model-parallel", "2", "--nproc", "2"])
+    np.testing.assert_array_equal(got, want)
+    out = capfd.readouterr().out
+    assert "mesh: {'data': 1, 'model': 2}  devices=2  backend=gloo  " \
+        "graph=False" in out
+    assert f"sample generation (first sequence): {want[0][:16].tolist()}" \
+        in out
+
+
 @pytest.mark.parametrize("flags,match", [
     (["--arch", "mamba2_2p7b", "--smoke", "--model-parallel", "2",
       "--nproc", "2"],
      r"ssm family comes with a later tensor-parallel slice"),
-    (["--arch", "deepseek_v2_lite", "--smoke", "--model-parallel", "2",
+    (["--arch", "hymba_1p5b", "--smoke", "--model-parallel", "2",
       "--nproc", "2"],
-     r"moe family comes with a later tensor-parallel slice"),
+     r"hybrid family comes with a later tensor-parallel slice"),
     (["--arch", "llama3_8b", "--smoke", "--model-parallel", "2",
       "--prompt-len", "25", "--nproc", "2"],
      r"a prompt of 25 positions does not split over 2"),
@@ -228,7 +325,7 @@ def test_tp_serve_cli_prints_the_same_tokens(capfd):
      r"runs over a torch.distributed process group: start it with "
      r"--nproc N or torchrun")])
 def test_serve_refuses_what_a_later_tp_slice_brings(flags, match):
-    """Before any rank starts: the ssm and MoE families, a prompt or a
+    """Before any rank starts: the ssm and hybrid families, a prompt or a
     KV-head count the axis does not divide, a head count it does not
     divide; and ``--model-parallel`` with no process group."""
     with pytest.raises(ValueError, match=match):

@@ -1,5 +1,5 @@
 """What the ranks of ``tests/test_torch_tp_serve.py`` run: tensor-parallel
-serving of the dense and vlm families on gloo ranks
+serving of the dense, vlm and MoE families on gloo ranks
 (``dist.spmd.run_ranks``), so this module imports neither JAX nor the
 reference.
 
@@ -25,27 +25,44 @@ from repro_torch.train import steps
 #: greedy tokens
 B, P, G = 2, 24, 8
 
-#: the cases: (arch, mesh (data, model)); the first two run on 4 ranks,
-#: the rest on 2
+#: the cases: (arch, mesh (data, model), config overrides); the first
+#: four run on 4 ranks, the rest on 2
 CASES = {
     # Granite-34B's one KV head on every rank, 1 query head a rank
-    "granite34_mqa_1x4": ("granite_34b", (1, 4)),
+    "granite34_mqa_1x4": ("granite_34b", (1, 4), {}),
     # two data groups of two model ranks, one row of the batch each
-    "llama_2x2": ("llama3_8b", (2, 2)),
-    "llama_1x2": ("llama3_8b", (1, 2)),
-    "qwen_bias_1x2": ("qwen2_7b", (1, 2)),
-    "granite3_1x2": ("granite3_8b", (1, 2)),
-    "granite34_mqa_1x2": ("granite_34b", (1, 2)),
-    "llava_1x2": ("llava_next_34b", (1, 2)),
+    "llama_2x2": ("llama3_8b", (2, 2), {}),
+    # MLA heads, 4 experts, one a rank (expert parallelism)
+    "deepseek_1x4": ("deepseek_v2_lite", (1, 4), {}),
+    # 6 experts on 4 ranks: each its block of every expert's hidden
+    # columns (the F-split)
+    "deepseek_e6_fsplit_1x4": ("deepseek_v2_lite", (1, 4),
+                               {"n_experts": 6}),
+    "llama_1x2": ("llama3_8b", (1, 2), {}),
+    "qwen_bias_1x2": ("qwen2_7b", (1, 2), {}),
+    "granite3_1x2": ("granite3_8b", (1, 2), {}),
+    "granite34_mqa_1x2": ("granite_34b", (1, 2), {}),
+    "llava_1x2": ("llava_next_34b", (1, 2), {}),
+    "deepseek_1x2": ("deepseek_v2_lite", (1, 2), {}),
+    # GQA 4/2 heads, 4 experts, two a rank
+    "grok_1x2": ("grok1_314b", (1, 2), {}),
 }
 #: the cases on 2 ranks, by the pair that runs them
-PAIRS = (("llama_1x2", "qwen_bias_1x2", "granite3_1x2"),
-         ("granite34_mqa_1x2", "llava_1x2"))
+PAIRS = (("llama_1x2", "qwen_bias_1x2", "granite3_1x2", "deepseek_1x2"),
+         ("granite34_mqa_1x2", "llava_1x2", "grok_1x2"))
 
 
-def config(arch):
-    """The float32 smoke config of ``arch``."""
-    return dataclasses.replace(smoke_config(arch), compute_dtype="float32")
+def model_of(case) -> tuple:
+    """The model a case serves: (arch, its config overrides as sorted
+    items), the key of its reference run."""
+    arch, _, over = case
+    return arch, tuple(sorted(over.items()))
+
+
+def config(arch, over=()):
+    """The float32 smoke config of ``arch``, with ``over`` (items)."""
+    return dataclasses.replace(smoke_config(arch), compute_dtype="float32",
+                               **dict(over))
 
 
 def inputs(cfg) -> dict:
@@ -78,8 +95,8 @@ def run_case(case, tree, want_tokens) -> dict:
     ``tree`` at this rank's blocks, ``serve.generate`` (tokens, backend,
     graph, the cache this rank holds), the logits teacher-forced on the
     reference's tokens, the weight bytes held and the rank's place."""
-    arch, (dpn, mp) = case
-    cfg = config(arch)
+    _, (dpn, mp), _ = case
+    cfg = config(*model_of(case))
     mesh = make_host_mesh(mp)
     assert tuple(mesh.shape) == (dpn, mp), tuple(mesh.shape)
     spmd = steps.serving_spmd(cfg, mesh)
@@ -114,14 +131,15 @@ def serve_suite(rank, world, trees, tokens, d):
     out = {}
     for name, case in CASES.items():
         if case[1][0] * case[1][1] == world:
-            out[name] = run_case(case, trees[case[0]], tokens[case[0]])
+            key = model_of(case)
+            out[name] = run_case(case, trees[key], tokens[key])
     dist.barrier()
     dist.destroy_process_group()
     pair, prank = divmod(rank, 2)
     _group(prank, 2, os.path.join(d, f"pair{pair}"))
     for name in PAIRS[pair]:
-        arch = CASES[name][0]
-        out[name] = run_case(CASES[name], trees[arch], tokens[arch])
+        key = model_of(CASES[name])
+        out[name] = run_case(CASES[name], trees[key], tokens[key])
     dist.barrier()
     dist.destroy_process_group()
     return out
