@@ -201,7 +201,11 @@ Phases, each printed as JSON lines:
    its full 27), Grok-1 (GQA, 8 experts) at full width and depth 2 (on
    4 or more cards depth 4 on (1, 4)), DeepSeek at depth 2 in float32
    and DeepSeek's smoke shapes with 3 experts in float32 (each expert's
-   hidden columns split, the F-split) (``SERVE_TP_RUNS``), on
+   hidden columns split, the F-split), Mamba-2-2.7B (80 SSD heads, 40
+   a rank, tied embeddings) and Whisper-medium (its encoder over 1500
+   frames and its cross-attention split by heads) at full width and
+   depth (on four cards also on (1, 4)) and each at depth 4 in float32
+   (``SERVE_TP_RUNS``), on
    ranks spawned over a ``FileStore``: one card, (1, 2) on two gloo
    ranks that share it, every step eager (gloo cannot be captured; the
    line says so); on 2 or more cards NCCL ranks, one a card, the step
@@ -209,22 +213,27 @@ Phases, each printed as JSON lines:
    at full depth on (1, 4), the float32 run on (2, 2)).  Rank 0 first
    serves the run unsharded on its card; the counts are set to 0 just
    before the split run's ``generate`` and read just after (K4 (2L + 1)
-   a pass, K5's split and combine L a step but for MLA); the prefill's
+   a pass, Mamba-2's L + 1 and K4's block entry 2L, its gated norm's
+   sums and scale; K5's split and combine L a step, Whisper's 2L, none
+   for MLA or the SSD mixer; ``serve_tp_launches``); the prefill's
    and every step's logits, teacher-forced on the one-card tokens with
    every plain version forbidden (a MoE run's tokens also routed to
    the one-card run's experts, ``serve_tp_routes``: the flips of near
    ties are printed), within 5e-2 norm-relative of the one-card
-   run's in bfloat16 (``SERVE_TP_RTOL``; LLaVA at its full 60 layers
-   printed, as in phase lm), 1e-4 in float32, printed beside the
-   one-card run's own floor (its logits computed on two halves of its
+   run's in bfloat16 (``SERVE_TP_RTOL``; LLaVA and Mamba-2 at their
+   full depth printed, as in phase lm), 1e-4 in float32, printed beside
+   the one-card run's own floor (its logits computed on two halves of its
    rows); the first step whose greedy tokens differ from the one-card
    tokens, printed (a bfloat16 near-tie may flip); each
    rank's weight bytes equal to its blocks' (``dist.sharding.
    rank_param_bytes``), its peak and step ms, ``costmodel.tp_decode``'s
-   bound; then K5 at a rank's shape with ``kv_len`` in device memory
-   and K4 at its decode and prefill rows against their plain versions
-   (1e-3, bitwise repeats), and timed (``"time"`` lines with ``"path":
-   "serve_tp"``);
+   bound; then K5 at a rank's shapes with ``kv_len`` in device memory
+   (Whisper's cross-attention over its 1500 frames too), K4 at its
+   decode and prefill rows and K4's block entry at Mamba-2's rank rows
+   ((8, 2560) and (256, 2560) of 2 ranks: each block against its plain
+   version, the blocks combined against whole-row K4 at (8, 5120) and
+   (256, 5120)) against their plain versions (1e-3, bitwise repeats),
+   and timed (``"time"`` lines with ``"path": "serve_tp"``);
 3. kernel: every K1 group's kernel against K1's plain tiled version on
    the same inputs on the card, and a second launch of it bitwise equal
    to the first (the groups whose reduce axes K1 cuts into slices
@@ -364,7 +373,7 @@ The last lines are the ``{"kernels": [...]}`` record (the main path's
 K1 groups and hand kernels, then the engine's, the float16 path's and
 the autotune winners' K1 groups, then K4 and K5 on the LM serving path,
 K6 and K7 on the training path, K4, K6 and K7 on the sharded path and
-K4 and K5 on the tensor-parallel serving path,
+K4, K4's block entry and K5 on the tensor-parallel serving path,
 each with the launches of its own counted run) and
 ``{"ok": true, "device": {...}}``; the card's ``nvidia-smi`` line is in
 the first (``device``) record.  Any failed
@@ -422,6 +431,10 @@ HAND = {
                        "src/repro/kernels/rmsnorm.py:18"),
     "K4/rmsnorm_bf16": ("src/repro_torch/csrc/rmsnorm.cu",
                         "src/repro/kernels/rmsnorm.py:18"),
+    # K4's block entry: rows split over tensor-parallel ranks
+    **{f"K4/block_{k}_{dt}": ("src/repro_torch/csrc/rmsnorm.cu",
+                              "src/repro/kernels/rmsnorm.py:18")
+       for k in ("sumsq", "scale") for dt in ("f32", "bf16")},
     **{f"K5/{k}_{dt}": ("src/repro_torch/csrc/decode_attention.cu",
                         "src/repro/kernels/decode_attention.py:20")
        for k in ("split", "combine") for dt in ("f32", "bf16")},
@@ -1053,7 +1066,8 @@ class forbid_plain:
     """Within the block, a call of any plain version in ``kernels.ref``
     raises: the decode step counted there must run the kernels alone."""
 
-    NAMES = ("rmsnorm", "decode_attention", "decode_attention_split",
+    NAMES = ("rmsnorm", "rmsnorm_block_sumsq", "rmsnorm_block_scale",
+             "decode_attention", "decode_attention_split",
              "decode_attention_combine")
 
     def __init__(self, ref):
@@ -2944,30 +2958,46 @@ SERVE_TP_BATCH, SERVE_TP_GEN = 8, 32
 #: rank beside one whole leaf drawn at a time), on four cards depth 4
 #: over (1, 4) (~43 GB unsharded on rank 0's card before its ranks
 #: load); DeepSeek at depth 2 in float32; and DeepSeek's smoke shapes
-#: in float32 with 3 experts, which 2 ranks do not divide (the F-split)
+#: in float32 with 3 experts, which 2 ranks do not divide (the F-split).
+#: The ssm and encdec families: Mamba-2-2.7B (64 layers, d_model 2560,
+#: 80 SSD heads of 64, state 128, tied; ~5.4 GB) and Whisper-medium (24 +
+#: 24 layers, 16 heads, 1500 frames) at full width and depth, and each
+#: at depth 4 in float32 (Whisper's encoder cut to 4 too); Mamba-2 at
+#: depth 4 in bfloat16 too, where the bound holds it (its random model
+#: amplifies bfloat16 roundings with depth: 1.2e-2 from one card at
+#: depth 4, 4.8e-2 at 8, 0.18 at 16, 0.93 at 64, PERF.md); on four
+#: cards the full-depth ones also on (1, 4)
 _SERVE_TP_MOE = (("grok1_314b", 2, 2, 32, "bfloat16"),
                  ("deepseek_v2_lite", 2, 2, 32, "float32"),
                  ("deepseek_v2_lite", None, 2, 32, "float32",
                   {"smoke": True, "n_experts": 3}))
+_SERVE_TP_SSM_ENCDEC = (("mamba2_2p7b", None, 2, 32, "bfloat16"),
+                        ("whisper_medium", None, 2, 32, "bfloat16"),
+                        ("mamba2_2p7b", 4, 2, 32, "float32"),
+                        ("whisper_medium", 4, 2, 32, "float32"),
+                        ("mamba2_2p7b", 4, 2, 32, "bfloat16"))
 SERVE_TP_RUNS = {
     1: ((2, (("llama3_8b", None, 2, 32, "bfloat16"),
              ("llava_next_34b", 8, 2, 608, "bfloat16"),
              ("granite_34b", 8, 2, 32, "bfloat16"),
              ("llama3_8b", 4, 2, 32, "float32"),
-             ("deepseek_v2_lite", 8, 2, 32, "bfloat16")) + _SERVE_TP_MOE),),
+             ("deepseek_v2_lite", 8, 2, 32, "bfloat16")) + _SERVE_TP_MOE
+         + _SERVE_TP_SSM_ENCDEC),),
     2: ((2, (("llama3_8b", None, 2, 32, "bfloat16"),
              ("llava_next_34b", None, 2, 608, "bfloat16"),
              ("granite_34b", 8, 2, 32, "bfloat16"),
              ("llama3_8b", 4, 2, 32, "float32"),
              ("deepseek_v2_lite", None, 2, 32, "bfloat16"))
-         + _SERVE_TP_MOE),),
+         + _SERVE_TP_MOE + _SERVE_TP_SSM_ENCDEC),),
     4: ((2, (("llama3_8b", None, 2, 32, "bfloat16"),
              ("granite_34b", 8, 2, 32, "bfloat16"),
              ("deepseek_v2_lite", None, 2, 32, "bfloat16"))
-         + _SERVE_TP_MOE[1:]),
+         + _SERVE_TP_MOE[1:] + _SERVE_TP_SSM_ENCDEC),
         (4, (("llava_next_34b", None, 4, 608, "bfloat16"),
              ("llama3_8b", 4, 2, 32, "float32"),
-             ("grok1_314b", 4, 4, 32, "bfloat16")))),
+             ("grok1_314b", 4, 4, 32, "bfloat16"),
+             ("mamba2_2p7b", None, 4, 32, "bfloat16"),
+             ("whisper_medium", None, 4, 32, "bfloat16")))),
 }
 #: the logits of the split model against the one-card run on the same
 #: seed, norm-relative, every step teacher-forced on the one-card run's
@@ -2996,8 +3026,9 @@ def forced_logits(cfg, model, x, tokens, spmd=None, rows=None):
     P, G = x["prompts"].shape[1], tokens.shape[1]
     dev = model.device
     batch = {"tokens": torch.as_tensor(x["prompts"][lo:hi], device=dev)}
-    if x["patches"] is not None:
-        batch["patches"] = torch.as_tensor(x["patches"][lo:hi], device=dev)
+    for name in ("patches", "frames"):
+        if x[name] is not None:
+            batch[name] = torch.as_tensor(x[name][lo:hi], device=dev)
     logits, cache = steps.make_prefill_step(cfg, spmd)(model, batch)
     cache = grow_cache(cfg, cache, P + G)
     step = steps.make_decode_step(cfg, spmd)
@@ -3111,7 +3142,7 @@ def serve_tp_rank(rank: int, world: int, seed: int, runs,
             base = torch.cuda.memory_allocated()
             model = load_model(cfg, seed, dev)
             res = generate(cfg, model, x["prompts"], G,
-                           patches=x["patches"])
+                           patches=x["patches"], frames=x["frames"])
             box[0] = res["tokens"]
             run["unsharded"] = {
                 "step_ms": res["step_ms"][1:], "captures": res["captures"],
@@ -3141,12 +3172,12 @@ def serve_tp_rank(rank: int, world: int, seed: int, runs,
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
         generate(cfg, model, x["prompts"], 2, patches=x["patches"],
-                 spmd=spmd)                                  # warm-up
+                 frames=x["frames"], spmd=spmd)              # warm-up
         torch.cuda.synchronize()
         dist.barrier()
         LAUNCHES.reset()
         res = generate(cfg, model, x["prompts"], G, patches=x["patches"],
-                       spmd=spmd)
+                       frames=x["frames"], spmd=spmd)
         torch.cuda.synchronize()
         launches = dict(LAUNCHES.by_kernel)
         peak = torch.cuda.max_memory_allocated() - base
@@ -3155,6 +3186,19 @@ def serve_tp_rank(rank: int, world: int, seed: int, runs,
         tp = spmd.tp
         (q0, q1), (kv0, kv1) = tp_heads(cfg, tp)
         b = rows[1] - rows[0]
+        k5 = []                 # (where, shape, mean kv_len) of K5's calls
+        if cfg.n_heads and not cfg.kv_lora_rank:
+            heads = [b, q1 - q0, kv1 - kv0]
+            k5.append(["decode", heads + [P + G, cfg.dh], P + G // 2])
+            if cfg.family == "encdec":
+                F = cfg.encoder_frames
+                k5.append(["decode cross", heads + [F, cfg.dh], F])
+        k4 = [] if cfg.norm == "layernorm" else \
+            [[b, cfg.d_model], [b * P // mp, cfg.d_model]]
+        # K4's block entry: the gated norm over the rank's d_inner block,
+        # at a decode step's rows and over the prefill's whole sequence
+        k4_block = [[b, cfg.d_inner // mp], [b * P, cfg.d_inner // mp]] \
+            if cfg.family == "ssm" else []
         run["tp"] = {
             "mesh": spmd.describe(), "coords": [spmd.dp_rank,
                                                 spmd.model_rank],
@@ -3168,10 +3212,8 @@ def serve_tp_rank(rank: int, world: int, seed: int, runs,
             "launches": launches,
             "moe_calls_routed": len(routes.ids),
             "routing_flip_gaps": routes.flips,
-            "shapes": {"K5": None if cfg.kv_lora_rank else
-                       [b, q1 - q0, kv1 - kv0, P + G, cfg.dh],
-                       "K4": [[b, cfg.d_model],
-                              [b * P // mp, cfg.d_model]]}}
+            "shapes": {"K5": k5, "K4": k4, "K4_block": k4_block,
+                       "model_parallel": mp}}
         if rank == 0:
             run["one_card_tokens"] = tokens
             want = whole[:, rows[0]:rows[1]]
@@ -3195,10 +3237,10 @@ def serve_tp_phase(args, failures: list, smi_line: str) -> list:
     step at which the greedy tokens differ from its tokens (printed: a
     bfloat16 near-tie may flip; a MoE run's logits are taken with its
     tokens routed to the one-card run's experts, and the near ties its
-    own router flipped are printed), K4 and K5 launched as often as the
-    path launches them (MLA's decode: no K5), each rank's weight bytes
-    its blocks', its peak and step ms, the cost model's bound beside
-    them.  Then K4 and K5 at each
+    own router flipped are printed), K4, K4's block entry and K5
+    launched as often as the path launches them (``serve_tp_launches``),
+    each rank's weight bytes its blocks', its peak and step ms, the cost
+    model's bound beside them.  Then K4, K4's block entry and K5 at each
     bfloat16 run's shapes on a rank against their plain versions, and
     timed; returns their records (``"path": "serve_tp"``)."""
     import shutil
@@ -3227,7 +3269,7 @@ def serve_tp_phase(args, failures: list, smi_line: str) -> list:
             shutil.rmtree(d, ignore_errors=True)
         done += [(nproc, run, [r["runs"][i] for r in res])
                  for i, run in enumerate(runs)]
-    records = []
+    records, checked = [], set()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
 
     def randn(*shape, dtype=torch.bfloat16):
@@ -3238,10 +3280,7 @@ def serve_tp_phase(args, failures: list, smi_line: str) -> list:
         tp0, un = r0["tp"], r0["unsharded"]
         cfg, _ = serve_tp_config(arch, depth, dtype, *over)
         L, short = cfg.n_layers, SHORT[dtype]
-        want_launches = {f"K4/rmsnorm_{short}": (2 * L + 1) * G}
-        if not cfg.kv_lora_rank:           # MLA's decode launches no K5
-            want_launches |= {f"K5/split_{short}": L * (G - 1),
-                              f"K5/combine_{short}": L * (G - 1)}
+        want_launches = serve_tp_launches(cfg, G, short)
         toks = tp0["tokens"]
         differ = np.argwhere((toks != r0["one_card_tokens"]).any(0))
         kv_mean = P + G // 2
@@ -3305,27 +3344,54 @@ def serve_tp_phase(args, failures: list, smi_line: str) -> list:
                    if backend == "nccl" else not tp0["graph"]))
         if not ok:
             failures.append(f"serve_tp {arch} {dtype} {tp0['mesh']}: {line}")
-        if dtype == "bfloat16":
-            records += serve_tp_kernels(cfg, tp0["shapes"], kv_mean,
-                                        tp0["launches"], randn, failures,
-                                        f"{arch} {mp}-way ")
+        if dtype == "bfloat16" and (arch, mp) not in checked:
+            # a model's kernels once a split, at its first run's shapes
+            checked.add((arch, mp))
+            records += serve_tp_kernels(cfg, tp0["shapes"], tp0["launches"],
+                                        randn, failures, f"{arch} {mp}-way ")
     return records
 
 
-def serve_tp_kernels(cfg, shapes: dict, kv_len: int, launches: dict, randn,
+def serve_tp_launches(cfg, G: int, short: str) -> dict:
+    """The hand kernels' launches in a tensor-parallel ``generate`` of
+    ``G`` tokens on a rank (the prefill and G - 1 decode steps): K4 at
+    every whole-row RMSNorm, 2L + 1 a pass (the ssm family L + 1: ``ln1``
+    and the final norm), K4's block entry 2L a pass for the SSD mixer's
+    gated norm (the sums, then the scale), none with LayerNorm; K5's
+    split and combine L a step (a Whisper decoder 2L: self- and
+    cross-attention), none for MLA's decode or the SSD mixer."""
+    L, fam = cfg.n_layers, cfg.family
+    out = {}
+    if cfg.norm != "layernorm":
+        out[f"K4/rmsnorm_{short}"] = ((L if fam == "ssm" else 2 * L) + 1) * G
+    if fam == "ssm":
+        out |= {f"K4/block_sumsq_{short}": L * G,
+                f"K4/block_scale_{short}": L * G}
+    k5 = 0 if cfg.kv_lora_rank or fam == "ssm" else \
+        (2 * L if fam == "encdec" else L)
+    if k5:
+        out |= {f"K5/split_{short}": k5 * (G - 1),
+                f"K5/combine_{short}": k5 * (G - 1)}
+    return out
+
+
+def serve_tp_kernels(cfg, shapes: dict, launches: dict, randn,
                      failures: list, label: str) -> list:
-    """K5 (``kv_len`` in device memory, as the decode reads it) at a
-    rank's shape and K4 at its decode and prefill rows, each against its
-    plain version with a bitwise repeat, then timed (``lm_time``); no
-    K5 where MLA's decode launches none."""
+    """K5 (``kv_len`` in device memory, as the decode reads it) at each
+    of a rank's shapes (a Whisper decoder's cross-attention too), K4 at
+    its decode and prefill rows (``d_model``; none with LayerNorm) and
+    K4's block entry at its gated-norm rows (``k4_block_checks``), each
+    against its plain version with a bitwise repeat, then timed
+    (``lm_time``); no K5 where MLA's decode or the SSD mixer launch
+    none."""
     import torch
 
     from repro_torch.kernels import decode_attention as k5
     from repro_torch.kernels import ref
 
     decode = []
-    if shapes["K5"] is not None:
-        b, hq, hkv, S, d = shapes["K5"]
+    for where, shape, kv_len in shapes["K5"]:
+        b, hq, hkv, S, d = shape
         q, kk, vv = (randn(b, hq, d), randn(b, S, hkv, d),
                      randn(b, S, hkv, d))
         kl = torch.full((), kv_len, dtype=torch.int32, device="cuda")
@@ -3335,20 +3401,105 @@ def serve_tp_kernels(cfg, shapes: dict, kv_len: int, launches: dict, randn,
                                                          kv_len=kl))
         same = torch.equal(bits(got), bits(again))
         emit({"phase": "serve_tp_kernel", "arch": cfg.name, "kernel": "K5",
-              "shape": shapes["K5"], "kv_len": kv_len, "dtype": "bfloat16",
-              "kv_len_on_device": True, "norm_rel_err": rel,
-              "max_abs_err": mabs, "repeat_bitwise": same})
+              "where": where, "shape": shape, "kv_len": kv_len,
+              "dtype": "bfloat16", "kv_len_on_device": True,
+              "norm_rel_err": rel, "max_abs_err": mabs,
+              "repeat_bitwise": same})
         if not (rel <= BF16_KERNEL_RTOL and same):
-            failures.append(f"serve_tp_kernel K5 {shapes['K5']}: error "
+            failures.append(f"serve_tp_kernel K5 {shape}: error "
                             f"{rel:.3g}, bitwise repeat {same}")
         del q, kk, vv, got, again
-        decode = [("decode", tuple(shapes["K5"]), kv_len)]
+        decode.append((where, tuple(shape), kv_len))
     k4_checked = lm_k4_checks(cfg, 0, randn, failures,
                               rows=[T for T, _ in shapes["K4"]],
-                              phase="serve_tp_kernel")
-    return lm_records(cfg, randn, k4_checked, decode, launches, failures,
+                              phase="serve_tp_kernel",
+                              widths=[cfg.d_model]) if shapes["K4"] else []
+    decode_rows = shapes["K5"][0][1][0] if shapes["K5"] else \
+        shapes["K4"][0][0]
+    recs = lm_records(cfg, randn, k4_checked, decode, launches, failures,
                       label=label, device_kv=True, host_kv=False,
-                      path="serve_tp", decode_rows=shapes["K4"][0][0])
+                      path="serve_tp", decode_rows=decode_rows)
+    if shapes["K4_block"]:
+        recs += lm_time(k4_block_checks(cfg, shapes, randn, failures),
+                        launches, failures, label, "serve_tp")
+    return recs
+
+
+def k4_block_bounds(T: int, Db: int) -> tuple:
+    """The bounds of K4's block entry on a (T, Db) bfloat16 block: the
+    sums read the block and write T float32 sums (2 operations an
+    element); the scale reads the block, the sums and the block's
+    bfloat16 gamma and writes the block (3 an element)."""
+    return (bound_of(2 * T * Db + 4 * T, 2 * T * Db),
+            bound_of(2 * 2 * T * Db + 4 * T + 2 * Db, 3 * T * Db))
+
+
+def k4_block_checks(cfg, shapes: dict, randn, failures: list) -> list:
+    """K4's block entry at a rank's gated-norm rows (``shapes
+    ["K4_block"]``, (T, d_inner / mp), bfloat16): whole rows (T,
+    d_inner) cut into the ``mp`` ranks' blocks of columns, each block's
+    sums of squares and its scaled block against their plain versions
+    (1e-3 norm-relative, bitwise repeats), the blocks' sums added and
+    the blocks joined against whole-row K4 (1e-3); one
+    ``serve_tp_kernel`` line a shape.  Returns ``lm_time`` entries for
+    the first block (no PyTorch call computes a block's statistics:
+    ``library_ms`` null)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as k4
+
+    mp, D = shapes["model_parallel"], cfg.d_inner
+    timed = []
+    for T, Db in shapes["K4_block"]:
+        x, g = randn(T, D), randn(D)
+        blocks = [(x[:, r * Db:(r + 1) * Db].contiguous(),
+                   g[r * Db:(r + 1) * Db]) for r in range(mp)]
+        errs, same, sums = [], True, []
+        for blk, _ in blocks:
+            ss = k4.rmsnorm_block_sumsq(blk)
+            errs.append(tensor_err(ss, ref.rmsnorm_block_sumsq(blk)))
+            same &= torch.equal(ss, k4.rmsnorm_block_sumsq(blk))
+            sums.append(ss)
+        total = torch.stack(sums).sum(0)
+        outs = []
+        for blk, gb in blocks:
+            got = k4.rmsnorm_block_scale(blk, total, gb, D)
+            errs.append(tensor_err(got, ref.rmsnorm_block_scale(
+                blk, total, gb, D)))
+            same &= torch.equal(bits(got), bits(k4.rmsnorm_block_scale(
+                blk, total, gb, D)))
+            outs.append(got)
+        whole = tensor_err(torch.cat(outs, 1), k4.rmsnorm(x, g))
+        rel = max(e[0] for e in errs)
+        emit({"phase": "serve_tp_kernel", "arch": cfg.name,
+              "kernel": "K4/block_bf16", "shape": [T, Db], "rows": [T, D],
+              "blocks": mp, "dtype": "bfloat16", "norm_rel_err": rel,
+              "max_abs_err": max(e[1] for e in errs),
+              "combined_vs_whole_k4": whole[0],
+              "combined_max_abs_err": whole[1], "repeat_bitwise": same})
+        if not (rel <= BF16_KERNEL_RTOL and whole[0] <= BF16_KERNEL_RTOL
+                and same):
+            failures.append(f"serve_tp_kernel K4 block entry ({T}, {Db}) "
+                            f"of {mp}: error {rel:.3g}, against whole "
+                            f"rows {whole[0]:.3g}, bitwise repeat {same}")
+        blk, gb = blocks[0]
+        where = "decode" if T == shapes["K4_block"][0][0] else "prefill"
+        b_sum, b_scale = k4_block_bounds(T, Db)
+        timed += [
+            dict(counter="K4/block_sumsq_bf16", where=f"{where} D {Db}",
+                 shape=[T, Db], err=errs[0][1], lib=None,
+                 wrapper=lambda blk=blk: k4.rmsnorm_block_sumsq(blk),
+                 plain=lambda blk=blk: ref.rmsnorm_block_sumsq(blk),
+                 bound=b_sum),
+            dict(counter="K4/block_scale_bf16", where=f"{where} D {Db}",
+                 shape=[T, Db], err=errs[mp][1], lib=None,
+                 wrapper=lambda blk=blk, gb=gb, t=total:
+                 k4.rmsnorm_block_scale(blk, t, gb, D),
+                 plain=lambda blk=blk, gb=gb, t=total:
+                 ref.rmsnorm_block_scale(blk, t, gb, D),
+                 bound=b_scale)]
+    return timed
 
 
 def decode_vs_forward(cfg, model, seq, steps: int = 1, patches=None,
@@ -3503,18 +3654,18 @@ def lm_k4_widths(cfg) -> list:
 
 
 def lm_k4_checks(cfg, P: int, randn, failures: list, rows=None,
-                 phase: str = "lm_kernel") -> list:
+                 phase: str = "lm_kernel", widths=None) -> list:
     """K4 at ``cfg``'s decode (B, D) and prefill (B·P, D) shapes (or at
-    each of ``rows``) for each of ``lm_k4_widths`` in bfloat16 against
-    its plain version, with a bitwise repeat; returns ``(T, x, gamma,
-    max_abs_err)`` for each."""
+    each of ``rows``) for each of ``lm_k4_widths`` (or ``widths``) in
+    bfloat16 against its plain version, with a bitwise repeat; returns
+    ``(T, x, gamma, max_abs_err)`` for each."""
     import torch
 
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as k4
 
     out = []
-    for D in lm_k4_widths(cfg):
+    for D in widths or lm_k4_widths(cfg):
         for T in rows or (LM_BATCH, LM_BATCH * P):
             x, g = randn(T, D), randn(D)
             got, again = k4.rmsnorm(x, g), k4.rmsnorm(x, g)

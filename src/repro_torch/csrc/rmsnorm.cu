@@ -24,6 +24,21 @@
 // the row again from L1/L2 to scale it, 16-byte packs where D and the
 // pointers allow, element by element otherwise.  Sums run in a fixed
 // order on both paths: the same inputs give the same bits every run.
+//
+// The block entry (rmsnorm_block_sumsq_launch, rmsnorm_block_scale_launch)
+// normalises rows that are split over tensor-parallel ranks, each rank
+// holding a block of D of the row's d_total columns (Mamba-2's gated
+// norm over d_inner, cut by SSD heads): the first kernel writes each
+// row's float32 sum of squares over the block, the ranks add those
+// (T,) sums (an all-reduce outside the kernel), and the second scales
+// the block by rsqrt(total / d_total + eps) * gamma, float32 throughout
+// and rounded once, as the whole-row kernel does.  It replaces no TPU
+// kernel of its own: the reference normalises the whole d_inner row on
+// its mesh (src/repro/models/ssm.py:116); on the card a rank's share of
+// the all-reduce is 4 bytes a row where gathering the rows would move
+// 2 d_total.  Bound: bytes (x read by each kernel, out written); one
+// CTA a row, the general path's 16-byte packs where D and the pointers
+// allow, element by element otherwise; sums in a fixed order.
 
 #include "hand_kernels.cuh"
 
@@ -148,6 +163,52 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+template <typename T, int V>
+__global__ void __launch_bounds__(NT)
+    rmsnorm_block_sumsq(const T* __restrict__ x, float* __restrict__ ss,
+                        int D) {
+  __shared__ float red[WARPS];
+  using P = hk::Pack<T, V>;
+  const P* xr = reinterpret_cast<const P*>(x + (long long)blockIdx.x * D);
+  const int packs = D / V;
+  float s = 0.0f;
+#pragma unroll 4
+  for (int k = threadIdx.x; k < packs; k += NT) {
+    const P v = xr[k];
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const float f = hk::to_f32(v.v[e]);
+      s += f * f;
+    }
+  }
+  s = hk::block_sum(s, red);
+  if (threadIdx.x == 0) ss[blockIdx.x] = s;
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(NT)
+    rmsnorm_block_scale(const T* __restrict__ x, const float* __restrict__ ss,
+                        const float* __restrict__ gamma, T* __restrict__ out,
+                        int D, int d_total, float eps) {
+  using P = hk::Pack<T, V>;
+  const long long base = (long long)blockIdx.x * D;
+  const P* xr = reinterpret_cast<const P*>(x + base);
+  P* orow = reinterpret_cast<P*>(out + base);
+  const int packs = D / V;
+  const float scale = rsqrtf(ss[blockIdx.x] / (float)d_total + eps);
+#pragma unroll 4
+  for (int k = threadIdx.x; k < packs; k += NT) {
+    const P v = xr[k];
+    float g[V];
+    gamma_of<V>(gamma, k * V, g);
+    P o;
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      o.v[e] = hk::from_f32<T>(hk::to_f32(v.v[e]) * scale * g[e]);
+    orow[k] = o;
+  }
+}
+
 // The path for a row of D elements of `es` bytes: 0 the register path
 // (with tpr threads a row holding ppt packs each), 1 the general path
 // in 16-byte packs, 2 element by element.
@@ -229,4 +290,69 @@ extern "C" int rmsnorm_launch(const void* x, const void* gamma, void* out,
   if (bf16)
     return (int)launch<__nv_bfloat16>(x, gamma, out, rows, D, eps, aligned, s);
   return (int)launch<float>(x, gamma, out, rows, D, eps, aligned, s);
+}
+
+// The block entry's first kernel: ss[t] = sum of x[t, :]^2 in float32,
+// x (rows, D) float32 or bfloat16 (bf16 == 1), ss (rows,) float32.
+extern "C" int rmsnorm_block_sumsq_launch(const void* x, void* ss, int rows,
+                                          int D, int bf16, void* stream) {
+  if (rows < 0 || D < 1) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int V = 16 / (bf16 ? 2 : 4);
+  const bool packed = hk::aligned16(x) && D % V == 0;
+  float* o = (float*)ss;
+  if (bf16) {
+    const __nv_bfloat16* xt = (const __nv_bfloat16*)x;
+    if (packed)
+      rmsnorm_block_sumsq<__nv_bfloat16, 8><<<rows, NT, 0, s>>>(xt, o, D);
+    else
+      rmsnorm_block_sumsq<__nv_bfloat16, 1><<<rows, NT, 0, s>>>(xt, o, D);
+  } else {
+    const float* xt = (const float*)x;
+    if (packed)
+      rmsnorm_block_sumsq<float, 4><<<rows, NT, 0, s>>>(xt, o, D);
+    else
+      rmsnorm_block_sumsq<float, 1><<<rows, NT, 0, s>>>(xt, o, D);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The block entry's second kernel: out[t, :] = x[t, :] *
+// rsqrt(ss[t] / d_total + eps) * gamma, x and out (rows, D) of one type,
+// ss (rows,) the rows' float32 sums of squares over all d_total columns,
+// gamma (D,) float32, this block's.
+extern "C" int rmsnorm_block_scale_launch(const void* x, const void* ss,
+                                          const void* gamma, void* out,
+                                          int rows, int D, int d_total,
+                                          float eps, int bf16,
+                                          void* stream) {
+  if (rows < 0 || D < 1 || d_total < D) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int V = 16 / (bf16 ? 2 : 4);
+  const bool packed = hk::aligned16(x) && hk::aligned16(out) &&
+                      hk::aligned16(gamma) && D % V == 0;
+  const float* sv = (const float*)ss;
+  const float* g = (const float*)gamma;
+  if (bf16) {
+    const __nv_bfloat16* xt = (const __nv_bfloat16*)x;
+    __nv_bfloat16* o = (__nv_bfloat16*)out;
+    if (packed)
+      rmsnorm_block_scale<__nv_bfloat16, 8><<<rows, NT, 0, s>>>(
+          xt, sv, g, o, D, d_total, eps);
+    else
+      rmsnorm_block_scale<__nv_bfloat16, 1><<<rows, NT, 0, s>>>(
+          xt, sv, g, o, D, d_total, eps);
+  } else {
+    const float* xt = (const float*)x;
+    float* o = (float*)out;
+    if (packed)
+      rmsnorm_block_scale<float, 4><<<rows, NT, 0, s>>>(xt, sv, g, o, D,
+                                                        d_total, eps);
+    else
+      rmsnorm_block_scale<float, 1><<<rows, NT, 0, s>>>(xt, sv, g, o, D,
+                                                        d_total, eps);
+  }
+  return (int)cudaGetLastError();
 }

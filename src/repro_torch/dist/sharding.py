@@ -19,9 +19,12 @@ its stacked leaf, the layer dim dropped.  On a ``DeviceMesh`` a
 ``jax.sharding.set_mesh``) that ``current_mesh`` returns.
 
 A tensor-parallel serving rank holds blocks: ``param_block`` gives a
-parameter leaf's, ``serving_rows`` its rows of the batch; its decode
-cache holds those rows and its KV heads, as ``cache_pspecs`` places
-them (``train.steps.tensor_parallel_split`` admits only such splits).
+parameter leaf's (ranges of one dim: Mamba-2's ``ssm_in_proj`` is four,
+its heads' z, xs and dt columns around B and C whole),
+``serving_rows`` its rows of the batch; its decode cache holds those
+rows and its KV heads (Whisper's cross ``xk``/``xv`` too) or SSD heads'
+``state``, as ``cache_pspecs`` places them
+(``train.steps.tensor_parallel_split`` admits only such splits).
 
 ``shard_program`` is the replica side: the reference ``shard_map``s a
 batched program over contiguous row blocks of the global batch, one
@@ -276,16 +279,20 @@ def cache_pspecs(cfg, cache, mesh) -> Any:
 # a tensor-parallel serving rank's blocks
 # ---------------------------------------------------------------------------
 
-def param_block(cfg, name: str, shape, tp) -> tuple[int, int, int] | None:
-    """(dim, lo, hi): the part of parameter leaf ``name`` (a top-level
+def param_block(cfg, name: str, shape, tp):
+    """(dim, ranges): the part of parameter leaf ``name`` (a top-level
     leaf's name, or a layer leaf's own, ``wq``) of ``shape`` (one
     layer's, unstacked) that a tensor-parallel serving rank holds on
-    ``tp`` (a ``dist.spmd.TensorParallel``), the blocks the training's
-    layers cut from whole weights:
+    ``tp`` (a ``dist.spmd.TensorParallel``): the ``[lo, hi)`` ranges of
+    one dim, held as one tensor in that order (one range for every leaf
+    but ``ssm_in_proj``), the blocks the layers cut from whole weights:
 
     * GQA: the columns of its query heads in ``wq`` and ``bq`` and their
       rows in ``wo``, of the KV heads those read in ``wk``, ``wv``,
       ``bk``, ``bv`` (``models.model.tp_heads``: MQA's one head whole);
+      a Whisper decoder's cross-attention ``x_wq``, ``x_wk``, ``x_wv``,
+      ``x_wo`` (and ``x_b*`` where the config has biases) alike, and its
+      encoder's (``enc_layers``) attention and MLP as the decoder's;
     * MLA (``model.mla_attention``): its heads' ``nope + rope`` columns
       of ``wq``, ``nope`` columns of ``w_uk``, ``v_head_dim`` columns of
       ``w_uv`` and rows of ``wo``; the latent's ``w_dkv`` and ``w_kr``
@@ -296,18 +303,42 @@ def param_block(cfg, name: str, shape, tp) -> tuple[int, int, int] | None:
     * the experts, (E, D, F) ``wg``/``wu`` and (E, F, D) ``wd``
       (``common.moe_layer``): its block of E where the ranks divide it,
       else its block of every expert's F;
+    * the SSD mixer (``models.ssm.ssm_mixer``), its block h0:h1 of the
+      ``ssm_heads`` of P columns: ``ssm_in_proj``'s columns (z, xs, B,
+      C, dt) in four ranges, z's and xs's ``[h0 P, h1 P)``, B and C
+      whole, dt's ``[h0, h1)``; its heads of ``ssm_dt_bias``,
+      ``ssm_A_log``, ``ssm_D_skip``, their P columns of ``ssm_norm_g``
+      and rows of ``ssm_out_proj``;
     * ``unembed``: its block of the vocabulary's columns
       (``TensorParallel.block``).
 
-    None for a leaf held whole (``embed``, the norms, ``router``) and
-    off ``tp``."""
+    None for a leaf held whole (``embed``, tied or not: every rank looks
+    tokens up in it, and a tied model's logits read the rank's
+    vocabulary rows of it, ``forward.unembed``; the norms, ``router``,
+    ``enc_pos``) and off ``tp``."""
     if tp is None:
         return None
     if name in ("wg", "wu", "wd") and len(shape) == 3:
         E = cfg.n_experts
         if E % tp.n == 0:
-            return (0,) + tp.block(E)
-        return (2 if name != "wd" else 1,) + tp.block(cfg.d_ff_moe)
+            return 0, (tp.block(E),)
+        return (2 if name != "wd" else 1), (tp.block(cfg.d_ff_moe),)
+    if name.startswith("ssm_"):
+        P, di, N = cfg.ssm_head_dim, cfg.d_inner, cfg.ssm_state
+        h0, h1 = tp.block(cfg.ssm_heads)
+        cols = (h0 * P, h1 * P)
+        cut = {"ssm_in_proj": (1, (cols, (di + cols[0], di + cols[1]),
+                                   (2 * di, 2 * di + 2 * N),
+                                   (2 * di + 2 * N + h0,
+                                    2 * di + 2 * N + h1))),
+               "ssm_dt_bias": (0, ((h0, h1),)),
+               "ssm_A_log": (0, ((h0, h1),)),
+               "ssm_D_skip": (0, ((h0, h1),)),
+               "ssm_norm_g": (0, (cols,)),
+               "ssm_out_proj": (0, (cols,))}
+        return cut.get(name)
+    if cfg.family == "encdec" and name.startswith("x_"):
+        name = name[2:]                 # cross-attention: cut as self's
     if cfg.kv_lora_rank:
         h0, h1 = tp.block(cfg.n_heads)
         nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -315,7 +346,7 @@ def param_block(cfg, name: str, shape, tp) -> tuple[int, int, int] | None:
                  "wo": (0, vd)}.get(name)
         if heads is not None:
             dim, w = heads
-            return dim, h0 * w, h1 * w
+            return dim, ((h0 * w, h1 * w),)
     from ..models.model import tp_heads
     dh = cfg.dh
     (q0, q1), (kv0, kv1) = tp_heads(cfg, tp)
@@ -326,34 +357,39 @@ def param_block(cfg, name: str, shape, tp) -> tuple[int, int, int] | None:
            "wv": (1, kv), "bk": (0, kv), "bv": (0, kv), "wg": (1, ff),
            "wu": (1, ff), "wd": (0, ff), "wg_s": (1, fs), "wu_s": (1, fs),
            "wd_s": (0, fs),
-           "unembed": (1, tp.block(cfg.vocab))}.get(name)
-    return None if cut is None else (cut[0],) + cut[1]
+           "unembed": (1, tp.block(cfg.vocab))}
+    got = cut.get(name)
+    return None if got is None else (got[0], (got[1],))
 
 
 def take_block(t: torch.Tensor, block) -> torch.Tensor:
-    """``t``'s ``block`` (``param_block``) as a tensor of its own (``t``
-    itself where None), so that the whole leaf can be freed."""
+    """``t``'s ``block`` (``param_block``: its ranges of one dim joined in
+    order) as a tensor of its own (``t`` itself where None), so that the
+    whole leaf can be freed."""
     if block is None:
         return t
-    dim, lo, hi = block
-    return t.narrow(dim, lo, hi - lo).clone(
-        memory_format=torch.contiguous_format)
+    dim, ranges = block
+    return torch.cat([t.narrow(dim, lo, hi - lo) for lo, hi in ranges],
+                     dim).contiguous()
 
 
-def rank_param_bytes(cfg, tp, itemsize: int) -> int:
+def rank_param_bytes(cfg, tp, itemsize: int, without=()) -> int:
     """The bytes of the parameters a tensor-parallel serving rank holds
     (``param_block`` of every leaf of ``models.model_shapes``, rank
     ``tp.rank``'s; the whole model's off ``tp``), at ``itemsize`` bytes
-    an element."""
+    an element; the entries of the tree named in ``without`` (a stack,
+    ``enc_layers``, or a top-level leaf) left out."""
     from ..models.model import model_shapes
     total = 0
     for name, shape in model_shapes(cfg).items():
+        if name in without:
+            continue
         stacked = isinstance(shape, dict)
         for leaf, s in (shape.items() if stacked else [(name, shape)]):
             n, s = (s[0], list(s[1:])) if stacked else (1, list(s))
             b = param_block(cfg, leaf, s, tp)
             if b is not None:
-                s[b[0]] = b[2] - b[1]
+                s[b[0]] = sum(hi - lo for lo, hi in b[1])
             total += n * math.prod(s)
     return total * itemsize
 

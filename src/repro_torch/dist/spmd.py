@@ -163,12 +163,13 @@ class RowGroup:
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
     """The ``n`` ranks of ``group`` (this one ``rank``) hold the same rows
-    and split a dense or MoE layer between them, as the reference's
-    ``tp`` constraints place it: each computes its block of the query
-    heads (and the KV heads those read; MLA's latent whole), of the
-    MLP's columns, of the experts or of their hidden columns, and of
-    the vocabulary, and holds its block of the sequence of the residual
-    stream between the layers.  A tensor every rank holds whole takes
+    and split a dense or MoE layer between them (serving: an ssm or
+    encdec layer too), as the reference's ``tp`` constraints place it:
+    each computes its block of the query heads (and the KV heads those
+    read; MLA's latent whole), of the MLP's columns, of the experts or
+    of their hidden columns, of the SSD heads, and of the vocabulary,
+    and holds its block of the sequence of the residual stream between
+    the layers.  A tensor every rank holds whole takes
     on each rank only the gradient of this rank's use of it (a partial
     gradient); the blocks are disjoint, so the gradients summed over
     the ranks once are the whole."""

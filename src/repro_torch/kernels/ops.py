@@ -3,8 +3,10 @@ argument order (``repro.kernels.ops``): ``rmsnorm`` (K4), ``bicgk`` (K2),
 ``gemver`` (K3), ``adamw_update`` (K6), ``softmax_xent`` (K7) and
 ``decode_attention`` (K5); and ``softmax_xent_rows``, K7's per-row losses
 (the training loss masks and averages them, ``models.forward.lm_loss``),
-and ``softmax_xent_block``, K7's triple over one block of the vocabulary
-(a tensor-parallel rank's logits).
+``softmax_xent_block``, K7's triple over one block of the vocabulary
+(a tensor-parallel rank's logits), and ``rmsnorm_block_sumsq`` and
+``rmsnorm_block_scale``, K4's entry for rows split over tensor-parallel
+ranks (a rank's block of the columns).
 
 Tensors on a CUDA device always launch the kernel; tensors on the CPU
 run the plain version in ``kernels.ref``.  Nothing falls back: a failed
@@ -48,6 +50,26 @@ def rmsnorm(x, gamma, eps=1e-6):
         return ref.rmsnorm(x, gamma, eps)
     return _rmsnorm.rmsnorm(x.reshape(-1, x.shape[-1]), gamma,
                             eps).reshape(x.shape)
+
+
+def rmsnorm_block_sumsq(x):
+    """Each row's float32 sum of squares over the last dim of ``x`` (any
+    leading shape; one rank's block of the rows): x's leading shape."""
+    if _on_cpu(x):
+        return ref.rmsnorm_block_sumsq(x)
+    return _rmsnorm.rmsnorm_block_sumsq(
+        x.reshape(-1, x.shape[-1])).reshape(x.shape[:-1])
+
+
+def rmsnorm_block_scale(x, ss, gamma, d_total: int, eps=1e-6):
+    """``x · rsqrt(ss / d_total + eps) · γ`` over the last dim of ``x``
+    (one rank's block of rows of ``d_total`` columns), ``ss`` the rows'
+    float32 sums of squares over all of them (x's leading shape)."""
+    if _on_cpu(x, ss, gamma):
+        return ref.rmsnorm_block_scale(x, ss, gamma, d_total, eps)
+    return _rmsnorm.rmsnorm_block_scale(
+        x.reshape(-1, x.shape[-1]), ss.reshape(-1), gamma, d_total,
+        eps).reshape(x.shape)
 
 
 def bicgk(A, p, r):

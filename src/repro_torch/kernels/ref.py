@@ -22,6 +22,25 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
             * gamma.to(torch.float32)).to(x.dtype)
 
 
+def rmsnorm_block_sumsq(x: torch.Tensor) -> torch.Tensor:
+    """K4's block entry, first kernel: each row's float32 sum of squares
+    over the last dim of x (one rank's block of the rows)."""
+    x32 = x.to(torch.float32)
+    return torch.sum(x32 * x32, dim=-1)
+
+
+def rmsnorm_block_scale(x: torch.Tensor, ss: torch.Tensor,
+                        gamma: torch.Tensor, d_total: int,
+                        eps: float = 1e-6) -> torch.Tensor:
+    """K4's block entry, second kernel: x · rsqrt(ss / d_total + eps) · γ,
+    ``ss`` the rows' float32 sums of squares over all ``d_total``
+    columns (x's leading shape), x and γ this block's; float32, rounded
+    once to x's dtype."""
+    r = torch.rsqrt(ss.to(torch.float32) / d_total + eps)[..., None]
+    return (x.to(torch.float32) * r
+            * gamma.to(torch.float32)).to(x.dtype)
+
+
 def bicgk(A, p, r):
     """K2: q = A p ; s = Aᵀ r."""
     return torch.mv(A, p), torch.mv(A.T, r)

@@ -19,8 +19,10 @@ divides them over the cards and gives the step's lower bound.
 
 ``tp_decode(cfg, batch, kv_len, mp)`` is one rank's side of a
 tensor-parallel decode step (``serve --arch --model-parallel``): the
-rank's weight and cache bytes over the card's memory rate, beside the
-bytes of the step's collectives over NVLink.
+rank's weight and cache bytes (its KV heads; MLA's latent whole; its
+SSD heads' float32 state; a Whisper decoder's cross K/V heads; a tied
+model's vocabulary rows of the embedding) over the card's memory rate,
+beside the bytes of the step's collectives over NVLink.
 """
 from __future__ import annotations
 
@@ -193,19 +195,35 @@ def estimate(cfg, shape) -> CostEstimate:
     return CostEstimate(model_flops, impl_flops, hbm, pb, notes)
 
 
+#: the leaves of an encoder-decoder's encoder, which a decode step does not
+#: read (``models.model.model_shapes``)
+ENCODER_LEAVES = ("enc_layers", "enc_pos", "encf_g", "encf_b")
+
+
 def tp_decode(cfg, batch: int, kv_len: int, mp: int, dpn: int = 1) -> dict:
     """One rank's bound for a decode step served over a ``model`` axis of
     ``mp`` (and ``dpn`` data-parallel groups, each serving its rows where
     they divide ``batch``), at ``kv_len`` cached positions: the bytes it
     reads, its weights' blocks (``dist.sharding.rank_param_bytes``, rank
-    0's: the longest vocabulary block) and its rows of the cache (its KV
-    heads'; MLA's latent and rope key whole, L · rows · kv_len · (r +
-    rd)), over ``HBM_BW``; beside them the step's collectives, 2 a layer
-    (the float32 sums after the attention and the MLP or MoE layer) and
-    the vocabulary's gather, their payload and the bytes a ring moves
-    between ranks (an all-reduce 2 (n - 1) / n of its payload, an
-    all-gather (n - 1) / n of its result) over one NVLink direction.
-    The embedding, held whole, is read at the step's rows alone.  A MoE
+    0's: the longest vocabulary block) and its rows of the cache, over
+    ``HBM_BW``; beside them the step's collectives and the vocabulary's
+    gather, their payload and the bytes a ring moves between ranks (an
+    all-reduce 2 (n - 1) / n of its payload, an all-gather (n - 1) / n
+    of its result) over one NVLink direction.
+
+    The cache a rank reads: its KV heads' K and V at ``kv_len``; MLA's
+    latent and rope key whole, L · rows · kv_len · (r + rd); the ssm
+    family's float32 SSD state of its heads, L · rows · (H/mp) · P ·
+    N_state · 4 whatever ``kv_len``, which the step also writes back
+    (``cache_write_bytes``, counted in the bound; a KV row's write is
+    not); a Whisper decoder's cross K/V besides, L · rows · frames · 2 ·
+    (heads/mp) · dh.  The collectives: 2 a layer (the float32 sums
+    after the attention and the MLP or MoE layer); a Whisper decoder
+    layer 3 (the cross-attention's too); a Mamba-2 layer 2 (its gated
+    norm's (rows,) float32 sums of squares, then the mixer's output).
+    The embedding, held whole, is read at the step's rows alone, and a
+    tied model's logits read the rank's vocabulary rows of it; an
+    encoder's weights (``ENCODER_LEAVES``) are not read.  A MoE
     rank's experts all count as read: a decode step at B tokens touches
     up to B · k of them (DeepSeek-V2-Lite at B 8, top-6: up to 48 of
     its 64), so the bound is a step that reaches every one."""
@@ -214,26 +232,42 @@ def tp_decode(cfg, batch: int, kv_len: int, mp: int, dpn: int = 1) -> dict:
     item = 2 if cfg.compute_dtype == "bfloat16" else 4
     rows = batch // dpn if dpn > 1 and batch % dpn == 0 else batch
     tp = TensorParallel(None, mp, 0) if mp > 1 else None
+    L, D = cfg.n_layers, cfg.d_model
     held = rank_param_bytes(cfg, tp, item)
-    embed = 0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model * item
-    weights = held - embed + rows * cfg.d_model * item * (embed > 0)
+    # a decode step runs no encoder: Whisper's are the prefill's alone
+    enc = held - rank_param_bytes(cfg, tp, item, ENCODER_LEAVES)
+    vocab_rows = (tp.block(cfg.vocab)[1] if tp is not None else cfg.vocab) \
+        if cfg.tie_embeddings else 0
+    weights = held - enc - cfg.vocab * D * item \
+        + (rows + vocab_rows) * D * item
+    heads = cfg.n_kv_heads if mp == 1 or cfg.n_kv_heads % mp \
+        else cfg.n_kv_heads // mp
     if cfg.kv_lora_rank:
-        per_row = cfg.kv_lora_rank + cfg.qk_rope_dim
+        cache = L * rows * kv_len * (cfg.kv_lora_rank + cfg.qk_rope_dim) \
+            * item
+    elif cfg.family == "ssm":
+        cache = L * rows * (cfg.ssm_heads // mp) * cfg.ssm_head_dim \
+            * cfg.ssm_state * 4
     else:
-        heads = cfg.n_kv_heads if cfg.n_kv_heads % mp or mp == 1 \
-            else cfg.n_kv_heads // mp
-        per_row = 2 * heads * cfg.dh
-    cache = cfg.n_layers * rows * kv_len * per_row * item
-    n_coll = 2 * cfg.n_layers + 1 if mp > 1 else 0
-    reduce_payload = 2 * cfg.n_layers * rows * cfg.d_model * 4
+        cache = L * rows * kv_len * 2 * heads * cfg.dh * item
+    if cfg.family == "encdec":
+        cache += L * rows * cfg.encoder_frames * 2 * heads * cfg.dh * item
+    # a layer's (rows, D) float32 sums over model; Mamba-2's gated norm
+    # adds one of (rows,) sums of squares
+    ssm = cfg.family == "ssm"
+    sums = 3 if cfg.family == "encdec" else 1 if ssm else 2
+    n_coll = (sums + ssm) * L + 1 if mp > 1 else 0
+    reduce_payload = sums * L * rows * D * 4 + ssm * L * rows * 4
     gather_payload = rows * -(-cfg.vocab // mp) * mp * item
     wire = (2 * (mp - 1) / mp * reduce_payload
             + (mp - 1) / mp * gather_payload) if mp > 1 else 0.0
-    t_memory = (weights + cache) / HBM_BW
+    written = cache if ssm else 0
+    t_memory = (weights + cache + written) / HBM_BW
     t_coll = wire / LINK_BW
     return {"model_parallel": mp, "rows": rows, "held_weight_bytes": held,
             "weight_bytes": weights,
-            "cache_bytes": cache, "t_memory_s": t_memory,
+            "cache_bytes": cache, "cache_write_bytes": written,
+            "t_memory_s": t_memory,
             "collectives": n_coll,
             "collective_payload_bytes": (reduce_payload + gather_payload
                                          if mp > 1 else 0),

@@ -14,20 +14,26 @@ RMSNorm and K5 every GQA decode attention on the card:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \
         --smoke --device cpu
 
-Tensor-parallel serving of the dense, vlm and MoE families:
-``--model-parallel N`` splits each layer over N ranks of a process group
-(``torchrun``, NCCL one rank a GPU or gloo with ``--device cpu``; or
-``--nproc R``, which starts R ranks itself), on ``make_host_mesh(N)``
-(the other ranks serving their rows of the batch): each rank holds its
-blocks of the weights (heads, MLP columns, experts or their hidden
-columns, vocabulary) and of the decode cache (its KV heads; MLA's
-latent whole), and rank 0 prints.  On NCCL the decode step, collectives
-included, replays as one CUDA graph; gloo's steps run eagerly:
+Tensor-parallel serving of the dense, vlm, MoE, ssm and encdec
+families: ``--model-parallel N`` splits each layer over N ranks of a
+process group (``torchrun``, NCCL one rank a GPU or gloo with ``--device
+cpu``; or ``--nproc R``, which starts R ranks itself), on
+``make_host_mesh(N)`` (the other ranks serving their rows of the batch):
+each rank holds its blocks of the weights (heads, MLP columns, experts
+or their hidden columns, SSD heads, vocabulary) and of the decode cache
+(its KV heads, Whisper's cross K/V too; MLA's latent whole; its SSD
+heads' state), and rank 0 prints.  On NCCL the decode step, collectives
+included, replays as one CUDA graph; gloo's steps run eagerly.  The
+hybrid family is refused (its heads split over no axis yet):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \
         --smoke --device cpu --model-parallel 2 --nproc 2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch \
         deepseek_v2_lite --smoke --device cpu --model-parallel 2 --nproc 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_2p7b \
+        --smoke --device cpu --model-parallel 2 --nproc 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch \
+        whisper_medium --smoke --device cpu --model-parallel 4 --nproc 4
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
         --arch llava_next_34b --batch 8 --prompt-len 608 --model-parallel 4
 
@@ -338,12 +344,12 @@ def load_model(cfg, seed: int, device, tp=None):
 
 def refuse_model_parallel(cfg, model_parallel: int, prompt_len: int):
     """Raise ``ValueError``, before any rank starts, for what a later
-    tensor-parallel slice brings to ``--model-parallel``: a family other
-    than dense, vlm and MoE (the ssm, hybrid and encdec configs), head,
-    ``d_ff``, expert-column or KV-head counts the axis does not divide,
-    ranks reading part of two KV groups (``train.steps.
-    tensor_parallel_split(..., serving=True)``), and a prompt the axis
-    does not divide (the prefill cuts the sequence over it)."""
+    tensor-parallel slice brings to ``--model-parallel``: the hybrid
+    family, head, SSD-head, ``d_ff``, expert-column or KV-head counts the
+    axis does not divide, ranks reading part of two KV groups
+    (``train.steps.tensor_parallel_split(..., serving=True)``), and a
+    prompt the axis does not divide (the prefill cuts the sequence over
+    it)."""
     from repro_torch.train.steps import tensor_parallel_split
     if model_parallel <= 1:
         return

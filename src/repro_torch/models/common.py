@@ -27,18 +27,21 @@ boundaries are collectives with their gradients
 A serving rank holds only its blocks (``TensorParallel.blocks``): the
 layers use them as they are, and the decode step sums the row-split
 outputs in float32 (``dist.spmd.sum_over_model``): ``wo``'s and
-``wd``'s, and a MoE layer's (its experts' and its shared experts'),
-kept in float32 until then.  ``moe_layer``'s ``tp`` places the experts
-as the reference's ``gspmd`` constraints do: over ``model`` along E
-where the axis divides E, else each expert's hidden columns (F) over
-it, ``ye`` a partial sum.
+``wd``'s, a MoE layer's (its experts' and its shared experts'), the SSD
+mixer's ``out_proj``'s, kept in float32 until then; a norm over a row
+split between the ranks (Mamba-2's gated norm over its heads' block of
+``d_inner``) adds the rows' float32 sums of squares over them
+(``rmsnorm_over_model``, K4's block entry).  ``moe_layer``'s ``tp``
+places the experts as the reference's ``gspmd`` constraints do: over
+``model`` along E where the axis divides E, else each expert's hidden
+columns (F) over it, ``ye`` a partial sum.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..kernels import grad
+from ..kernels import grad, ops
 
 #: the mask value of the reference's online softmax
 NEG = -1e30
@@ -149,6 +152,19 @@ def rmsnorm(x, gamma, eps: float = 1e-6):
     bfloat16.  Differentiable on the training forward (``kernels.grad``:
     K4 forward, a plain float32 backward)."""
     return grad.rmsnorm(x, gamma, eps)
+
+
+def rmsnorm_over_model(x, gamma, d_total: int, tp, eps: float = 1e-6):
+    """``rmsnorm`` of rows of ``d_total`` columns split over ``tp``'s
+    ranks, x (..., D) and γ (D,) this rank's block of them: K4's block
+    entry (``kernels.ops.rmsnorm_block_sumsq``), the rows' float32 sums
+    of squares added over ``model`` (``dist.spmd.sum_over_model``, 4
+    bytes a row), then the block scaled by the whole rows' statistic
+    (``rmsnorm_block_scale``), rounded once.  Serving only: no
+    gradient."""
+    from ..dist.spmd import sum_over_model
+    ss = sum_over_model(ops.rmsnorm_block_sumsq(x), tp, torch.float32)
+    return ops.rmsnorm_block_scale(x, ss, gamma, d_total, eps)
 
 
 def layernorm(x, gamma, beta, eps: float = 1e-5):

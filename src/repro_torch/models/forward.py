@@ -22,9 +22,11 @@ place by ``decode_step`` (the reference returns a new one):
   keys and values over the F encoder frames, written by the prefill.
 
 A tensor-parallel serving rank (``dist.spmd.TensorParallel`` with
-``blocks``: dense, vlm and MoE) holds its rows of B and the KV heads its
-query heads read (``model.tp_heads``), or MLA's whole latent and rope
-key, as ``dist.sharding.cache_pspecs`` places them.
+``blocks``: dense, vlm, MoE, ssm and encdec) holds its rows of B and the
+KV heads its query heads read (``model.tp_heads``; Whisper's cross
+``xk``/``xv`` too), or MLA's whole latent and rope key, or its block of
+the SSD heads' ``state``, as ``dist.sharding.cache_pspecs`` places
+them.
 """
 from __future__ import annotations
 
@@ -79,8 +81,15 @@ def unembed(cfg, model, x, tp=None):
     """The logits of x; ``tp`` (a ``TensorParallel``): this rank's block
     of the vocabulary's columns (``TensorParallel.block``, the last
     block shorter where the ranks do not divide the vocabulary), cut
-    from the whole ``unembed`` or, ``tp.blocks``, held as it is."""
-    w = model["embed"].T if cfg.tie_embeddings else model["unembed"]
+    from the whole ``unembed`` or, ``tp.blocks``, held as it is; a tied
+    model's from its rows of ``embed``, which every rank holds whole."""
+    if cfg.tie_embeddings:
+        w = model["embed"]
+        if tp is not None:
+            lo, hi = tp.block(cfg.vocab)
+            w = w[lo:hi]
+        return x @ w.T
+    w = model["unembed"]
     if tp is not None and not tp.blocks:
         lo, hi = tp.block(w.shape[1])
         w = w[:, lo:hi]
@@ -94,15 +103,27 @@ def unembed(cfg, model, x, tp=None):
 def whisper_encode(cfg, model, frames):
     """frames (B, F, D): the precomputed embeddings of the audio frontend
     (a stub in the reference too).  Adds ``enc_pos``, runs the
-    bidirectional encoder (no rope) and its final norm."""
+    bidirectional encoder (no rope) and its final norm.
+
+    Under a serving rank's ``TensorParallel`` every rank runs all F
+    frames (Whisper's 1500 do not split over 8) on its blocks of the
+    heads and the MLP's columns, each partial sum added over ``model``
+    in float32 and rounded once (``dist.spmd.sum_over_model``): every
+    rank returns the whole ``enc_out``."""
+    from ..dist.spmd import sum_over_model
+    tp = tensor_parallel()
     x = frames.to(_compute_dtype(cfg))
     x = x + model["enc_pos"][None, :x.shape[1]]
 
+    def summed(o):
+        return o if tp is None else sum_over_model(o, tp, x.dtype)
+
     def layer(lp, x):
         a = apply_norm(cfg, x, lp, "ln1")
-        x = x + gqa_attention(cfg, a, lp, causal=False, use_rope=False)[0]
+        x = x + summed(gqa_attention(cfg, a, lp, causal=False,
+                                     use_rope=False, tp=tp)[0])
         m = apply_norm(cfg, x, lp, "ln2")
-        return x + mlp(cfg, m, lp.get("wg"), lp["wu"], lp["wd"])
+        return x + summed(mlp(cfg, m, lp.get("wg"), lp["wu"], lp["wd"], tp))
 
     for lp in model.enc_layers:
         x = lp(layer, x)
@@ -112,16 +133,32 @@ def whisper_encode(cfg, model, frames):
 def whisper_decoder_layer(cfg, x, lp, enc_out):
     """One Whisper decoder layer over the sequence: causal self-attention
     with rope, cross-attention to ``enc_out`` (no rope, no mask), the
-    MLP; returns (x', (k, v, xk, xv), 0.0)."""
-    h = apply_norm(cfg, x, lp, "ln1")
-    o, (k, v) = gqa_attention(cfg, h, lp)
-    x = x + o
-    hx = apply_norm(cfg, x, lp, "lnx")
+    MLP; returns (x', (k, v, xk, xv), 0.0).
+
+    Under a serving rank's ``TensorParallel`` (``model.decoder_layer``'s
+    sequence parallelism): x is this rank's block of the sequence; each
+    of the three is gathered over the sequence after its norm
+    (``gather_seq``), runs on the rank's heads (the cross-attention's K
+    and V from the whole ``enc_out``, every frame) or MLP columns, and
+    its float32 partial sum is reduce-scattered back onto the block
+    (``scatter_seq``); the cache pieces are the rank's KV heads."""
+    from ..dist.spmd import gather_seq, scatter_seq
+    tp = tensor_parallel()
+
+    def gather(h):
+        return h if tp is None else gather_seq(h, tp)
+
+    def scatter(o):
+        return o if tp is None else scatter_seq(o, tp).to(x.dtype)
+    h = gather(apply_norm(cfg, x, lp, "ln1"))
+    o, (k, v) = gqa_attention(cfg, h, lp, tp=tp)
+    x = x + scatter(o)
+    hx = gather(apply_norm(cfg, x, lp, "lnx"))
     xo, (xk, xv) = gqa_attention(cfg, hx, lp, kv_x=enc_out, causal=False,
-                                 use_rope=False, prefix="x_")
-    x = x + xo
-    h2 = apply_norm(cfg, x, lp, "ln2")
-    return x + mlp(cfg, h2, lp.get("wg"), lp["wu"], lp["wd"]), \
+                                 use_rope=False, prefix="x_", tp=tp)
+    x = x + scatter(xo)
+    h2 = gather(apply_norm(cfg, x, lp, "ln2"))
+    return x + scatter(mlp(cfg, h2, lp.get("wg"), lp["wu"], lp["wd"], tp)), \
         (k, v, xk, xv), 0.0
 
 
@@ -284,15 +321,17 @@ def cache_shapes(cfg, batch: int, seq: int, tp=None) -> dict:
     """The decode cache's leaves at KV length ``seq``, as the reference's
     ``abstract_cache`` (the module's docstring lists them); ``tp`` (a
     serving rank's ``TensorParallel``): the KV heads its query heads
-    read (``model.tp_heads``)."""
+    read (``model.tp_heads``; a Whisper decoder's ``xk``/``xv`` too), its
+    block of the SSD heads in ``state``."""
     check_family(cfg)
     L, fam = cfg.n_layers, cfg.family
-    heads = cfg.n_kv_heads
+    heads, ssm_heads = cfg.n_kv_heads, cfg.ssm_heads
     if tp is not None:
         _, (kv0, kv1) = tp_heads(cfg, tp)
-        heads = kv1 - kv0
+        h0, h1 = tp.block(ssm_heads)
+        heads, ssm_heads = kv1 - kv0, h1 - h0
     kv = (L, batch, seq, heads, cfg.dh)
-    state = (L, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+    state = (L, batch, ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
     if cfg.kv_lora_rank:
         return {"ckv": (L, batch, seq, cfg.kv_lora_rank),
                 "kr": (L, batch, seq, cfg.qk_rope_dim)}
@@ -302,7 +341,7 @@ def cache_shapes(cfg, batch: int, seq: int, tp=None) -> dict:
         ring = (L, batch, cfg.window, cfg.n_kv_heads, cfg.dh)
         return {"k": ring, "v": ring, "state": state}
     if fam == "encdec":
-        x = (L, batch, cfg.encoder_frames, cfg.n_kv_heads, cfg.dh)
+        x = (L, batch, cfg.encoder_frames, heads, cfg.dh)
         return {"k": kv, "v": kv, "xk": x, "xv": x}
     return {"k": kv, "v": kv}
 
@@ -361,13 +400,17 @@ def decode_layer(cfg, x, lp, kind: str, cache, l: int, pos, tp=None):
     ``pos mod W``) into ``cache[...][l]`` before its attention reads
     them, advances its SSD state in place, and returns x'.
 
-    ``tp`` (a serving rank's ``TensorParallel``, a dense or MoE layer): x
-    and the norms (K4) are whole on every rank; GQA's K and V are its KV
-    heads', K5 its query heads against them; MLA's latent and rope key
-    are whole, its heads' absorbed decode reads them; the MLP, or the
-    MoE layer's experts and shared experts, its block.  The attention's
-    and the feed-forward's partial sums, kept in float32, are added over
-    ``model`` in float32 and rounded once (``dist.spmd.sum_over_model``)."""
+    ``tp`` (a serving rank's ``TensorParallel``): x and the norms (K4,
+    LayerNorm) are whole on every rank; GQA's K and V are its KV heads',
+    K5 its query heads against them (a Whisper decoder's
+    cross-attention too, over every frame of its ``xk``/``xv`` heads);
+    MLA's latent and rope key are whole, its heads' absorbed decode
+    reads them; the SSD mixer updates its heads' state, its gated norm
+    over the whole d_inner from K4's block entry; the MLP, or the MoE
+    layer's experts and shared experts, its block.  Each partial sum
+    (the attention's, the cross-attention's, the mixer's, the
+    feed-forward's), kept in float32, is added over ``model`` in float32
+    and rounded once (``dist.spmd.sum_over_model``)."""
 
     def summed(o):
         if tp is None:
@@ -378,7 +421,7 @@ def decode_layer(cfg, x, lp, kind: str, cache, l: int, pos, tp=None):
     h = apply_norm(cfg, x, lp, "ln1")
     if kind == "ssm":
         o, _ = ssm_lib.ssm_mixer(cfg, h, ssm_params(lp),
-                                 state=cache["state"][l])
+                                 state=cache["state"][l], tp=tp)
     elif kind == "hybrid":
         k, v = new_kv(cfg, h, lp, pos)
         slot = pos % cfg.window
@@ -404,9 +447,9 @@ def decode_layer(cfg, x, lp, kind: str, cache, l: int, pos, tp=None):
     x = x + summed(o)
     if cfg.family == "encdec":
         hx = apply_norm(cfg, x, lp, "lnx")
-        x = x + decode_gqa_attention(
+        x = x + summed(decode_gqa_attention(
             cfg, hx, lp, cache["xk"][l], cache["xv"][l], pos,
-            kv_len=cfg.encoder_frames, use_rope=False, prefix="x_")
+            kv_len=cfg.encoder_frames, use_rope=False, prefix="x_", tp=tp))
     if kind != "ssm":
         h2 = apply_norm(cfg, x, lp, "ln2")
         x = x + summed(_moe_or_mlp(cfg, h2, lp, kind == "moe", tp)[0])
@@ -513,17 +556,21 @@ def prefill(cfg, model, tokens, *, patches=None, frames=None):
     return _logits(cfg, model, x, tp)[:, 0], cache
 
 
+#: the families whose serving splits over ``model``
+SERVING_TP_FAMILIES = ("dense", "vlm", "moe", "ssm", "encdec")
+
+
 def _serving_tp(cfg, model):
     """The ``TensorParallel`` a serving step runs under (None off one):
     the model must hold this rank's blocks (``tp.blocks``), and only
-    the dense, vlm and MoE families split."""
+    ``SERVING_TP_FAMILIES`` split (not the hybrid family)."""
     tp = tensor_parallel()
     if tp is not None and not (tp.blocks
-                               and cfg.family in ("dense", "vlm", "moe")):
+                               and cfg.family in SERVING_TP_FAMILIES):
         raise NotImplementedError(
-            f"{cfg.name}: tensor-parallel serving splits the dense, vlm and "
-            f"MoE families, the model holding this rank's blocks "
-            f"(launch.serve.load_model)")
+            f"{cfg.name}: tensor-parallel serving splits the "
+            f"{', '.join(SERVING_TP_FAMILIES)} families, the model holding "
+            f"this rank's blocks (launch.serve.load_model)")
     return tp
 
 

@@ -319,7 +319,10 @@ def tp_heads(cfg, tp):
     """A tensor-parallel rank's block of the query heads, (q0, q1), and
     the KV heads those read, (kv0, kv1) (``train.steps.
     tensor_parallel_split`` holds the block to whole groups of G query
-    heads a KV head, or to part of one)."""
+    heads a KV head, or to part of one); none, ``((0, 0), (0, 0))``, for
+    a config without attention (the ssm family)."""
+    if not cfg.n_heads:
+        return (0, 0), (0, 0)
     G = cfg.n_heads // cfg.n_kv_heads
     q0, q1 = tp.block(cfg.n_heads)
     return (q0, q1), (q0 // G, (q1 - 1) // G + 1)
@@ -597,20 +600,25 @@ def decoder_layer(cfg, x, lp, kind: str = "dense"):
     or a hybrid's (k, v, final state).
 
     On a sharded step's ``TensorParallel`` (a dense or MoE layer, GQA or
-    MLA), the reference's sequence parallelism: x is this rank's block
-    of the sequence (B, S/n, D) and so is x'; each norm (K4) runs on it,
-    its output is gathered over the sequence (``gather_seq``) for the
-    rank's heads, columns or experts, and their partial sums are
+    MLA; on a serving rank an ssm layer too), the reference's sequence
+    parallelism: x is this rank's block of the sequence (B, S/n, D) and
+    so is x'; each norm (K4) runs on it, its output is gathered over the
+    sequence (``gather_seq``) for the rank's heads, columns, experts or
+    SSD heads (``ssm_mixer``'s scan over the whole sequence, its final
+    state the rank's heads'), and their partial sums are
     reduce-scattered back onto the block (``scatter_seq``; in float32
     on a serving rank, ``common.partial_matmul``)."""
     tp = tensor_parallel()
     if tp is not None:
-        if kind not in ("dense", "moe"):
+        if kind not in ("dense", "moe", "ssm"):
             raise NotImplementedError(
                 f"{cfg.name}: a {kind} layer under tensor parallelism comes "
                 f"with a later slice (ROADMAP.md)")
         from ..dist.spmd import gather_seq, scatter_seq
         h = gather_seq(apply_norm(cfg, x, lp, "ln1"), tp)
+        if kind == "ssm":
+            o, state = ssm_lib.ssm_mixer(cfg, h, ssm_params(lp), tp=tp)
+            return x + scatter_seq(o, tp).to(x.dtype), (state,), 0.0
         attention = mla_attention if cfg.kv_lora_rank else gqa_attention
         o, cache = attention(cfg, h, lp, tp=tp)
         x = x + scatter_seq(o, tp).to(x.dtype)

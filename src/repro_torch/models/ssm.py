@@ -4,9 +4,10 @@ step (arXiv:2405.21060, minimal formulation, ngroups = 1).
 
 Plain PyTorch, as the reference's is plain JAX: no Pallas kernel stands
 behind the scan.  The gated norm runs through ``common.rmsnorm``, so it is
-K4 on the card, at D = d_inner.  The reference writes the within-chunk
-and state terms as 3- and 4-operand einsums; here they are pairwise
-contractions in a fixed order, since ``torch.einsum`` without
+K4 on the card, at D = d_inner (on a tensor-parallel serving rank, K4's
+block entry over its heads' columns).  The reference writes the
+within-chunk and state terms as 3- and 4-operand einsums; here they are
+pairwise contractions in a fixed order, since ``torch.einsum`` without
 ``opt_einsum`` contracts left to right and can build a (b, nc, c, c, h,
 p) intermediate.  The inter-chunk ``lax.scan`` is a loop over chunks.
 """
@@ -15,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import rmsnorm
+from .common import partial_matmul, rmsnorm, rmsnorm_over_model
 
 
 def _segsum(a):
@@ -84,7 +85,7 @@ def ssd_forward(xdt, a_log, B, C, chunk: int):
     return y.to(xdt.dtype), state
 
 
-def ssm_mixer(cfg, x, p, state=None):
+def ssm_mixer(cfg, x, p, state=None, tp=None):
     """The full SSD mixer on x (B, S, D).
 
     p: ``in_proj`` (D, 2 d_inner + 2 N + H), ``dt_bias``, ``A_log``,
@@ -93,9 +94,25 @@ def ssm_mixer(cfg, x, p, state=None):
     final state (B, H, P, N) float32).  With ``state`` (decode, S == 1):
     one step of the recurrence ``state · exp(a) + x_dt Bᵀ`` in float32,
     written into ``state`` in place; returns (out, state).
+
+    ``tp`` (a serving rank's ``TensorParallel``, ``tp.blocks``): ``p``
+    holds this rank's block h0:h1 of the H SSD heads
+    (``dist.sharding.param_block``): ``in_proj``'s columns of z and xs
+    (its heads' P columns each), B and C whole (ngroups = 1: every head
+    reads them) and dt (its heads), in that order; its heads' ``dt_bias``,
+    ``A_log``, ``D_skip`` and ``norm_g`` and its rows of ``out_proj``.
+    The scan or the state update runs on its heads alone (the state (B,
+    h1 - h0, P, N)), the gated norm over the whole d_inner through K4's
+    block entry (``common.rmsnorm_over_model``: a rank's block alone
+    would give its own mean), and the result is this rank's float32
+    partial sum (``common.partial_matmul``).
     """
     Bsz, S, _ = x.shape
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    if tp is not None:
+        h0, h1 = tp.block(H)
+        H = h1 - h0
+        di = H * P
     f32 = torch.float32
     z, xs, Bv, Cv, dt = torch.split(x @ p["in_proj"], [di, di, N, N, H],
                                     dim=-1)
@@ -114,8 +131,11 @@ def ssm_mixer(cfg, x, p, state=None):
         y = y[:, None].to(x.dtype)
 
     y = y + xh * p["D_skip"][None, None, :, None].to(xh.dtype)
-    y = rmsnorm(y.reshape(Bsz, S, di) * F.silu(z), p["norm_g"])  # gated
-    return y @ p["out_proj"], state
+    gated = y.reshape(Bsz, S, di) * F.silu(z)
+    if tp is None:
+        return rmsnorm(gated, p["norm_g"]) @ p["out_proj"], state
+    y = rmsnorm_over_model(gated, p["norm_g"], cfg.d_inner, tp)
+    return partial_matmul(y, p["out_proj"], tp), state
 
 
 def ssm_param_shapes(cfg) -> dict:

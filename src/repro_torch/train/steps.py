@@ -285,28 +285,42 @@ def tensor_parallel_split(cfg, mp: int, serving: bool = False):
     shared experts' ``d_ff_moe · n_shared_experts``) and, where it does
     not divide the experts and the MoE layer is ``moe_layer``'s (the
     F-split), ``d_ff_moe``; a GQA rank's query heads must be whole groups
-    of a KV head's or part of one.  ``serving``: the dense, vlm and MoE
-    families, the MoE layer ``moe_layer``'s (``moe_impl="gspmd"``); a
-    GQA decode cache's KV heads must lie as
+    of a KV head's or part of one.  ``serving``: the dense, vlm, MoE,
+    ssm and encdec families (``models.forward.SERVING_TP_FAMILIES``),
+    the MoE layer ``moe_layer``'s (``moe_impl="gspmd"``); the ssm
+    family's ``ssm_heads`` must split (the SSD heads, their state and
+    their block of the gated norm's columns), and an encoder-decoder's
+    heads and ``d_ff`` as a dense config's; a GQA decode cache's KV
+    heads (a Whisper decoder's cross ``xk``/``xv`` too) must lie as
     ``dist.sharding.cache_pspecs`` puts them, over ``model`` where ``mp``
     divides them, else whole, and so be the heads each rank's queries
     read: ``mp`` divides ``n_kv_heads``, or there is one
     (``ValueError``); MLA's latent cache, which every head reads, is
-    whole on every rank."""
-    families = ("dense", "vlm", "moe") if serving else ("dense", "moe")
+    whole on every rank.  The hybrid family waits for splits the axis
+    does not divide: Hymba-1.5B's 25 query heads over 5 KV heads split
+    over no axis of 2, 4, 8 or 16, and its ``d_ff`` of 5504 not over
+    5."""
+    from ..models.forward import SERVING_TP_FAMILIES
+    families = SERVING_TP_FAMILIES if serving else ("dense", "moe")
     if cfg.family not in families:
+        later = (" (the uneven-split item: Hymba-1.5B's 25 query heads "
+                 "over 5 KV heads split over no 'model' axis of 2, 4, 8 or "
+                 "16)" if serving and cfg.family == "hybrid" else "")
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism over a 'model' axis of {mp} "
             f"on the {cfg.family} family comes with a later "
-            f"tensor-parallel slice (ROADMAP.md); this one splits the "
-            f"{', '.join(families[:-1])} and {families[-1]} families")
+            f"tensor-parallel slice{later} (ROADMAP.md); this one splits "
+            f"the {', '.join(families[:-1])} and {families[-1]} families")
     if serving and cfg.moe_impl == "shard_map":
         raise NotImplementedError(
             f"{cfg.name}: tensor-parallel serving runs the MoE layer as "
             f"moe_impl='gspmd' places it; moe_impl='shard_map' comes with "
             f"a later tensor-parallel slice (ROADMAP.md)")
-    dims = [("n_heads", cfg.n_heads)]
-    if cfg.family != "moe" or cfg.first_dense_layers:
+    if cfg.family == "ssm":
+        dims = [("ssm_heads", cfg.ssm_heads)]
+    else:
+        dims = [("n_heads", cfg.n_heads)]
+    if cfg.family not in ("moe", "ssm") or cfg.first_dense_layers:
         dims.append(("d_ff", cfg.d_ff))
     if cfg.n_shared_experts:
         dims.append(("d_ff_moe · n_shared_experts",
@@ -319,6 +333,8 @@ def tensor_parallel_split(cfg, mp: int, serving: bool = False):
                 f"{cfg.name}: {dim} = {size} does not split over a 'model' "
                 f"axis of {mp}: a split the axis does not divide comes "
                 f"with a later tensor-parallel slice (ROADMAP.md)")
+    if not cfg.n_heads:
+        return
     heads, G = cfg.n_heads // mp, cfg.n_heads // cfg.n_kv_heads
     if not cfg.kv_lora_rank and heads % G and G % heads:
         raise ValueError(

@@ -328,6 +328,49 @@ def test_rmsnorm_unaligned_view_matches_ref(dtype, cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("T,D,n", [(8, 5120, 2), (256, 5120, 2),
+                                   (8, 5120, 4), (5, 1001, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_block_entry_matches_ref_and_whole_rows_on_gpu(T, D, n,
+                                                               dtype, cuda):
+    """K4's block entry (Mamba-2's gated norm over d_inner 5120, its rows
+    cut into a rank's SSD heads' columns; an odd width takes the element
+    path) on each block, a slice's copy: the sums of squares and the
+    scaled block against their plain versions, bitwise on a second
+    launch; the blocks' sums added and the blocks joined against the
+    whole rows' K4."""
+    rng = np.random.default_rng(T + D + n)
+    x, g = _randn(rng, T, D, dtype=dtype), _randn(rng, D)
+    cuts = [(int(b[0]), int(b[-1]) + 1)
+            for b in torch.tensor_split(torch.arange(D), n)]
+    blocks = [x[:, lo:hi].contiguous() for lo, hi in cuts]
+    before = (LAUNCHES.by_kernel[k4.SUMSQ_NAMES[dtype]],
+              LAUNCHES.by_kernel[k4.SCALE_NAMES[dtype]])
+    sums = []
+    for blk in blocks:
+        ss = k4.rmsnorm_block_sumsq(blk)
+        assert ss.dtype == torch.float32 and ss.shape == (T,)
+        assert _rel(ss, ref.rmsnorm_block_sumsq(blk)) <= 1e-5
+        assert torch.equal(ss, k4.rmsnorm_block_sumsq(blk))
+        sums.append(ss)
+    total = torch.stack(sums).sum(0)
+    tol = 1e-3 if dtype == torch.bfloat16 else 1e-5
+    outs = []
+    for blk, (lo, hi) in zip(blocks, cuts):
+        got = k4.rmsnorm_block_scale(blk, total, g[lo:hi], D)
+        assert got.dtype == dtype and got.shape == blk.shape
+        assert _rel(got, ref.rmsnorm_block_scale(blk, total, g[lo:hi],
+                                                 D)) <= tol
+        assert torch.equal(_bits(got), _bits(k4.rmsnorm_block_scale(
+            blk, total, g[lo:hi], D)))
+        outs.append(got)
+    assert (LAUNCHES.by_kernel[k4.SUMSQ_NAMES[dtype]],
+            LAUNCHES.by_kernel[k4.SCALE_NAMES[dtype]]) == \
+        (before[0] + 2 * n, before[1] + 2 * n)
+    assert _rel(torch.cat(outs, 1), k4.rmsnorm(x, g)) <= tol
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n", [1000, 1024, 1_000_003])
 @pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16])
 def test_adamw_kernel_matches_ref_on_gpu(n, pdt, cuda):
@@ -1333,6 +1376,32 @@ def test_moe_tp_serving_on_gloo_ranks_gives_the_one_rank_tokens(
         np.testing.assert_array_equal(tokens, want)
         assert launches.get("K4/rmsnorm_bf16"), launches
         assert bool(launches.get("K5/split_bf16")) == (arch == "grok1_314b")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2_2p7b", "whisper_medium"])
+def test_ssm_encdec_tp_serving_on_gloo_ranks_gives_the_one_rank_tokens(
+        arch, cuda, tmp_path):
+    """``serve --arch mamba2_2p7b|whisper_medium --smoke --model-parallel
+    2`` on two gloo ranks that share the card, as the dense test above:
+    the greedy tokens of the run on one rank; Mamba-2's ranks launch K4
+    whole and its block entry (the gated norm), Whisper's K5 (its
+    self- and cross-attention; LayerNorm launches no K4)."""
+    import torch_tp_serve_ranks as ranks
+    from repro_torch.dist.spmd import run_ranks
+    from repro_torch.launch import serve
+    argv = ["--arch", arch, "--smoke", "--batch", "2", "--prompt-len",
+            "24", "--gen", "6"]
+    want = serve.main(argv)
+    got = run_ranks(ranks.serve_main, 2, argv + ["--model-parallel", "2"],
+                    backend="gloo", timeout_s=300, tmpdir=str(tmp_path))
+    names = (("K4/rmsnorm_bf16", "K4/block_sumsq_bf16",
+              "K4/block_scale_bf16") if arch == "mamba2_2p7b"
+             else ("K5/split_bf16", "K5/combine_bf16"))
+    for tokens, launches in got:
+        np.testing.assert_array_equal(tokens, want)
+        for k in names:
+            assert launches.get(k), (k, launches)
 
 
 @pytest.mark.gpu

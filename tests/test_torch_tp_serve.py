@@ -1,9 +1,10 @@
-"""The port's tensor-parallel serving of the dense, vlm and MoE families
-(``serve --arch --model-parallel``) against the JAX reference on the
-CPU: each rank holds its blocks of the weights (heads, MLP columns,
-experts or their hidden columns, vocabulary) and of the decode cache
-(its KV heads; MLA's latent whole), the decode step's row-split outputs
-are summed over ``model`` in float32, and the logits come back whole.
+"""The port's tensor-parallel serving of the dense, vlm, MoE, ssm and
+encdec families (``serve --arch --model-parallel``) against the JAX
+reference on the CPU: each rank holds its blocks of the weights (heads,
+MLP columns, experts or their hidden columns, SSD heads, vocabulary) and
+of the decode cache (its KV heads, Whisper's cross K/V too; MLA's latent
+whole; its SSD heads' state), the decode step's row-split outputs are
+summed over ``model`` in float32, and the logits come back whole.
 
 No process group is started in the pytest process: the ranks run in
 processes of their own (``dist.spmd.run_ranks``, one thread a rank, a
@@ -13,9 +14,10 @@ cases on 4 ranks, then the cases on 2 in two groups of 2.
 
 Each case is float32 at the smoke size (DeepSeek-V2-Lite's with 4
 experts on (1, 2) and (1, 4), expert parallelism, and with 6 on (1, 4),
-the F-split; Grok-1's GQA 4/2 with 4 experts on (1, 2)), B 2, a prompt
-of 24 (the smoke vlm's 16 patches first), 8 greedy tokens, against the
-reference's
+the F-split; Grok-1's GQA 4/2 with 4 experts on (1, 2); Mamba-2's 8 SSD
+heads and Whisper's 4 heads over 30 frames on (1, 2) and (1, 4)), B 2, a
+prompt of 24 (the smoke vlm's 16 patches first), 8 greedy tokens,
+against the reference's
 prefill and its jitted ``make_decode_step`` on one CPU device (as
 ``torch_lm_parity.check_greedy``): the greedy tokens equal; the
 prefill's logits and every step's, teacher-forced on the reference's
@@ -57,8 +59,9 @@ def _ref_run(model):
     tree = reference_tree(rcfg)
     x = ranks.inputs(ranks.config(*model))
     batch = {"tokens": jnp.asarray(x["prompts"])}
-    if x["patches"] is not None:
-        batch["patches"] = jnp.asarray(x["patches"])
+    for name in ("patches", "frames"):
+        if x[name] is not None:
+            batch[name] = jnp.asarray(x[name])
     logits, cache = ref_steps.make_prefill_step(rcfg)(tree, batch)
     cache = grow_ref(rcfg, cache, ranks.P, ranks.P + ranks.G)
     step = jax.jit(ref_steps.make_decode_step(rcfg))
@@ -89,7 +92,7 @@ def unsharded(reference):
             cfg, reference[m][0], "cpu"))
         x = ranks.inputs(cfg)
         res = serve.generate(cfg, model, x["prompts"], ranks.G,
-                             patches=x["patches"])
+                             patches=x["patches"], frames=x["frames"])
         out[m] = {"tokens": res["tokens"],
                   "cache": {k: v.numpy() for k, v in res["cache"].items()}}
     return out
@@ -140,9 +143,10 @@ def test_tp_serving_matches_the_reference(suite, reference, case):
 def test_each_rank_holds_its_block_of_the_cache(suite, unsharded, case):
     """Each rank's cache leaves are shaped as ``cache_pspecs`` puts them
     on the (data, model) mesh (the batch over ``data``, the KV heads over
-    ``model`` where they divide, else whole; MLA's ``ckv`` and ``kr``
-    whole) and equal the unsharded port's cache there, its rows and
-    heads."""
+    ``model`` where they divide, else whole, Whisper's cross ``xk`` and
+    ``xv`` too; MLA's ``ckv`` and ``kr`` whole; the SSD ``state``'s heads
+    over ``model``) and equal the unsharded port's cache there, its rows
+    and heads."""
     _, (dpn, mp), _ = ranks.CASES[case]
     model = ranks.model_of(ranks.CASES[case])
     cfg = ranks.config(*model)
@@ -172,8 +176,11 @@ def test_each_rank_holds_its_block_of_the_cache(suite, unsharded, case):
 
 
 DENSE = [c for c, (arch, _, _) in ranks.CASES.items()
-         if ranks.config(arch).family != "moe"]
-MOE = [c for c in ranks.CASES if c not in DENSE]
+         if ranks.config(arch).family in ("dense", "vlm")]
+MOE = [c for c, (arch, _, _) in ranks.CASES.items()
+       if ranks.config(arch).family == "moe"]
+SSM_ENCDEC = [c for c, (arch, _, _) in ranks.CASES.items()
+              if ranks.config(arch).family in ("ssm", "encdec")]
 
 
 @pytest.mark.parametrize("case", DENSE)
@@ -271,6 +278,67 @@ def test_a_moe_rank_holds_its_heads_experts_and_blocks(suite, case):
             assert shapes[name] == shape, (name, r)
 
 
+def _ssm_encdec_rank_bytes(cfg, mp: int) -> int:
+    """A hand count of the float32 bytes one rank of a ``model`` axis of
+    ``mp`` holds of the smoke Mamba-2 or Whisper, from its fields: the
+    embedding (Mamba-2's tied: whole, its logits from the rank's rows),
+    the norms, Whisper's ``enc_pos`` whole; Mamba-2's block of the SSD
+    heads (``in_proj``'s z, xs and dt columns of them, its B and C
+    whole; their ``dt_bias``, ``A_log``, ``D_skip``, ``norm_g`` and
+    ``out_proj`` rows); Whisper's heads' blocks of the encoder's
+    attention, the decoder's self- and cross-attention, the MLPs'
+    columns and the vocabulary's."""
+    D, V = cfg.d_model, cfg.vocab
+    if cfg.family == "ssm":
+        di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        layer = (D + D * (2 * di // mp + 2 * N + H // mp) + 3 * H // mp
+                 + di // mp + di // mp * D)
+        return 4 * (V * D + D + cfg.n_layers * layer)
+    hd = cfg.n_heads // mp * cfg.dh
+    attn = 4 * D * hd                   # wq, wk, wv, wo: 16 KV heads
+    mlp = 2 * D * cfg.d_ff // mp        # GELU: wu, wd
+    dec = 6 * D + 2 * attn + mlp        # ln1, lnx, ln2 (gamma and beta)
+    enc = 4 * D + attn + mlp
+    return 4 * (V * D + D * V // mp + 2 * D + cfg.n_layers * dec
+                + cfg.encoder_layers * enc + cfg.encoder_frames * D
+                + 2 * D)
+
+
+@pytest.mark.parametrize("case", SSM_ENCDEC)
+def test_an_ssm_or_encdec_rank_holds_its_blocks(suite, case):
+    """A Mamba-2 serving rank holds its block of the SSD heads and the
+    whole tied embedding; a Whisper rank its heads of every attention
+    (the encoder's, the decoder's self- and cross-attention), its MLP
+    columns and vocabulary block: its bytes are ``rank_param_bytes``'s
+    and a hand count's, its leaves the blocks' shapes."""
+    arch, (_, mp), _ = ranks.CASES[case]
+    cfg = ranks.config(arch)
+    D = cfg.d_model
+    for r in _ranks_of(case):
+        got = suite[r][case]
+        assert got["param_bytes"] == got["param_bytes_want"] \
+            == _ssm_encdec_rank_bytes(cfg, mp)
+        shapes = got["leaf_shapes"]
+        assert shapes["embed"] == (cfg.vocab, D)
+        if cfg.family == "ssm":
+            di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+            want = {"layers.0.ssm_in_proj": (D, 2 * di // mp + 2 * N
+                                             + H // mp),
+                    "layers.0.ssm_A_log": (H // mp,),
+                    "layers.0.ssm_norm_g": (di // mp,),
+                    "layers.0.ssm_out_proj": (di // mp, D)}
+            assert "unembed" not in shapes
+        else:
+            hd = cfg.n_heads // mp * cfg.dh
+            want = {"layers.0.x_wq": (D, hd), "layers.0.x_wk": (D, hd),
+                    "layers.0.x_wo": (hd, D), "enc_layers.0.wq": (D, hd),
+                    "enc_layers.0.wd": (cfg.d_ff // mp, D),
+                    "enc_pos": (cfg.encoder_frames, D),
+                    "unembed": (D, cfg.vocab // mp)}
+        for name, shape in want.items():
+            assert shapes[name] == shape, (name, r)
+
+
 def test_tp_serve_cli_prints_the_same_tokens(capfd):
     """``serve --arch --model-parallel 2 --nproc 2`` on the CPU: rank 0
     prints the reference's three lines (and the mesh), with the tokens
@@ -306,10 +374,33 @@ def test_moe_tp_serve_cli_prints_the_one_device_tokens(capfd):
         in out
 
 
+@pytest.mark.parametrize("ssm_encdec_argv", [
+    ["--arch", "mamba2_2p7b", "--model-parallel", "2", "--nproc", "2"],
+    ["--arch", "whisper_medium", "--model-parallel", "2", "--nproc", "2"],
+    ["--arch", "whisper_medium", "--model-parallel", "4", "--nproc", "4"]])
+def test_ssm_encdec_tp_serve_cli_prints_the_one_device_tokens(
+        ssm_encdec_argv, capfd):
+    """``serve --arch mamba2_2p7b|whisper_medium --smoke --model-parallel
+    N --nproc N`` on the CPU (bf16, the launcher's defaults; Whisper's
+    frames drawn as the reference draws them): rank 0 prints the mesh
+    and the tokens of the run on one device, which serves the same
+    random model."""
+    arch, mp = ssm_encdec_argv[1], int(ssm_encdec_argv[3])
+    argv = ["--arch", arch, "--smoke", "--device", "cpu"]
+    want = serve.main(argv)
+    capfd.readouterr()
+    got = serve.main(argv + ssm_encdec_argv[2:])
+    np.testing.assert_array_equal(got, want)
+    out = capfd.readouterr().out
+    assert f"mesh: {{'data': 1, 'model': {mp}}}  devices={mp}  " \
+        "backend=gloo  graph=False" in out
+    assert f"sample generation (first sequence): {want[0][:16].tolist()}" \
+        in out
+
+
 @pytest.mark.parametrize("flags,match", [
-    (["--arch", "mamba2_2p7b", "--smoke", "--model-parallel", "2",
-      "--nproc", "2"],
-     r"ssm family comes with a later tensor-parallel slice"),
+    (["--arch", "mamba2_2p7b", "--model-parallel", "32", "--nproc", "32"],
+     r"ssm_heads = 80 does not split"),
     (["--arch", "hymba_1p5b", "--smoke", "--model-parallel", "2",
       "--nproc", "2"],
      r"hybrid family comes with a later tensor-parallel slice"),
@@ -325,9 +416,10 @@ def test_moe_tp_serve_cli_prints_the_one_device_tokens(capfd):
      r"runs over a torch.distributed process group: start it with "
      r"--nproc N or torchrun")])
 def test_serve_refuses_what_a_later_tp_slice_brings(flags, match):
-    """Before any rank starts: the ssm and hybrid families, a prompt or a
-    KV-head count the axis does not divide, a head count it does not
-    divide; and ``--model-parallel`` with no process group."""
+    """Before any rank starts: an SSD-head count the axis does not divide
+    (Mamba-2's 80 over 32), the hybrid family, a prompt or a KV-head
+    count the axis does not divide, a head count it does not divide; and
+    ``--model-parallel`` with no process group."""
     with pytest.raises(ValueError, match=match):
         serve.main(flags + ["--device", "cpu"])
 

@@ -1,5 +1,5 @@
 """What the ranks of ``tests/test_torch_tp_serve.py`` run: tensor-parallel
-serving of the dense, vlm and MoE families on gloo ranks
+serving of the dense, vlm, MoE, ssm and encdec families on gloo ranks
 (``dist.spmd.run_ranks``), so this module imports neither JAX nor the
 reference.
 
@@ -25,8 +25,8 @@ from repro_torch.train import steps
 #: greedy tokens
 B, P, G = 2, 24, 8
 
-#: the cases: (arch, mesh (data, model), config overrides); the first
-#: four run on 4 ranks, the rest on 2
+#: the cases: (arch, mesh (data, model), config overrides); those on
+#: (1, 4) and (2, 2) run on 4 ranks, the rest on 2
 CASES = {
     # Granite-34B's one KV head on every rank, 1 query head a rank
     "granite34_mqa_1x4": ("granite_34b", (1, 4), {}),
@@ -38,6 +38,10 @@ CASES = {
     # columns (the F-split)
     "deepseek_e6_fsplit_1x4": ("deepseek_v2_lite", (1, 4),
                                {"n_experts": 6}),
+    # Mamba-2's 8 SSD heads, 2 a rank: its gated norm over the ranks
+    "mamba_1x4": ("mamba2_2p7b", (1, 4), {}),
+    # Whisper's 4 heads, one a rank, encoder and cross-attention split
+    "whisper_1x4": ("whisper_medium", (1, 4), {}),
     "llama_1x2": ("llama3_8b", (1, 2), {}),
     "qwen_bias_1x2": ("qwen2_7b", (1, 2), {}),
     "granite3_1x2": ("granite3_8b", (1, 2), {}),
@@ -46,10 +50,13 @@ CASES = {
     "deepseek_1x2": ("deepseek_v2_lite", (1, 2), {}),
     # GQA 4/2 heads, 4 experts, two a rank
     "grok_1x2": ("grok1_314b", (1, 2), {}),
+    "mamba_1x2": ("mamba2_2p7b", (1, 2), {}),
+    "whisper_1x2": ("whisper_medium", (1, 2), {}),
 }
 #: the cases on 2 ranks, by the pair that runs them
-PAIRS = (("llama_1x2", "qwen_bias_1x2", "granite3_1x2", "deepseek_1x2"),
-         ("granite34_mqa_1x2", "llava_1x2", "grok_1x2"))
+PAIRS = (("llama_1x2", "qwen_bias_1x2", "granite3_1x2", "deepseek_1x2",
+          "mamba_1x2"),
+         ("granite34_mqa_1x2", "llava_1x2", "grok_1x2", "whisper_1x2"))
 
 
 def model_of(case) -> tuple:
@@ -66,8 +73,8 @@ def config(arch, over=()):
 
 
 def inputs(cfg) -> dict:
-    """The prompts (and a vlm's patches), drawn as ``serve --arch`` draws
-    them."""
+    """The prompts (and a vlm's patches, an encoder-decoder's frames),
+    drawn as ``serve --arch`` draws them."""
     return serve.draw_inputs(cfg, B, P, 3)
 
 
@@ -77,8 +84,9 @@ def forced_logits(cfg, model, x, tokens, spmd=None) -> np.ndarray:
     rows of the batch."""
     lo, hi = (0, B) if spmd is None else serving_rows(cfg, B, spmd)
     batch = {"tokens": torch.from_numpy(x["prompts"][lo:hi])}
-    if x["patches"] is not None:
-        batch["patches"] = torch.from_numpy(x["patches"][lo:hi])
+    for name in ("patches", "frames"):
+        if x[name] is not None:
+            batch[name] = torch.from_numpy(x[name][lo:hi])
     logits, cache = steps.make_prefill_step(cfg, spmd)(model, batch)
     cache = serve.grow_cache(cfg, cache, P + G)
     step = steps.make_decode_step(cfg, spmd)
@@ -104,7 +112,7 @@ def run_case(case, tree, want_tokens) -> dict:
                                                    spmd.tp))
     x = inputs(cfg)
     res = serve.generate(cfg, model, x["prompts"], G, patches=x["patches"],
-                         spmd=spmd)
+                         frames=x["frames"], spmd=spmd)
     return {"tokens": res["tokens"], "backend": res["backend"],
             "graph": res["graph"], "mesh": spmd.describe(),
             "coords": (spmd.dp_rank, spmd.model_rank),
